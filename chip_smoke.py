@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs a CUDA device, ``nvcc`` (it builds the kernels from
+``genomics_rs_tpu_torch/csrc/`` itself) and a host C++ compiler (for the
+``native/gotoh_cpu.cpp`` score oracle). Any failed check exits nonzero.
+
+Phases, one line each:
+  0  the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1
+  1  build the kernels and the oracle
+  2  K1 (row-block fill) kernel == its plain version, on the card
+  3  K2 (traceback walker) kernel == its plain version, on the card
+  4  ``align`` end to end through ``PairwiseAligner(device="cuda")``:
+     reference goldens, a seeded ~10 kb local pair (monolithic path) and
+     a seeded 29,903 bp global pair (checkpointed path), scores and start
+     cells held against the C++ oracle; launch counters show both
+     kernels ran and no plain version did; then the 29,903 bp path is
+     replayed with every fill and walk recorded, and each is held
+     against its plain version on the same inputs
+  5  kernel and plain-version times at the main path's shapes, and the
+     wall time of the 29,903 bp ``align``
+
+The second-to-last line is a JSON summary of the kernels; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+TEST_SCORES = (1, -2, -2, -5)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except FileNotFoundError:
+        fail("nvidia-smi not found: this machine has no NVIDIA GPU stack")
+    if proc.returncode != 0 or not proc.stdout.strip():
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def mutate(rng, s: str, snp: float, n_indels: int) -> str:
+    """~snp substitutions per base plus n_indels short indels."""
+    b = np.frombuffer(s.encode(), np.uint8).copy()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    hit = np.nonzero(rng.random(b.size) < snp)[0]
+    idx = np.searchsorted(acgt, b[hit])
+    b[hit] = acgt[(idx + rng.integers(1, 4, hit.size)) % 4]
+    out = b.tobytes().decode()
+    for _ in range(n_indels):
+        p = int(rng.integers(0, len(out) - 20))
+        L = int(rng.integers(1, 12))
+        if rng.random() < 0.5:
+            out = out[:p] + out[p + L :]
+        else:
+            out = out[:p] + "".join(rng.choice(list("ACGT"), L)) + out[p:]
+    return out
+
+
+def random_dna(rng, n: int) -> str:
+    return "".join(rng.choice(list("ACGT"), n))
+
+
+def main() -> None:
+    # ---- phase 0: the card ----
+    card = card_line()
+    print(card)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    dev = torch.device("cuda", 0)
+    print(f"[phase 0] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | card {card}", flush=True)
+
+    from genomics_rs_tpu_torch import native
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
+    from genomics_rs_tpu_torch.models.longalign import align_checkpointed
+    from genomics_rs_tpu_torch.ops import _build
+    from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+    from genomics_rs_tpu_torch.ops import traceback_device as td
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
+    from genomics_rs_tpu_torch.ops.traceback import AlignmentChoice as C
+    from genomics_rs_tpu_torch.sequence import PAD_S2, Sequence, round_up
+
+    # ---- phase 1: build ----
+    t0 = time.perf_counter()
+    _build.library()
+    native.library()
+    ptxas = [ln.strip() for ln in _build.BUILD_INFO.get("ptxas", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[phase 1] built kernels + oracle in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.BUILD_INFO['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}",
+          flush=True)
+
+    def codes_at(dirs, R, B, rows=512):
+        """Direction codes at every block cell (li <= R, j <= B), on device."""
+        out = []
+        j = torch.arange(B + 1, device=dirs.device)[None, :]
+        for r0 in range(0, R + 1, rows):
+            li = torch.arange(r0, min(R + 1, r0 + rows), device=dirs.device)[:, None]
+            k = li + j
+            w = dirs[k // 16, li].to(torch.int64)
+            out.append((w >> (2 * (k % 16))) & 3)
+        return torch.cat(out)
+
+    def fill_err(got, want, R, n, B):
+        """Max |difference| over every output both fills give."""
+        errs = [abs(int(got.score_at_mn) - int(want.score_at_mn))]
+        errs += [abs(int(a) - int(b)) for a, b in zip(got.best, want.best)]
+        if want.bottom is not None:
+            errs.append(int((got.bottom.long() - want.bottom.long()).abs().max()))
+        if want.cols is not None:
+            V = rb.lane_count(R)
+            for c in range(want.cols.shape[0]):
+                if c * V <= n:
+                    d = got.cols[c, :, 1 : R + 1].long() - want.cols[c, :, 1 : R + 1].long()
+                    errs.append(int(d.abs().max()))
+        if want.dirs is not None:
+            d = codes_at(got.dirs, R, B) - codes_at(want.dirs, R, B)
+            errs.append(int(d.abs().max()))
+        return max(errs)
+
+    # ---- phase 2: K1 kernel vs plain ----
+    rng = np.random.default_rng(2024)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    k1_err = 0
+    bitmaps = []  # (dirs, R, B, i0, start_li, start_j) for phase 3
+    cases = []
+    for is_local in (False, True):
+        for st in (None, -1):
+            for with_left in (False, True):
+                cases.append((300, 512, 480, 1000, 300, is_local, st, with_left))
+    cases += [
+        (2047, 3072, 3000, 2047, 0, False, None, False),
+        (2047, 3072, 3000, 2047, 0, True, -1, True),
+    ]
+    t0 = time.perf_counter()
+    for R, B, n, m, i0, is_local, st, with_left in cases:
+        sc = Scores(2, -3, -2, -4, st)
+        s1 = torch.from_numpy(acgt[rng.integers(0, 4, R)].copy()).to(dev)
+        s2 = np.full(B, PAD_S2, np.uint8)
+        s2[:n] = acgt[rng.integers(0, 4, n)]
+        s2 = torch.from_numpy(s2).to(dev)
+        top = global_boundary_top(0, B, sc, device=dev)
+        if i0 > 0:  # a carried row, not the table's first
+            top = top + torch.from_numpy(rng.integers(-6, 3, (3, B + 1)).astype(np.int32)).to(dev)
+            top[:, 0] = torch.tensor([-1 << 30, -1 << 30, sc.h + i0 * sc.g], dtype=torch.int32)
+        left = None
+        if with_left:
+            left = torch.from_numpy(rng.integers(-60, 8, (3, R)).astype(np.int32)).to(dev)
+        args = (s1, s2, top, m, n, i0, sc, is_local)
+        emit = dict(emit_dirs=True, emit_bottom=True, emit_cols=True, left=left)
+        got = rb.gotoh_rowblock(*args, **emit)
+        want = rb.gotoh_rowblock_plain(*args, **emit)
+        torch.cuda.synchronize()
+        err = fill_err(got, want, R, n, B)
+        k1_err = max(k1_err, err)
+        check(err == 0, f"K1 kernel != plain (R={R}, B={B}, local={is_local}, "
+                        f"st={st}, left={with_left}): max |err| {err}")
+        if i0 == 0 and not with_left:
+            si, sj = ((int(got.best[1]), int(got.best[2])) if is_local
+                      else (min(m, R), n))
+            bitmaps.append((got.dirs, R, B, i0, si, sj))
+        if i0 > 0 and not with_left and not is_local:
+            bitmaps.append((got.dirs, R, B, i0, R, n))
+    print(f"[phase 2] K1 kernel == plain on {len(cases)} fills "
+          f"(global/local, classic/kimura, dirs+bottom+cols, left; up to "
+          f"2047 x 3072); max |err| {k1_err} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # ---- phase 3: K2 kernel vs plain ----
+    t0 = time.perf_counter()
+    k2_err = 0
+    n_walks = 0
+    for dirs, R, B, i0, si, sj in bitmaps:
+        for j0, max_steps in ((0, 8192), (0, 100), (1024, 100)):
+            got = td.device_walk(dirs, si, sj, i0, max_steps=max_steps, j0=j0)
+            want = td.device_walk(dirs.cpu(), si, sj, i0, max_steps=max_steps, j0=j0)
+            same_len = len(got[0]) == len(want[0])
+            err = (int(np.abs(got[0].astype(int) - want[0].astype(int)).max(initial=0))
+                   if same_len else 1 << 30)
+            err = max(err, *(abs(int(a) - int(b)) for a, b in zip(got[1:], want[1:])))
+            k2_err = max(k2_err, err)
+            n_walks += 1
+            check(err == 0, f"K2 kernel != plain (i0={i0}, start=({si},{sj}), "
+                            f"j0={j0}, max_steps={max_steps})")
+    print(f"[phase 3] K2 kernel == plain on {n_walks} walks over phase-2 bitmaps "
+          f"(j0 windows, max_steps=100 resumes); max |err| {k2_err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- phase 4: the main path ----
+    def rescore(a: str, b: str, aln, sc) -> int:
+        """Sum of the path's move costs with the true characters."""
+        tot = 0
+        for ch, i, j in aln:
+            if ch in (C.MATCH, C.MISMATCH):
+                tot += sc.s_match if a[i - 1] == b[j - 1] else sc.s_mismatch
+            elif ch in (C.OPEN_INSERT, C.OPEN_DELETE):
+                tot += sc.h + sc.g
+            else:
+                tot += sc.g
+        return tot
+
+    def path_cells(aln):
+        """(rows, cols) the path consumes."""
+        di = sum(ch not in (C.INSERT, C.OPEN_INSERT) for ch, _, _ in aln)
+        dj = sum(ch not in (C.DELETE, C.OPEN_DELETE) for ch, _, _ in aln)
+        return di, dj
+
+    sc = Scores()
+    rng = np.random.default_rng(7)
+    s10 = random_dna(rng, 10_000)
+    t10 = random_dna(rng, 1_000) + mutate(rng, s10[2_000:9_500], 0.01, 6) + random_dna(rng, 1_500)
+    base = random_dna(rng, 29_903)
+    var = mutate(rng, base, 0.01, 8)
+
+    for mod in (rb, td, tw):
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    t_phase = time.perf_counter()
+    gold = PairwiseAligner(Scores(*TEST_SCORES), device="cuda")
+    r = gold.align(Sequence("s1", "ACGT"), Sequence("s2", "ACGT"))
+    check((r.score, r.matches) == (4, 4) and r.alignment == [
+        (C.MATCH, 4, 4), (C.MATCH, 3, 3), (C.MATCH, 2, 2), (C.MATCH, 1, 1)],
+        "golden simple_matches")
+    r = gold.align(Sequence("s1", "ACGT"), Sequence("s2", "AGCGT"))
+    check(r.alignment == [(C.MATCH, 4, 5), (C.MATCH, 3, 4), (C.MATCH, 2, 3),
+                          (C.OPEN_INSERT, 1, 2), (C.MISMATCH, 1, 1)]
+          and (r.matches, r.mismatches, r.opening_gaps, r.gap_extensions) == (3, 1, 1, 0),
+          "golden gaps")
+    r = gold.align(Sequence("s1", "ACGGATAAAAAAAATC"), Sequence("s2", "ACGGATAAAATC"))
+    check((r.matches, r.mismatches, r.opening_gaps, r.gap_extensions) == (12, 0, 1, 3)
+          and [c for c, _, _ in r.alignment[6:10]]
+          == [C.OPEN_DELETE, C.DELETE, C.DELETE, C.DELETE], "golden affine_gap")
+    r = PairwiseAligner(Scores(*TEST_SCORES), is_local=True, device="cuda").align(
+        Sequence("s1", "TTTACGTTTT"), Sequence("s2", "ACGT"))
+    check(r.score == 4 and r.matches + r.mismatches == 4, "golden local_simple")
+
+    t0 = time.perf_counter()
+    loc = PairwiseAligner(sc, is_local=True, device="cuda").align(
+        Sequence("a", s10), Sequence("b", t10))
+    t_10k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    glob = PairwiseAligner(sc, is_local=False, device="cuda").align(
+        Sequence("a", base), Sequence("b", var))
+    t_30k_first = time.perf_counter() - t0
+    launches = {"gotoh_rowblock": rb.COUNTS["kernel"], "traceback_walk": tw.COUNTS["kernel"]}
+    plain_calls = rb.COUNTS["plain"] + td.COUNTS["plain"]
+    t_phase = time.perf_counter() - t_phase
+    check(launches["gotoh_rowblock"] > 0 and launches["traceback_walk"] > 0,
+          f"main path did not launch both kernels: {launches}")
+    check(plain_calls == 0, f"main path ran a plain version {plain_calls} times")
+
+    o10 = native.gotoh_score_cpu(s10, t10, sc, True)
+    o30 = native.gotoh_score_cpu(base, var, sc, False)
+    start10 = (loc.alignment[0][1], loc.alignment[0][2])
+    check((loc.score,) + start10 == o10,
+          f"10 kb local: port {(loc.score,) + start10} != oracle {o10}")
+    check((glob.score, glob.alignment[0][1], glob.alignment[0][2]) == o30,
+          f"29.9 kb global: port {glob.score} != oracle {o30}")
+    # The path's cost need not reach the score: the reference retrace
+    # picks each move by the cell's max, not by the matrix a gap came
+    # from, so its path can cost less than the optimum it starts from
+    # (the JAX aligner's own path does so on seeded pairs;
+    # tests/test_torch_align.py). So the cost is bounded here, and the
+    # path itself is held against the plain versions, step by step, in
+    # the replay below. Every prefix of a local path is a local
+    # alignment: none beats the optimum.
+    rs30, rs10 = rescore(base, var, glob.alignment, sc), rescore(s10, t10, loc.alignment, sc)
+    rs10_max = int(np.cumsum([rescore(s10, t10, [x], sc) for x in loc.alignment]).max())
+    check(path_cells(glob.alignment) == (len(base), len(var)),
+          "29.9 kb global path does not cover both sequences")
+    check(glob.alignment[-1][1:] in ((1, 1), (1, 0), (0, 1)),
+          f"29.9 kb global path ends at {glob.alignment[-1][1:]}, not the origin")
+    check(rs30 <= glob.score, f"29.9 kb path re-scores above the optimum ({rs30})")
+    check(rs10_max <= loc.score, "10 kb local path re-scores above the optimum")
+    # Cross-route check (after the counters were read): the 29.9 kb pair
+    # through one monolithic fill, and the 10 kb pair through the
+    # checkpointed path, give the same alignments as the routes above.
+    mono = PairwiseAligner(sc, is_local=False, device="cuda")
+    mono.DIRS_BYTE_BUDGET = 1 << 40
+    g2 = mono.align(Sequence("a", base), Sequence("b", var))
+    check((g2.score, g2.alignment) == (glob.score, glob.alignment),
+          "29.9 kb: checkpointed and monolithic paths differ")
+    l2 = align_checkpointed(Sequence("a", s10), Sequence("b", t10), sc, is_local=True,
+                            block_rows=1023, device="cuda")
+    check((l2.score, l2.alignment) == (loc.score, loc.alignment),
+          "10 kb: monolithic and checkpointed paths differ")
+    print(f"[phase 4] align on cuda: goldens ok; 10 kb local "
+          f"{len(s10)}x{len(t10)} score {loc.score} start {start10} == oracle "
+          f"({t_10k:.3f} s); 29.9 kb global {len(base)}x{len(var)} score "
+          f"{glob.score} == oracle, checkpointed == monolithic "
+          f"({t_30k_first:.3f} s cold); path costs (reference retrace, "
+          f"<= score): 10 kb local {rs10} (best prefix {rs10_max}), 29.9 kb {rs30}; "
+          f"launches {launches}, plain calls {plain_calls} ({t_phase:.1f} s)", flush=True)
+
+    # Replay the 29.9 kb checkpointed path with each fill and walk it
+    # makes recorded, and hold each against its plain version on the same
+    # inputs: the fills on the card, the walks on the host.
+    from genomics_rs_tpu_torch.models import longalign as la
+
+    fills, walks = [], []
+
+    def rec_fill(*args, **kw):
+        out = rb.gotoh_rowblock(*args, **kw)
+        fills.append((args, kw, out))
+        return out
+
+    def rec_walk(*args, **kw):
+        out = td.device_walk(*args, **kw)
+        walks.append((args, kw, out))
+        return out
+
+    t0 = time.perf_counter()
+    la.gotoh_rowblock, la.device_walk = rec_fill, rec_walk
+    try:
+        g3 = PairwiseAligner(sc, device="cuda").align(Sequence("a", base), Sequence("b", var))
+    finally:
+        la.gotoh_rowblock, la.device_walk = rb.gotoh_rowblock, td.device_walk
+    check((g3.score, g3.alignment) == (glob.score, glob.alignment),
+          "29.9 kb: the recorded replay differs from the main run")
+    check(any(kw.get("emit_cols") for _, kw, _ in fills)
+          and any(kw.get("emit_dirs") for _, kw, _ in fills) and walks,
+          "29.9 kb replay recorded no forward fill, refill or walk")
+    replay, plain30 = [], {}
+    for args, kw, got in fills:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = rb.gotoh_rowblock_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        R, B, n = args[0].shape[0], args[1].shape[0], int(args[4])
+        err = fill_err(got, want, R, n, B)
+        k1_err = max(k1_err, err)
+        kind = "dirs" if kw.get("emit_dirs") else "bottom+cols"
+        plain30.setdefault(kind, ms)
+        replay.append(f"K1 {R}x{B} {kind} == plain ({ms:.0f} ms)")
+        check(err == 0, f"29.9 kb path: K1 {kind} fill {R}x{B} != plain: max |err| {err}")
+        del want
+    for args, kw, got in walks:
+        want = td.device_walk(args[0].cpu(), *args[1:], **kw)
+        same = np.array_equal(got[0], want[0]) and tuple(got[1:]) == tuple(want[1:])
+        k2_err = max(k2_err, 0 if same else 1)
+        replay.append(f"K2 walk {len(got[0])} moves == plain")
+        check(same, f"29.9 kb path: K2 walk from {args[1:4]} != plain")
+    print(f"[phase 4] 29.9 kb path replayed, each step held against its plain "
+          f"version: {'; '.join(replay)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del fills, walks
+
+    # ---- phase 5: timings at the main path's shapes ----
+    def cuda_ms(fn, reps):
+        fn()  # warm
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return ts
+
+    # the 10 kb pair's monolithic fill shape (lengths padded to 128)
+    Lm, Ln = round_up(len(s10), 128), round_up(len(t10), 128)
+    s1e = torch.from_numpy(Sequence("a", s10).encoded(Lm, 0xFE).copy()).to(dev)
+    s2e = torch.from_numpy(Sequence("b", t10).encoded(Ln, 0xFF).copy()).to(dev)
+    top = global_boundary_top(0, Ln, sc, device=dev)
+    fill_args = (s1e, s2e, top, len(s10), len(t10), 0, sc, True)
+    fill_kw = dict(emit_dirs=True, emit_bottom=False)
+    k1_ms = cuda_ms(lambda: rb.gotoh_rowblock(*fill_args, **fill_kw), 3)
+    t0 = time.perf_counter()
+    plain = rb.gotoh_rowblock_plain(*fill_args, **fill_kw)
+    torch.cuda.synchronize()
+    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    kern = rb.gotoh_rowblock(*fill_args, **fill_kw)
+    err = fill_err(kern, plain, Lm, len(t10), Ln)
+    k1_err = max(k1_err, err)
+    check(err == 0, f"K1 kernel != plain at the 10 kb shape: max |err| {err}")
+
+    # the 29.9 kb pair's checkpointed block shape (one block of R rows)
+    R30, L30 = round_up(len(base) + 1, 1024) - 1, round_up(len(var), 128)
+    s1b = torch.from_numpy(Sequence("a", base).encoded(R30, 0xFE).copy()).to(dev)
+    s2b = torch.from_numpy(Sequence("b", var).encoded(L30, 0xFF).copy()).to(dev)
+    topb = global_boundary_top(0, L30, sc, device=dev)
+    k1_fwd30_ms = cuda_ms(lambda: rb.gotoh_rowblock(
+        s1b, s2b, topb, len(base), len(var), 0, sc, False, emit_cols=True), 2)
+    k1_dirs30_ms = cuda_ms(lambda: rb.gotoh_rowblock(
+        s1b, s2b, topb, len(base), len(var), 0, sc, False,
+        emit_dirs=True, emit_bottom=False), 2)
+
+    si, sj = int(kern.best[1]), int(kern.best[2])
+    max_steps = 24_576
+    k2_ms = cuda_ms(lambda: tw.walk_full(kern.dirs, si, sj, 0, max_steps=max_steps), 3)
+    t0 = time.perf_counter()
+    want = td.device_walk(kern.dirs.cpu(), si, sj, 0, max_steps=max_steps)
+    k2_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = tw.walk_full(kern.dirs, si, sj, 0, max_steps=max_steps)
+    check(np.array_equal(got[0], want[0]) and got[1:] == want[1:],
+          "K2 kernel != plain at the 10 kb shape")
+    n_moves = len(got[0])
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        PairwiseAligner(sc, device="cuda").align(Sequence("a", base), Sequence("b", var))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    print(f"[phase 5] card {card} | K1 {Lm}x{Ln} local+dirs: kernel "
+          f"[{fmt(k1_ms)}] ms, plain {k1_plain_ms:.1f} ms | K1 {R30}x{L30} "
+          f"forward+cols: kernel [{fmt(k1_fwd30_ms)}] ms, +dirs: [{fmt(k1_dirs30_ms)}] ms "
+          f"(plain on the path's 29.9 kb fills: bottom+cols {plain30['bottom+cols']:.1f} ms, "
+          f"dirs {plain30['dirs']:.1f} ms) "
+          f"| K2 walk of {n_moves} moves: kernel [{fmt(k2_ms)}] ms, plain "
+          f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s",
+          flush=True)
+
+    summary = {"kernels": [
+        {"name": "gotoh_rowblock", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_rowblock.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_rowblock.py:403",
+         "launches": launches["gotoh_rowblock"], "max_abs_err": float(k1_err),
+         "ms": float(np.median(k1_ms)), "plain_ms": float(k1_plain_ms)},
+        {"name": "traceback_walk", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/traceback_walk.cu",
+         "replaces": "genomics_rs_tpu/ops/traceback_pallas.py:260",
+         "launches": launches["traceback_walk"], "max_abs_err": float(k2_err),
+         "ms": float(np.median(k2_ms)), "plain_ms": float(k2_plain_ms)},
+    ]}
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``genomics_rs_tpu``.
+
+The JAX package beside this one is the reference; every module here
+keeps its counterpart's name and contract so a reader can find it.
+Device code runs as hand-written CUDA kernels for Hopper (``csrc/``),
+built at first use; a CPU tensor takes each kernel's plain PyTorch
+version instead. Nothing here imports JAX.
+
+Ported so far: the ``align`` path (``models/aligner``,
+``models/longalign``) with its two kernels, the row-block Gotoh fill
+(``ops/gotoh_rowblock``) and the traceback walker
+(``ops/traceback_walker``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,82 @@
+// Traceback walker for Hopper (sm_90a), bound by ctypes.
+//
+// Replaces: genomics_rs_tpu/ops/traceback_pallas.py, walk_pallas (body
+// _kernel_walk over _run_chase). Chases packed 2-bit direction codes
+// (code(li, j) = (dirs[(li+j)/16 * V + li] >> 2*((li+j)%16)) & 3) from a
+// start cell with the reference retrace rules: per-axis saturation at 0;
+// done on a STOP code or on reaching (0, 0) when j0 == 0; exit up when the
+// row falls below i0 (exited = 1) or left onto local column 0 of a
+// windowed bitmap when j0 > 0 (exited = 2). Moves (STOP excluded) are
+// packed 16 per int32 into `words`; a partial last word still lands.
+// meta = (pos, li, j, done, exited, out_of_bounds).
+//
+// What bounds it: each move's address depends on the previous move, so
+// the walk is one dependent global load (mostly an L2 or DRAM miss) plus
+// a few integer ops per move; there is no parallelism inside one walk.
+// Design: one thread, no staging. The TPU kernel DMA'd a window of the
+// bitmap into scalar memory because its scalar core could not gather from
+// HBM; here the load goes straight to global memory through the caches,
+// so the kernel takes any KW >= 1, V >= 1. Hiding the load latency would
+// need several walks in flight (a batched walker), which is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned DIR_INS = 1, DIR_DEL = 2, DIR_STOP = 3;
+
+__global__ void walk_kernel(const unsigned* __restrict__ dirs,
+                            unsigned* __restrict__ words, int* __restrict__ meta,
+                            int KW, int V, int li, int j, int i0, int j0,
+                            int max_steps) {
+  int pos = 0, done = 0, exited = 0, oob = 0;
+  unsigned acc = 0;
+  while (!done && !exited && pos < max_steps) {
+    const int k = li + j;
+    if (li < 0 || li >= V || k < 0 || (k >> 4) >= KW) {
+      oob = 1;
+      break;
+    }
+    const unsigned code = (dirs[(size_t)(k >> 4) * V + li] >> (2 * (k & 15))) & 3u;
+    const int ig = i0 + li;
+    const int ig_new = max(ig - (code == DIR_INS ? 0 : 1), 0);
+    const int j_new = max(j - (code == DIR_DEL ? 0 : 1), 0);
+    if (code != DIR_STOP) {
+      const int sp = pos & 15;
+      if (sp == 0) acc = 0;
+      acc |= code << (2 * sp);
+      if (sp == 15) words[pos >> 4] = acc;
+      ++pos;
+    }
+    if (code == DIR_STOP || (ig_new == 0 && j_new == 0 && j0 == 0)) {
+      done = 1;
+    } else if (ig_new < i0) {
+      exited = 1;
+    } else if (j_new == 0 && j0 > 0) {
+      exited = 2;
+    }
+    // The position moves on every step, stop codes included.
+    li = max(ig_new - i0, 0);
+    j = j_new;
+  }
+  if (pos & 15) words[pos >> 4] = acc;
+  meta[0] = pos;
+  meta[1] = li;
+  meta[2] = j;
+  meta[3] = done;
+  meta[4] = exited;
+  meta[5] = oob;
+}
+
+}  // namespace
+
+extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
+                                     int KW, int V, int start_li, int start_j,
+                                     int i0, int j0, int max_steps,
+                                     void* stream) {
+  walk_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)dirs, (unsigned*)words, (int*)meta, KW, V, start_li,
+      start_j, i0, j0, max_steps);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,168 @@
+"""Pairwise aligner: the user-facing alignment API (counterpart of
+``genomics_rs_tpu/models/aligner.py``'s ``PairwiseAligner`` and
+``align_pair``).
+
+``align`` fills the whole table with the row-block fill as ONE block,
+keeping the 2-bit direction codes packed (``ops/gotoh_rowblock``),
+chases them on the device (``ops/traceback_device.device_walk``), and
+classifies the moves on the host. A pair whose packed bitmap would
+exceed ``DIRS_BYTE_BUDGET`` goes to the checkpointed path
+(``models/longalign``), which gives the same result in linear space.
+
+Sequences are padded to multiples of ``PAD_MULTIPLE``, as in the JAX
+package, so both packages fill tables of the same shape.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from genomics_rs_tpu_torch.config import Scores
+from genomics_rs_tpu_torch.device import resolve_device
+from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock
+from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
+from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
+from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
+from genomics_rs_tpu_torch.ops.traceback_device import device_walk
+from genomics_rs_tpu_torch.sequence import (
+    PAD_S1,
+    PAD_S2,
+    Sequence,
+    SequenceContainer,
+    round_up,
+)
+from genomics_rs_tpu_torch.utils.profiling import PhaseTimer, spinner
+
+log = logging.getLogger(__name__)
+
+PAD_MULTIPLE = 128
+
+
+def _encode(seq: Sequence, pad_to: int, pad_value: int, device) -> torch.Tensor:
+    arr = seq.encoded(pad_to=pad_to, pad_value=pad_value).copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def _fill(s1e, s2e, m: int, n: int, scores: Scores, is_local: bool,
+          emit_dirs: bool = True) -> FillResult:
+    """The whole (m+1) x (n+1) table as one row block."""
+    res = gotoh_rowblock(
+        s1e, s2e,
+        global_boundary_top(0, s2e.shape[0], scores, device=s2e.device),
+        m, n, 0, scores, is_local,
+        emit_dirs=emit_dirs, emit_bottom=False,
+    )
+    if is_local:
+        score, si, sj = torch.stack(list(res.best)).tolist()
+    else:
+        score, si, sj = int(res.score_at_mn), m, n
+    return FillResult(dirs=res.dirs, score=score, start_i=si, start_j=sj)
+
+
+class PairwiseAligner:
+    """Global (Needleman-Wunsch) / local (Smith-Waterman) affine-gap
+    aligner.
+
+    Args:
+      scores: scoring parameters (``s_transition`` turns on kimura
+        transition scoring).
+      is_local: local vs global alignment.
+      device: ``"cuda"`` runs the CUDA kernels (an error when CUDA is
+        absent), ``"cpu"`` their plain PyTorch versions.
+    """
+
+    #: Largest monolithic PACKED direction bitmap (bytes) before routing
+    #: to the checkpointed linear-space path.
+    DIRS_BYTE_BUDGET = 256 << 20
+    #: Above this many rows, scores come from rolling row blocks.
+    SCORE_ROWS_LIMIT = 131072
+
+    def __init__(self, scores: Scores, is_local: bool = False, device="cuda"):
+        self.scores = scores
+        self.is_local = is_local
+        self.device = resolve_device(device)
+
+    def align(self, seq1: Sequence, seq2: Sequence) -> AlignedSequences:
+        m, n = len(seq1), len(seq2)
+        Lm = max(round_up(m, PAD_MULTIPLE), PAD_MULTIPLE)
+        Ln = max(round_up(n, PAD_MULTIPLE), PAD_MULTIPLE)
+
+        # The monolithic packed bitmap is (Lm+Ln+1) x roundup(Lm+1, 1024)
+        # / 4 bytes; past the budget the checkpointed path bounds it.
+        est_dirs = (Lm + Ln + 1) * (round_up(Lm + 1, 1024)) // 4
+        if est_dirs > self.DIRS_BYTE_BUDGET:
+            from genomics_rs_tpu_torch.models.longalign import align_checkpointed
+
+            block_rows = min(65535, max(round_up(m + 1, 1024) - 1, 1023))
+            log.info(
+                "align: %dx%d exceeds dirs budget -> windowed "
+                "checkpointed path (block_rows=%d)",
+                m, n, block_rows,
+            )
+            return align_checkpointed(
+                seq1, seq2, self.scores, is_local=self.is_local,
+                block_rows=block_rows, device=self.device,
+            )
+
+        s1e = _encode(seq1, Lm, PAD_S1, self.device)
+        s2e = _encode(seq2, Ln, PAD_S2, self.device)
+        timer = PhaseTimer("align", device=self.device)
+        with spinner(
+            "Computing sequence table...", "Sequence table computed"
+        ), timer.span("fill table", cells=(m + 1.0) * (n + 1.0)):
+            res = _fill(s1e, s2e, m, n, self.scores, self.is_local)
+        with spinner(
+            "Retracing optimal alignment...", "Retrace complete"
+        ), timer.span("retrace"):
+            max_steps = round_up(Lm + Ln + 1, 8192)
+            codes, i_f, j_f, done = device_walk(
+                res.dirs, res.start_i, res.start_j, 0, max_steps=max_steps
+            )
+            if not done:
+                raise RuntimeError(
+                    f"monolithic retrace left the table at ({i_f}, {j_f})"
+                )
+            if not self.is_local and (i_f, j_f) != (0, 0):
+                raise RuntimeError(
+                    f"global retrace hit a stop code at ({i_f}, {j_f})"
+                )
+            return classify_moves(
+                codes, res.start_i, res.start_j, res.score, seq1, seq2
+            )
+
+    def score_only(self, seq1: Sequence, seq2: Sequence) -> int:
+        """Alignment score without traceback (no direction bitmap)."""
+        m, n = len(seq1), len(seq2)
+        if m > self.SCORE_ROWS_LIMIT:
+            from genomics_rs_tpu_torch.models.longalign import score_long
+
+            return int(
+                score_long(
+                    seq1, seq2, self.scores, is_local=self.is_local,
+                    device=self.device,
+                )[0]
+            )
+        Lm = max(round_up(m, PAD_MULTIPLE), PAD_MULTIPLE)
+        Ln = max(round_up(n, PAD_MULTIPLE), PAD_MULTIPLE)
+        res = _fill(
+            _encode(seq1, Lm, PAD_S1, self.device),
+            _encode(seq2, Ln, PAD_S2, self.device),
+            m, n, self.scores, self.is_local, emit_dirs=False,
+        )
+        return int(res.score)
+
+
+def align_pair(
+    container: SequenceContainer,
+    scores: Scores,
+    is_local: bool = False,
+    device="cuda",
+) -> AlignedSequences:
+    """Align the first two sequences of a container (the reference's
+    Align mode: it warns and uses only the first two)."""
+    if len(container.sequences) > 2:
+        log.warning("More than two sequences found. Only the first two will be used.")
+    aligner = PairwiseAligner(scores, is_local=is_local, device=device)
+    return aligner.align(container.sequences[0], container.sequences[1])

@@ -1,0 +1,307 @@
+"""Full-width row-block Gotoh fill (kernel K1; counterpart of
+``genomics_rs_tpu/ops/gotoh_rowblock.py``).
+
+:func:`gotoh_rowblock` fills rows ``i0+1 .. i0+R`` of the alignment
+table over columns ``0 .. B`` from the row-``i0`` boundary ``top``, with
+the contract of ``gotoh_rowblock_pallas``: the score at ``(m, n)`` when
+row ``m`` falls in the block, the local keep-last row-major argmax, and
+optionally the packed direction codes, the bottom row and the stride-V
+column checkpoints. On a CUDA tensor it launches the hand-written
+kernel in ``csrc/gotoh_rowblock.cu``; on a CPU tensor it runs
+:func:`gotoh_rowblock_plain`.
+
+Layouts kept from the JAX package so the two can be compared and mixed:
+
+* ``V = max(round_up(R+1, 1024), 1024)`` lanes (rows ``0..R`` of the
+  block), ``K = R + B + 1`` diagonals, ``Kp = round_up(K, 256)``;
+* ``dirs`` int32 ``(Kp/16, V)``: the code at block cell ``(li, j)`` is
+  ``(dirs[(li+j)//16, li] >> 2*((li+j)%16)) & 3`` (S > I > D > STOP);
+* ``cols`` int32 ``(NC, 3, V)``, ``NC = ceil(Kp/V)``: ``cols[c, :, v]``
+  holds I/S/D at ``(i0+v, c*V)``; lane 0 and columns past ``n`` are
+  never consumed;
+* ``bottom`` int32 ``(3, B+1)``: I/S/D of row ``i0+R``.
+
+With ``left`` (3, R), the column-0 boundary of rows ``i0+1..i0+R`` is
+streamed in instead of computed; ``s2e``/``n``/``top`` are then
+window-local while ``m``/``i0`` stay global.
+
+Codes and scores must hold bit-exactly: the local zero floor sits
+inside every predecessor max, I<->D cross-transitions cost a gap open,
+"-inf" is ``-2**30`` in int32, and codes are chosen by equality.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops.gotoh_scan import (
+    DIR_DEL,
+    DIR_INS,
+    DIR_STOP,
+    DIR_SUB,
+    INT_MIN,
+    NEG_INF,
+)
+from genomics_rs_tpu_torch.ops.subst import (
+    encode_chars,
+    kimura_active,
+    sentinel,
+    sub_score,
+)
+from genomics_rs_tpu_torch.sequence import round_up
+
+#: diagonal padding quantum (``Kp``), kept from the JAX kernel so packed
+#: bitmaps have the same shape in both packages.
+CHUNK = 256
+#: codes per packed int32 word.
+PACK = 16
+
+#: launches of the CUDA kernel / calls of the plain version.
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+class TileFillResult(NamedTuple):
+    """``score_at_mn`` and ``best`` are 0-d int32 tensors on the fill's
+    device (``best`` = (v, i, j) in global coordinates; (INT_MIN, 0, 0)
+    in global mode); the optional outputs are ``None`` when not asked
+    for."""
+
+    dirs: torch.Tensor | None
+    score_at_mn: torch.Tensor
+    best: tuple
+    bottom: torch.Tensor | None
+    cols: torch.Tensor | None
+
+
+def lane_count(R: int) -> int:
+    """Lanes ``V`` of a block of ``R`` rows (also the column-checkpoint
+    stride)."""
+    return max(round_up(R + 1, 1024), 1024)
+
+
+def _shapes(R: int, B: int):
+    V = lane_count(R)
+    K = R + B + 1
+    Kp = round_up(K, CHUNK)
+    NC = -(-Kp // V)
+    return V, K, Kp, NC
+
+
+def gotoh_rowblock(
+    s1_block: torch.Tensor,
+    s2e: torch.Tensor,
+    top: torch.Tensor,
+    m: int,
+    n: int,
+    i0: int,
+    scores,
+    is_local: bool,
+    emit_dirs: bool = False,
+    emit_bottom: bool = True,
+    emit_cols: bool = False,
+    left: torch.Tensor | None = None,
+) -> TileFillResult:
+    """Fill one row block (see the module docstring for the contract).
+
+    ``s1_block`` (R,) and ``s2e`` (B,) are uint8 byte codes, ``top``
+    int32 (3, B+1), ``left`` int32 (3, R) or None. The device of
+    ``s1_block`` picks the route: CUDA launches the kernel, CPU runs
+    the plain version.
+    """
+    fn = _rowblock_cuda if _build.uses_kernel(s1_block) else gotoh_rowblock_plain
+    return fn(
+        s1_block, s2e, top, m, n, i0, scores, is_local,
+        emit_dirs=emit_dirs, emit_bottom=emit_bottom,
+        emit_cols=emit_cols, left=left,
+    )
+
+
+def _rowblock_cuda(
+    s1_block, s2e, top, m, n, i0, scores, is_local,
+    emit_dirs=False, emit_bottom=True, emit_cols=False, left=None,
+) -> TileFillResult:
+    lib = _build.library()
+    dev = s1_block.device
+    R, B = s1_block.shape[0], s2e.shape[0]
+    V, K, Kp, NC = _shapes(R, B)
+    _build.require(s1_block, "s1_block", torch.uint8, dev, (R,))
+    _build.require(s2e, "s2e", torch.uint8, dev, (B,))
+    _build.require(top, "top", torch.int32, dev, (3, B + 1))
+    if left is not None:
+        _build.require(left, "left", torch.int32, dev, (3, R))
+    i32 = dict(dtype=torch.int32, device=dev)
+    s1c = encode_chars(s1_block, scores).contiguous()
+    s2c = encode_chars(s2e, scores).contiguous()
+    dirs = torch.empty((Kp // PACK, V), **i32) if emit_dirs else None
+    bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
+    cols = torch.empty((NC, 3, V), **i32) if emit_cols else None
+    res = torch.full((4,), INT_MIN, **i32)  # res[0] stays INT_MIN unless row m is here
+    scratch = torch.empty(4 * (B + 1), **i32)
+    threads = min(1024, round_up(R + 1, 32))
+    kim = kimura_active(scores)
+    with torch.cuda.device(dev):
+        err = lib.gotoh_rowblock_launch(
+            _build.ptr(s1c), _build.ptr(s2c), _build.ptr(top),
+            _build.ptr(left), _build.ptr(dirs), _build.ptr(bottom),
+            _build.ptr(cols), _build.ptr(res), _build.ptr(scratch),
+            R, B, V, int(m), int(n), int(i0),
+            scores.s_match, scores.s_mismatch,
+            scores.s_transition if kim else 0, int(kim),
+            scores.g, scores.h, int(is_local), threads,
+            _build.stream_handle(dev),
+        )
+    _build.check(err, "gotoh_rowblock")
+    COUNTS["kernel"] += 1
+    return TileFillResult(
+        dirs=dirs,
+        score_at_mn=res[0],
+        best=(res[1], res[2], res[3]),
+        bottom=bottom,
+        cols=cols,
+    )
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding 32 code bits -> the int32 with the same bits."""
+    return (((x + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def gotoh_rowblock_plain(
+    s1_block, s2e, top, m, n, i0, scores, is_local,
+    emit_dirs=False, emit_bottom=True, emit_cols=False, left=None,
+) -> TileFillResult:
+    """The plain PyTorch version of the fill: an anti-diagonal loop over
+    ``V`` lanes (lane ``iv`` = block row ``iv``; at diagonal ``k`` it
+    holds cell ``(iv, k - iv)``), the same step as the TPU kernel's.
+    Lanes ahead of the wavefront and columns past ``B`` carry bounded
+    garbage that no true cell reads."""
+    COUNTS["plain"] += 1
+    dev = s1_block.device
+    R, B = s1_block.shape[0], s2e.shape[0]
+    V, K, Kp, NC = _shapes(R, B)
+    m, n, i0 = int(m), int(n), int(i0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    g, h = scores.g, scores.h
+    hg = g + h
+    st = scores.s_transition if kimura_active(scores) else None
+
+    s1m = torch.full((V,), sentinel(0xFD, scores), **i32)
+    s1m[1 : R + 1] = encode_chars(s1_block, scores)
+    s2c = encode_chars(s2e, scores).tolist()
+    s2pad = sentinel(0xFF, scores)
+    topI, topS, topD = top.to(torch.int32).tolist()
+    if left is not None:
+        leftI, leftS, leftD = left.to(torch.int32).tolist()
+
+    iv = torch.arange(V, **i32)
+    neg1 = torch.full((1,), NEG_INF, **i32)
+    I = torch.full((V,), NEG_INF, **i32)
+    P, A, M, SM = I.clone(), I.clone(), I.clone(), I.clone()
+    s2j = torch.full((V,), 0xFF, **i32)
+    mi0 = m - i0
+    le_r = iv <= R
+    lem = (iv <= mi0) & le_r
+    probe_in = 0 <= mi0 <= R
+    fin = INT_MIN
+    bv = torch.full((V,), INT_MIN, **i32)
+    bk = torch.zeros(V, **i32)
+    acc = torch.zeros(V, dtype=torch.int64, device=dev)
+    dirs = torch.zeros((Kp // PACK, V), **i32) if emit_dirs else None
+    bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
+    cols = torch.full((NC, 3, V), NEG_INF, **i32) if emit_cols else None
+    cap = torch.full((3, V), NEG_INF, **i32) if emit_cols else None
+
+    for k in range(K):
+        inj = s2c[max(k - 1, 0)] if k - 1 < B else s2pad
+        s2j = torch.cat([s2j.new_full((1,), inj), s2j[:-1]])
+        # Pre-shift carries: D' = shift(A) of the row above; S' adds the
+        # substitution to M of the up-left cell (M shifted one step ago).
+        Dn = torch.cat([neg1, A[:-1]])
+        SMn = torch.cat([neg1, M[:-1]])
+        In = torch.maximum(I + g, P + hg)
+        if is_local:
+            In = torch.clamp_min(In, 0)
+        Sn = sub_score(s1m, s2j, scores.s_match, scores.s_mismatch, st) + SM
+        if k < V:  # column 0 of lane k
+            if left is not None:
+                if 1 <= k <= R:
+                    In[k], Sn[k], Dn[k] = leftI[k - 1], leftS[k - 1], leftD[k - 1]
+                else:
+                    In[k] = Sn[k] = Dn[k] = NEG_INF
+            else:
+                In[k] = NEG_INF
+                Sn[k] = NEG_INF
+                Dn[k] = h + (i0 + k) * g
+        Qn = torch.maximum(In, Sn)
+        # Row 0 is the top boundary.
+        tI, tS, tD = (
+            (topI[k], topS[k], topD[k]) if k <= B else (NEG_INF,) * 3
+        )
+        Qn[0] = max(tI, tS)
+        Dn[0] = tD
+        Mn = torch.maximum(Qn, Dn)
+        if is_local:
+            Mn = torch.clamp_min(Mn, 0)
+
+        if emit_cols:
+            v = k % V
+            cap[0, v], cap[1, v], cap[2, v] = In[v], Sn[v], Dn[v]
+            if v == V - 1 or k == K - 1:
+                cols[k // V] = cap
+
+        if emit_dirs:
+            Id = In.clone()
+            Sd = Sn.clone()
+            Id[0], Sd[0] = tI, tS
+            code = torch.where(
+                Mn == Sd,
+                DIR_SUB,
+                torch.where(
+                    Mn == Id, DIR_INS, torch.where(Mn == Dn, DIR_DEL, DIR_STOP)
+                ),
+            ).to(torch.int64)
+            sp = k % PACK
+            acc = (code << (2 * sp)) if sp == 0 else acc | (code << (2 * sp))
+            if sp == PACK - 1 or k == K - 1:
+                dirs[k // PACK] = _wrap_int32(acc)
+
+        if is_local:
+            val = torch.where(
+                lem & (iv <= k) & (iv >= k - n), Mn, INT_MIN
+            ).to(torch.int32)
+            upd = val >= bv
+            bv = torch.where(upd, val, bv)
+            bk = torch.where(upd, k - iv, bk)
+
+        if probe_in and k == mi0 + n:
+            fin = int(Mn[mi0])
+
+        if emit_bottom and R <= k <= R + B:
+            bottom[0, k - R], bottom[1, k - R], bottom[2, k - R] = (
+                In[R], Sn[R], Dn[R]
+            )
+
+        An = torch.maximum(Qn + hg, Dn + g)
+        if is_local:
+            An = torch.clamp_min(An, 0)
+        I, P, A, M, SM = In, torch.maximum(Sn, Dn), An, Mn, SMn
+
+    t32 = lambda x: torch.tensor(x, **i32)  # noqa: E731
+    if not is_local:
+        best = (t32(INT_MIN), t32(0), t32(0))
+    else:
+        vmax = bv.max()
+        ig = i0 + iv
+        i_best = torch.where(bv == vmax, ig, -1).max()
+        j_best = torch.where((bv == vmax) & (ig == i_best), bk, -1).max()
+        best = (vmax, i_best.to(torch.int32), j_best.to(torch.int32))
+    return TileFillResult(
+        dirs=dirs,
+        score_at_mn=t32(fin),
+        best=best,
+        bottom=bottom,
+        cols=cols,
+    )
