@@ -20,21 +20,63 @@ Phases, one line each:
      against its plain version on the same inputs
   5  kernel and plain-version times at the main path's shapes, and the
      wall time of the 29,903 bp ``align``
+  6  K3 (batched fill) kernel == its plain version, on the card: small
+     mixed-length batches (global/local, classic/kimura, B = 1, empty
+     sequences, dirs at every true cell), the full 55-pair corpus of 10
+     x 29,900 bp genomes (bench.py's synthetic recipe) in global mode and
+     a 4-genome subset in local mode
+  7  ``allpairs_scores(device="cuda")`` on the corpus, global and local,
+     scores and start cells held against the C++ oracle; launch counters
+     show K3 ran and no plain version did
+  8  ``align-matrix --alignments-out`` (the CLI) on the corpus: K3 and K4
+     launched, no plain version; one group's K3 dirs fill == plain and
+     every walk of it K4 == plain; three pairs equal the per-pair
+     ``PairwiseAligner.align`` (moves, score, stats, written FASTA); a
+     mixed 1–5 kb corpus through the CLI, global and local, every pair's
+     file equal to the per-pair aligner's
+  9  K3/K4 kernel times (median of 3, CUDA events), plain times, and the
+     wall times of ``allpairs_scores`` and ``align-matrix``
 
-The second-to-last line is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON summary of the kernels (K1–K4, with
+each one's launches on its own path, bound and times); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 TEST_SCORES = (1, -2, -2, -5)
+#: bench.py's synthetic all-pairs corpus (config 4 scale): 10 genomes of
+#: 29,900 bp from default_rng(0); 55 pairs i <= j, 45 alignments i < j.
+N_GENOMES, GENOME_LEN = 10, 29_900
+#: genomes of the local-mode K3 comparison (10 pairs).
+LOCAL_SUBSET = 4
+#: the mixed-length CLI corpus: MIXED_N genomes of MIXED_MIN..MIXED_MAX bp.
+MIXED_N, MIXED_MIN, MIXED_MAX = 12, 1_000, 5_000
+
+#: device memory rate, H100 SXM (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+#: integer ops per DP cell, counted from the recurrence in
+#: csrc/gotoh_rowblock.cu and csrc/gotoh_stream.cu: I 3 (two adds, max),
+#: S 3 (compare, select, add), Q 1, M 1, A 3 (two adds, max), P 1; local
+#: adds three zero floors and the argmax update (compare, three selects);
+#: dirs adds the code chain (three compares, three selects) and its
+#: packing (shift, or, flush test).
+OPS_PER_CELL = {"global": 12, "local": 19, "dirs": 9}
+#: integer ops per move of a walk (csrc/traceback_walk.cu): bounds test 4,
+#: decode 3, two saturating steps 4, stop/origin tests 2, packing 3.
+OPS_PER_MOVE = 16
 
 
 def fail(msg: str) -> None:
@@ -80,6 +122,368 @@ def mutate(rng, s: str, snp: float, n_indels: int) -> str:
 
 def random_dna(rng, n: int) -> str:
     return "".join(rng.choice(list("ACGT"), n))
+
+
+def int32_ops_per_s(torch) -> float:
+    """Peak int32 rate: SMs x 64 INT32 lanes per SM (Hopper) x the
+    card's maximum SM clock as ``nvidia-smi`` reports it."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 64 * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes over the memory rate vs integer
+    ops over the int32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def corpus_genomes() -> list[tuple[str, str]]:
+    """bench.py's synthetic corpus (copied, not imported)."""
+    rng = np.random.default_rng(0)
+    return [(f"s{k}", "".join(rng.choice(list("ACGT"), GENOME_LEN)))
+            for k in range(N_GENOMES)]
+
+
+def write_fasta_dir(path: str, genomes) -> None:
+    os.makedirs(path)
+    for k, (name, s) in enumerate(genomes):
+        with open(os.path.join(path, f"g{k:02d}.fasta"), "w") as f:
+            f.write(f">{name}\n{s}\n")
+
+
+def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[dict]:
+    """Phases 6-9: the ``align-matrix`` path (K3 and K4). Returns the two
+    kernels' rows of the summary line."""
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
+    from genomics_rs_tpu_torch.models.aligner import (
+        PairwiseAligner,
+        _stream_group_pairs,
+        align_batch,
+    )
+    from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+    from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import traceback_device as td
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.parallel.allpairs import allpairs_scores, bucketize_pairs
+    from genomics_rs_tpu_torch.sequence import (
+        PAD_S1,
+        PAD_S2,
+        Sequence,
+        SequenceContainer,
+        round_up,
+    )
+
+    counted = (rb, gs, td, tw)
+
+    def reset_counts():
+        for mod in counted:
+            for key in mod.COUNTS:
+                mod.COUNTS[key] = 0
+
+    def plain_calls() -> int:
+        return (rb.COUNTS["plain"] + gs.COUNTS["plain"] + td.COUNTS["plain"]
+                + tw.COUNTS["many_plain"])
+
+    def batch_of(pairs, Lm, Ln):
+        """(s1, s2) uint8 (B, Lm), (B, Ln) on the card, ms, ns."""
+        s1 = np.stack([Sequence("a", a).encoded(Lm, PAD_S1) for a, _ in pairs])
+        s2 = np.stack([Sequence("b", b).encoded(Ln, PAD_S2) for _, b in pairs])
+        ms = np.array([len(a) for a, _ in pairs])
+        ns = np.array([len(b) for _, b in pairs])
+        return torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev), ms, ns
+
+    def stream_err(got, want, ms, ns) -> int:
+        """Max |difference| of scores and start cells, and of the codes
+        at every true cell when both fills have dirs."""
+        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got[:3], want[:3])]
+        if want.dirs is not None:
+            for p in range(len(ms)):
+                d = (codes_at(got.dirs[p], int(ms[p]), int(ns[p]))
+                     - codes_at(want.dirs[p], int(ms[p]), int(ns[p])))
+                errs.append(int(d.abs().max()))
+        return max(errs)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def cells(ms, ns) -> float:
+        return float(np.sum((np.asarray(ms) + 1.0) * (np.asarray(ns) + 1.0)))
+
+    # ---- phase 6: K3 kernel vs plain ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    base = random_dna(rng, 700)
+    small = [(base[:600], mutate(rng, base[20:560], 0.05, 3)),
+             (base[100:500], mutate(rng, base[:600], 0.05, 3)),
+             ("", base[:30]), (base[:17], "")]
+    k3_err, n_small = 0, 0
+    for is_local in (False, True):
+        for st in (None, -1):
+            sck = Scores(2, -3, -2, -4, st)
+            for group in (small, small[:1]):
+                args = batch_of(group, 640, 640)
+                got = gs.gotoh_stream_fill(*args, sck, is_local, emit_dirs=True)
+                want = gs.gotoh_stream_plain(*args, sck, is_local, emit_dirs=True)
+                err = stream_err(got, want, args[2], args[3])
+                k3_err = max(k3_err, err)
+                n_small += 1
+                check(err == 0, f"K3 kernel != plain (B={len(group)}, local={is_local}, "
+                                f"st={st}): max |err| {err}")
+
+    genomes = corpus_genomes()
+    seqs = [Sequence(n, s) for n, s in genomes]
+    N = len(seqs)
+    Lc = round_up(GENOME_LEN, 128)
+    all_pairs = [(i, j) for j in range(N) for i in range(N) if i <= j]
+    corpus = batch_of([(seqs[i].sequence, seqs[j].sequence) for i, j in all_pairs], Lc, Lc)
+    glob, _ = timed(lambda: gs.gotoh_stream_fill(*corpus, sc, False))
+    want, k3_plain_ms = timed(lambda: gs.gotoh_stream_plain(*corpus, sc, False))
+    err = stream_err(glob, want, corpus[2], corpus[3])
+    k3_err = max(k3_err, err)
+    check(err == 0, f"K3 kernel != plain on the {len(all_pairs)}-pair corpus: max |err| {err}")
+    sub_pairs = [(i, j) for i, j in all_pairs if j < LOCAL_SUBSET]
+    subset = batch_of([(seqs[i].sequence, seqs[j].sequence) for i, j in sub_pairs], Lc, Lc)
+    loc = gs.gotoh_stream_fill(*subset, sc, True)
+    want, k3_plain_local_ms = timed(lambda: gs.gotoh_stream_plain(*subset, sc, True))
+    err = stream_err(loc, want, subset[2], subset[3])
+    k3_err = max(k3_err, err)
+    check(err == 0, f"K3 local kernel != plain on {len(sub_pairs)} pairs: max |err| {err}")
+    del want
+    print(f"[phase 6] K3 kernel == plain on {n_small} small fills (640 x 640 bucket, "
+          f"global/local, classic/kimura, B = 1, empty sequences, dirs at every true "
+          f"cell), the {len(all_pairs)}-pair {N} x {GENOME_LEN} bp corpus global "
+          f"(plain {k3_plain_ms:.0f} ms) and {len(sub_pairs)} pairs local (plain "
+          f"{k3_plain_local_ms:.0f} ms); max |err| {k3_err} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 7: allpairs_scores on the card, against the C++ oracle ----
+    t_phase = time.perf_counter()
+    container = SequenceContainer(list(seqs))
+    reset_counts()
+    t0 = time.perf_counter()
+    ap_g = allpairs_scores(container, sc, device="cuda")
+    t_ap_g = time.perf_counter() - t0
+    ap_launches, ap_plain = gs.COUNTS["kernel"], plain_calls()
+    t0 = time.perf_counter()
+    ap_l = allpairs_scores(container, sc, is_local=True, device="cuda")
+    t_ap_l = time.perf_counter() - t0
+    check(ap_launches == 1 and ap_plain == 0,
+          f"allpairs_scores: K3 launches {ap_launches}, plain calls {ap_plain}")
+    glob_scores = glob.score.cpu().numpy()
+    for k, (i, j) in enumerate(all_pairs):
+        check(ap_g.matrix[j, i] == int(glob_scores[k]),
+              f"allpairs_scores != the phase-6 K3 fill at ({i}, {j})")
+    checks = [((0, 1), False), ((2, 3), False), ((8 % N, 9 % N), False),
+              ((0, 1), True), ((1, 3), True), ((2, 3), True)]
+    with ThreadPoolExecutor(len(checks)) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(
+            lambda c: native.gotoh_score_cpu(seqs[c[0][0]].sequence,
+                                             seqs[c[0][1]].sequence, sc, c[1]),
+            checks))
+    for ((i, j), is_local), o in zip(checks, oracle):
+        got = ap_l.matrix[j, i] if is_local else ap_g.matrix[j, i]
+        if is_local:
+            k = sub_pairs.index((i, j))
+            start = (int(loc.start_i[k]), int(loc.start_j[k]))
+        else:
+            start = (len(seqs[i]), len(seqs[j]))
+        check((int(got),) + start == o,
+              f"pair ({i}, {j}) local={is_local}: port {(int(got),) + start} != oracle {o}")
+    print(f"[phase 7] allpairs_scores on cuda: {len(all_pairs)} pairs global "
+          f"({t_ap_g:.3f} s, {ap_g.cells_per_s:.4g} cells/s) and local ({t_ap_l:.3f} s); "
+          f"{len(checks)} scores and start cells == C++ oracle; K3 launches {ap_launches}, "
+          f"plain calls {ap_plain} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 8: align-matrix --alignments-out through the CLI ----
+    t_phase = time.perf_counter()
+    os.environ["LOG_LEVEL"] = "WARNING"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "config.toml")
+        with open(cfg, "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        cdir, adir, tsv = (os.path.join(tmp, x) for x in ("corpus", "aln", "scores.tsv"))
+        write_fasta_dir(cdir, genomes)
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-c", cfg, "align-matrix", "-f", cdir, "-o", tsv,
+                           "--alignments-out", adir])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        main_launches = {"gotoh_stream": gs.COUNTS["kernel"],
+                         "walk_many": tw.COUNTS["many_kernel"],
+                         "gotoh_rowblock": rb.COUNTS["kernel"],
+                         "traceback_walk": tw.COUNTS["kernel"]}
+        main_plain = plain_calls()
+        check(rc == 0, f"align-matrix exited {rc}")
+        check(main_launches["gotoh_stream"] > 0 and main_launches["walk_many"] > 0,
+              f"align-matrix did not launch K3 and K4: {main_launches}")
+        check(main_plain == 0, f"align-matrix ran a plain version {main_plain} times")
+        idx = [(i, j) for j in range(N) for i in range(N) if i < j]
+        check(len(os.listdir(adir)) == len(idx), "align-matrix wrote the wrong number of files")
+        with open(tsv) as f:
+            rows_tsv = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+        check(all(int(rows_tsv[j][1 + i]) == ap_g.matrix[j, i] for i, j in all_pairs),
+              "align-matrix TSV != allpairs_scores")
+
+        # One group of the run, replayed: K3 dirs == plain, K4 == plain.
+        max_steps = round_up(2 * Lc + 1, 8192)
+        group = idx[: _stream_group_pairs(Lc, Lc, max_steps)]  # the run's first group
+        G = len(group)
+        gargs = batch_of([(seqs[i].sequence, seqs[j].sequence) for i, j in group], Lc, Lc)
+        dfill = gs.gotoh_stream_fill(*gargs, sc, False, emit_dirs=True)
+        want, k3_plain_dirs_ms = timed(
+            lambda: gs.gotoh_stream_plain(*gargs, sc, False, emit_dirs=True))
+        err = stream_err(dfill, want, gargs[2], gargs[3])
+        k3_err = max(k3_err, err)
+        check(err == 0, f"K3 dirs kernel != plain on a group of {G}: max |err| {err}")
+        del want
+        KW = dfill.dirs.shape[1]
+        flat = dfill.dirs.view(G * KW, -1)
+        wargs = (dfill.start_i.cpu().numpy(), dfill.start_j.cpu().numpy(),
+                 np.arange(G) * KW, KW, max_steps)
+        walked = tw.walk_many(flat, *wargs)
+        host = flat.cpu()
+        t0 = time.perf_counter()
+        want = tw.walk_many_plain(host, *wargs)
+        k4_plain_ms = (time.perf_counter() - t0) * 1e3
+        del host
+        k4_err = 0 if all(np.array_equal(np.asarray(a, np.int64), np.asarray(b, np.int64))
+                          for a, b in zip(walked, want)) else 1
+        check(k4_err == 0 and all(walked[4]), "K4 kernel != plain on the group's walks")
+        k4_moves = int(np.sum(walked[1]))
+
+        # Three pairs against the per-pair aligner (slice 1's path).
+        three = group[:3]
+        batch_alns = align_batch([(seqs[i], seqs[j]) for i, j in three], sc, device="cuda")
+        for (i, j), aln in zip(three, batch_alns):
+            ref = PairwiseAligner(sc, device="cuda").align(seqs[i], seqs[j])
+            check((aln.score, aln.alignment, aln.matches, aln.mismatches,
+                   aln.opening_gaps, aln.gap_extensions)
+                  == (ref.score, ref.alignment, ref.matches, ref.mismatches,
+                      ref.opening_gaps, ref.gap_extensions),
+                  f"align_batch != PairwiseAligner.align on pair ({i}, {j})")
+            name, text = cli.pair_alignment_fasta(i, j, seqs[i], seqs[j], ref, False)
+            with open(os.path.join(adir, name)) as f:
+                check(f.read() == text, f"align-matrix file {name} != the per-pair aligner's")
+        print(f"[phase 8] align-matrix --alignments-out on cuda: {len(idx)} alignments in "
+              f"groups of {G} ({t_cli:.3f} s wall); launches {main_launches}, plain calls "
+              f"{main_plain}; a group's K3 dirs fill == plain ({k3_plain_dirs_ms:.0f} ms plain) "
+              f"and its {G} walks ({k4_moves} moves) K4 == plain; {len(three)} pairs == "
+              f"PairwiseAligner.align (moves, score, stats, file)", flush=True)
+
+        # The same CLI run again under torch.profiler: device time by
+        # kernel and the device's busy share of the wall.
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["-c", cfg, "align-matrix", "-f", cdir, "-o", tsv,
+                          "--alignments-out", os.path.join(tmp, "aln2")])
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        dev_ms = {}
+        for e in prof.key_averages():
+            if str(e.device_type) != str(torch.autograd.DeviceType.CUDA):
+                continue  # a host op: its kernels are listed on their own
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                dev_ms[e.key] = us / 1e3
+        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+        profile_line = (f"profiled align-matrix run: wall {t_prof:.3f} s, device time "
+                        f"{sum(dev_ms.values()):.1f} ms (busy "
+                        f"{sum(dev_ms.values()) / 10 / t_prof:.1f}%); "
+                        + "; ".join(f"{k[:40]} {v:.1f} ms" for k, v in top))
+
+        # A mixed-length corpus (several buckets), global and local.
+        rng = np.random.default_rng(77)
+        mbase = random_dna(rng, MIXED_MAX + 13 * MIXED_N)
+        lens = rng.integers(MIXED_MIN, MIXED_MAX + 1, MIXED_N)
+        mdir = os.path.join(tmp, "mixed")
+        write_fasta_dir(mdir, [(f"m{k} len={L}", mutate(rng, mbase[13 * k : 13 * k + L], 0.02, 4))
+                               for k, L in enumerate(lens)])
+        mseqs = load_fasta_dir(mdir).sequences
+        for is_local in (False, True):
+            madir = os.path.join(tmp, f"mixed_aln_{int(is_local)}")
+            mtsv = os.path.join(tmp, f"mixed_{int(is_local)}.tsv")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["-c", cfg, "align-matrix", "-a", "local" if is_local else "global",
+                               "-f", mdir, "-o", mtsv, "--alignments-out", madir])
+            check(rc == 0, f"align-matrix on the mixed corpus exited {rc}")
+            with open(mtsv) as f:
+                mrows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+            aligner = PairwiseAligner(sc, is_local=is_local, device="cuda")
+            for j in range(len(mseqs)):
+                for i in range(j):
+                    ref = aligner.align(mseqs[i], mseqs[j])
+                    name, text = cli.pair_alignment_fasta(i, j, mseqs[i], mseqs[j], ref, is_local)
+                    with open(os.path.join(madir, name)) as f:
+                        check(f.read() == text and int(mrows[j][1 + i]) == ref.score,
+                              f"mixed corpus pair ({i}, {j}) local={is_local} != per-pair aligner")
+        n_buckets = len(bucketize_pairs([(i, j) for j in range(len(mseqs)) for i in range(j)],
+                                        [len(s) for s in mseqs]))
+    print(f"[phase 8] mixed corpus of {len(mseqs)} genomes ({min(lens)}-{max(lens)} bp, "
+          f"{n_buckets} buckets) through align-matrix --alignments-out, global and local: "
+          f"every pair's file "
+          f"and score == PairwiseAligner.align ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # ---- phase 9: times ----
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    k3_g = cuda_ms(lambda: gs.gotoh_stream_fill(*corpus, sc, False), 3)
+    k3_l = cuda_ms(lambda: gs.gotoh_stream_fill(*corpus, sc, True), 3)
+    k3_d = cuda_ms(lambda: gs.gotoh_stream_fill(*gargs, sc, False, emit_dirs=True), 3)
+    k4 = cuda_ms(lambda: tw.walk_many(flat, *wargs), 3)
+    c_all, c_grp = cells(corpus[2], corpus[3]), cells(gargs[2], gargs[3])
+    nb = len(all_pairs)
+    k3_bound = bound(nb * 2 * Lc + nb * 20, c_all * OPS_PER_CELL["global"], rate)
+    k3_bound_l = bound(nb * 2 * Lc + nb * 20, c_all * OPS_PER_CELL["local"], rate)
+    k3_bound_d = bound(G * 2 * Lc + G * 20 + c_grp / 4,
+                       c_grp * (OPS_PER_CELL["global"] + OPS_PER_CELL["dirs"]), rate)
+    k4_bound = bound(4.25 * k4_moves + 36 * G, OPS_PER_MOVE * k4_moves, rate)
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    print(f"[phase 9] card {card} | K3 {nb} pairs of {GENOME_LEN} bp ({c_all:.4g} cells): "
+          f"global [{fmt(k3_g)}] ms = {c_all / med(k3_g) * 1e3:.4g} cells/s (plain "
+          f"{k3_plain_ms:.1f} ms, bound {k3_bound[0]:.3f} ms by {k3_bound[1]}); local "
+          f"[{fmt(k3_l)}] ms = {c_all / med(k3_l) * 1e3:.4g} cells/s (bound "
+          f"{k3_bound_l[0]:.3f} ms; plain on {len(sub_pairs)} pairs "
+          f"{k3_plain_local_ms:.1f} ms) | K3 dirs group of {G}: [{fmt(k3_d)}] ms (plain "
+          f"{k3_plain_dirs_ms:.1f} ms, bound {k3_bound_d[0]:.3f} ms by {k3_bound_d[1]}) | "
+          f"K4 {G} walks, {k4_moves} moves: [{fmt(k4)}] ms = "
+          f"{med(k4) * 1e6 / max(k4_moves // G, 1):.1f} ns per move of one walk (plain "
+          f"{k4_plain_ms:.1f} ms, bound {k4_bound[0]:.6f} ms by {k4_bound[1]}) | wall: "
+          f"allpairs_scores global {t_ap_g:.3f} s, local {t_ap_l:.3f} s; align-matrix "
+          f"--alignments-out {t_cli:.3f} s | {profile_line}", flush=True)
+    return [
+        {"name": "gotoh_stream", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_stream.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_stream.py:505",
+         "launches": main_launches["gotoh_stream"], "max_abs_err": float(k3_err),
+         "ms": med(k3_g), "plain_ms": float(k3_plain_ms),
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "walk_many", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/traceback_walk.cu",
+         "replaces": "genomics_rs_tpu/ops/traceback_pallas.py:397",
+         "launches": main_launches["walk_many"], "max_abs_err": float(k4_err),
+         "ms": med(k4), "plain_ms": float(k4_plain_ms),
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+    ]
 
 
 def main() -> None:
@@ -431,6 +835,11 @@ def main() -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    rate = int32_ops_per_s(torch)
+    k1_cells = (Lm + 1.0) * (Ln + 1.0)
+    k1_bound = bound(Lm + Ln + 12 * (Ln + 1) + k1_cells / 4 + 16,
+                     k1_cells * (OPS_PER_CELL["local"] + OPS_PER_CELL["dirs"]), rate)
+    k2_bound = bound(4.25 * n_moves + 24, OPS_PER_MOVE * n_moves, rate)
     print(f"[phase 5] card {card} | K1 {Lm}x{Ln} local+dirs: kernel "
           f"[{fmt(k1_ms)}] ms, plain {k1_plain_ms:.1f} ms | K1 {R30}x{L30} "
           f"forward+cols: kernel [{fmt(k1_fwd30_ms)}] ms, +dirs: [{fmt(k1_dirs30_ms)}] ms "
@@ -440,19 +849,27 @@ def main() -> None:
           f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s",
           flush=True)
 
-    summary = {"kernels": [
+    print(f"[phase 5] bounds (int32 {rate:.4g} ops/s, {HBM_BYTES_PER_S:.3g} B/s): "
+          f"K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 {k2_bound[0]:.6f} ms "
+          f"({k2_bound[1]})", flush=True)
+
+    rows = [
         {"name": "gotoh_rowblock", "route": "cuda",
          "source": "genomics_rs_tpu_torch/csrc/gotoh_rowblock.cu",
          "replaces": "genomics_rs_tpu/ops/gotoh_rowblock.py:403",
          "launches": launches["gotoh_rowblock"], "max_abs_err": float(k1_err),
-         "ms": float(np.median(k1_ms)), "plain_ms": float(k1_plain_ms)},
+         "ms": float(np.median(k1_ms)), "plain_ms": float(k1_plain_ms),
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "traceback_walk", "route": "cuda",
          "source": "genomics_rs_tpu_torch/csrc/traceback_walk.cu",
          "replaces": "genomics_rs_tpu/ops/traceback_pallas.py:260",
          "launches": launches["traceback_walk"], "max_abs_err": float(k2_err),
-         "ms": float(np.median(k2_ms)), "plain_ms": float(k2_plain_ms)},
-    ]}
-    print(json.dumps(summary))
+         "ms": float(np.median(k2_ms)), "plain_ms": float(k2_plain_ms),
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+    ]
+    del kern, plain, want, got
+    rows += align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,10 @@ version instead. Nothing here imports JAX.
 Ported so far: the ``align`` path (``models/aligner``,
 ``models/longalign``) with its two kernels, the row-block Gotoh fill
 (``ops/gotoh_rowblock``) and the traceback walker
-(``ops/traceback_walker``).
+(``ops/traceback_walker``); and the ``align-matrix`` path
+(``parallel/allpairs``, ``parallel/batch``, ``models/aligner.align_batch``)
+with two more, the batched fill (``ops/gotoh_stream``) and the batched
+walker (``ops/traceback_walker.walk_many``).
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,16 @@
 // Design: one thread, no staging. The TPU kernel DMA'd a window of the
 // bitmap into scalar memory because its scalar core could not gather from
 // HBM; here the load goes straight to global memory through the caches,
-// so the kernel takes any KW >= 1, V >= 1. Hiding the load latency would
-// need several walks in flight (a batched walker), which is later work.
+// so the kernel takes any KW >= 1, V >= 1.
+//
+// walk_many_kernel (K4) replaces traceback_pallas.py's walk_many (body
+// _kernel_walk_many): W independent chases in one launch over one packed
+// array (KWT, V), walk w reading the word rows [koff_w, koff_w + KW) and
+// the lanes from loff_w on, from its own start cell to the origin (i0 = j0
+// = 0: full-width bitmaps, so no exits). One thread per walk: each walk is
+// still a chain of dependent loads, but the W chains are in flight together
+// and hide each other's latency, which one walk on one thread (K2) cannot.
+// The TPU kernel's DMA window needed KW >= 34; here any KW >= 1 goes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +77,53 @@ __global__ void walk_kernel(const unsigned* __restrict__ dirs,
   meta[5] = oob;
 }
 
+// starts[4w .. 4w+3] = (start_li, start_j, koff, loff) of walk w; its moves
+// go to words[w*NW ..], its meta to meta[5w ..] = (pos, li, j, done, oob).
+__global__ void walk_many_kernel(const unsigned* __restrict__ dirs,
+                                 const int* __restrict__ starts,
+                                 unsigned* __restrict__ words,
+                                 int* __restrict__ meta, int W, int KW,
+                                 int KWT, int V, int NW, int max_steps) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  int li = starts[4 * w];
+  int j = starts[4 * w + 1];
+  const int koff = starts[4 * w + 2];
+  const int loff = starts[4 * w + 3];
+  unsigned* out = words + (size_t)w * NW;
+  int pos = 0, done = 0, oob = 0;
+  unsigned acc = 0;
+  while (!done && pos < max_steps) {
+    const int k = li + j;
+    const int row = koff + (k >> 4);
+    const int lane = loff + li;
+    if (li < 0 || lane >= V || k < 0 || (k >> 4) >= KW || row >= KWT) {
+      oob = 1;
+      break;
+    }
+    const unsigned code = (dirs[(size_t)row * V + lane] >> (2 * (k & 15))) & 3u;
+    const int li_new = max(li - (code == DIR_INS ? 0 : 1), 0);
+    const int j_new = max(j - (code == DIR_DEL ? 0 : 1), 0);
+    if (code != DIR_STOP) {
+      const int sp = pos & 15;
+      if (sp == 0) acc = 0;
+      acc |= code << (2 * sp);
+      if (sp == 15) out[pos >> 4] = acc;
+      ++pos;
+    }
+    if (code == DIR_STOP || (li_new == 0 && j_new == 0)) done = 1;
+    li = li_new;
+    j = j_new;
+  }
+  if (pos & 15) out[pos >> 4] = acc;
+  int* mt = meta + 5 * w;
+  mt[0] = pos;
+  mt[1] = li;
+  mt[2] = j;
+  mt[3] = done;
+  mt[4] = oob;
+}
+
 }  // namespace
 
 extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
@@ -78,5 +133,18 @@ extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
   walk_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (const unsigned*)dirs, (unsigned*)words, (int*)meta, KW, V, start_li,
       start_j, i0, j0, max_steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int walk_many_launch(const void* dirs, const void* starts,
+                                void* words, void* meta, int W, int KW,
+                                int KWT, int V, int NW, int max_steps,
+                                void* stream) {
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  constexpr int threads = 128;
+  walk_many_kernel<<<(W + threads - 1) / threads, threads, 0,
+                     (cudaStream_t)stream>>>(
+      (const unsigned*)dirs, (const int*)starts, (unsigned*)words, (int*)meta,
+      W, KW, KWT, V, NW, max_steps);
   return (int)cudaGetLastError();
 }

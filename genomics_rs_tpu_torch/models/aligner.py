@@ -1,6 +1,6 @@
 """Pairwise aligner: the user-facing alignment API (counterpart of
-``genomics_rs_tpu/models/aligner.py``'s ``PairwiseAligner`` and
-``align_pair``).
+``genomics_rs_tpu/models/aligner.py``'s ``PairwiseAligner``,
+``align_pair`` and ``align_batch``).
 
 ``align`` fills the whole table with the row-block fill as ONE block,
 keeping the 2-bit direction codes packed (``ops/gotoh_rowblock``),
@@ -8,6 +8,10 @@ chases them on the device (``ops/traceback_device.device_walk``), and
 classifies the moves on the host. A pair whose packed bitmap would
 exceed ``DIRS_BYTE_BUDGET`` goes to the checkpointed path
 (``models/longalign``), which gives the same result in linear space.
+
+``align_batch`` gives the same alignments for many pairs at once: one
+batched fill with dirs per group of pairs (``ops/gotoh_stream``, one
+thread block per pair) and one batched walk (``walk_many``).
 
 Sequences are padded to multiples of ``PAD_MULTIPLE``, as in the JAX
 package, so both packages fill tables of the same shape.
@@ -17,15 +21,23 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock
 from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
+from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
+from genomics_rs_tpu_torch.ops.traceback_walker import (
+    MAX_STEPS_CAP,
+    MPW,
+    unpack_moves,
+    walk_many,
+)
 from genomics_rs_tpu_torch.sequence import (
     PAD_S1,
     PAD_S2,
@@ -152,6 +164,91 @@ class PairwiseAligner:
             m, n, self.scores, self.is_local, emit_dirs=False,
         )
         return int(res.score)
+
+
+def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
+                is_local: bool = False, device="cuda") -> list[AlignedSequences]:
+    """Full alignments (path + stats) for a batch of pairs, equal to
+    :meth:`PairwiseAligner.align` pair by pair.
+
+    Pairs are padded to the batch maximum (pre-bucket very mixed
+    batches with ``parallel/allpairs.bucketize_pairs``) and cut into
+    groups of :func:`_stream_group_pairs`; each group is one batched
+    fill with dirs (K3) and one batched walk (K4), then host
+    classification. When even two pairs bust the group budget, every
+    pair goes to the per-pair aligner (its checkpointed route bounds
+    the memory).
+    """
+    aligner = PairwiseAligner(scores, is_local=is_local, device=device)
+    if not pairs:
+        return []
+    Lm = max(round_up(max(len(a) for a, _ in pairs), PAD_MULTIPLE), PAD_MULTIPLE)
+    Ln = max(round_up(max(len(b) for _, b in pairs), PAD_MULTIPLE), PAD_MULTIPLE)
+    max_steps = round_up(Lm + Ln + 1, 8192)
+    group = _stream_group_pairs(Lm, Ln, max_steps)
+    if group < 2:
+        return [aligner.align(a, b) for a, b in pairs]
+    out: list[AlignedSequences] = []
+    for g0 in range(0, len(pairs), group):
+        chunk = pairs[g0 : g0 + group]
+        s1b = np.stack([a.encoded(pad_to=Lm, pad_value=PAD_S1) for a, _ in chunk])
+        s2b = np.stack([b.encoded(pad_to=Ln, pad_value=PAD_S2) for _, b in chunk])
+        ms = np.array([len(a) for a, _ in chunk], np.int32)
+        ns = np.array([len(b) for _, b in chunk], np.int32)
+        moves, scv, sci, scj = stream_walk_group(
+            s1b, s2b, ms, ns, scores, is_local, max_steps, aligner.device
+        )
+        for t, (a, b) in enumerate(chunk):
+            out.append(classify_moves(moves[t], int(sci[t]), int(scj[t]), int(scv[t]), a, b))
+    return out
+
+
+#: device bytes one align_batch group may hold.
+GROUP_BYTE_BUDGET = 4 << 30
+
+
+def _stream_group_pairs(Lm: int, Ln: int, max_steps: int) -> int:
+    """Pairs per batched-dirs group, so that one group's bitmaps and
+    walk buffers stay within ``GROUP_BYTE_BUDGET``: KW * V * 4 bytes of
+    dirs per pair (``ops/gotoh_stream.dirs_shape``) plus ceil(max_steps
+    / 16) words of moves per walk. Below 2, callers use the per-pair
+    aligner."""
+    KW, V = dirs_shape(Lm, Ln)
+    per_pair = KW * V * 4 + -(-max_steps // MPW) * 4
+    return int(GROUP_BYTE_BUDGET // per_pair)
+
+
+def stream_walk_group(s1b: np.ndarray, s2b: np.ndarray, ms: np.ndarray,
+                      ns: np.ndarray, scores: Scores, is_local: bool,
+                      max_steps: int, device):
+    """One batched dirs fill plus every pair's walk for a padded group;
+    returns ``(moves, score, start_i, start_j)`` with ``moves[t]`` the
+    traceback-order uint8 codes of pair ``t``. Walks go to one
+    ``walk_many`` call when ``max_steps`` fits its buffer, else one
+    ``device_walk`` per pair."""
+    stream = gotoh_stream_fill_dirs(
+        torch.from_numpy(s1b).to(device), torch.from_numpy(s2b).to(device),
+        ms, ns, scores, is_local=is_local,
+    )
+    sci, scj, scv = stream.start_i, stream.start_j, stream.score
+    B, KW = len(ms), stream.KW
+    if max_steps <= MAX_STEPS_CAP:
+        words, counts, i_fs, j_fs, dones = walk_many(
+            stream.dirs.view(B * KW, -1), sci, scj, np.arange(B) * KW, KW, max_steps
+        )
+        walks = [
+            (unpack_moves(words[t], int(counts[t])), int(i_fs[t]), int(j_fs[t]), bool(dones[t]))
+            for t in range(B)
+        ]
+    else:
+        walks = [
+            device_walk(stream.segment_dirs(t), int(sci[t]), int(scj[t]), 0, max_steps=max_steps)
+            for t in range(B)
+        ]
+    for _, i_f, j_f, done in walks:
+        if not done or (not is_local and (i_f, j_f) != (0, 0)):
+            raise RuntimeError(f"batched retrace left the table at ({i_f}, {j_f})")
+    return [w[0] for w in walks], scv, sci, scj
 
 
 def align_pair(

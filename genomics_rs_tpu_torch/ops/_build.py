@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels, and route tensors to them.
 
 The kernels in ``csrc/*.cu`` have a plain C interface. At first use
-they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library, loaded with ``ctypes``. The library lands in ``_build/``
+they are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source, all at once, and linked into one shared library, loaded with
+``ctypes``. The library lands in ``_build/``
 inside this package (git ignores it), under a name keyed by a hash of
 the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the last build. Nothing is downloaded: the build reads only the
@@ -31,9 +32,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -71,7 +73,7 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for s in srcs:
             h.update(s.name.encode())
             h.update(s.read_bytes())
@@ -80,20 +82,7 @@ def library() -> ctypes.CDLL:
         so = out_dir / f"libgenomics_kernels_{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         if not so.exists():
-            nvcc = _find_nvcc()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [
-                str(s) for s in srcs if s.suffix == ".cu"
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            BUILD_INFO["ptxas"] = proc.stderr
+            BUILD_INFO["ptxas"] = _compile(srcs, out_dir, so)
         BUILD_INFO["seconds"] = time.perf_counter() - t0
         BUILD_INFO["path"] = str(so)
         lib = ctypes.CDLL(str(so))
@@ -102,12 +91,41 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def _compile(srcs: list[Path], out_dir: Path, so: Path) -> str:
+    """One ``nvcc -c`` per ``.cu`` source, all started together, then one
+    link into ``so``. Returns ptxas's report of every source."""
+    nvcc = _find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for s in srcs:
+            if s.suffix == ".cu":
+                obj = Path(tmp) / f"{s.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)]
+                procs.append((s, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errs = [proc.communicate()[1] for _, _, proc in procs]  # wait for all
+        for (s, _, proc), err in zip(procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name} ({proc.returncode}):\n{err}")
+        lib = Path(tmp) / "lib.so"
+        link = [nvcc, *LINK_FLAGS, "-o", str(lib)] + [str(o) for _, o, _ in procs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, so)
+    return "".join(errs)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.gotoh_rowblock_launch.argtypes = [vp] * 9 + [i] * 14 + [vp]
     lib.gotoh_rowblock_launch.restype = i
     lib.traceback_walk_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
     lib.traceback_walk_launch.restype = i
+    lib.gotoh_stream_launch.argtypes = [vp] * 7 + [i] * 13 + [vp]
+    lib.gotoh_stream_launch.restype = i
+    lib.walk_many_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
+    lib.walk_many_launch.restype = i
 
 
 def uses_kernel(t: torch.Tensor) -> bool:

@@ -1,9 +1,9 @@
 """CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (run them on a GPU
-machine with ``python -m pytest tests/test_torch_cuda.py``). The CPU
-tests hold the plain versions equal to the JAX package; these hold the
-kernels equal to the plain versions, bit for bit.
+machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
+The CPU tests hold the plain versions equal to the JAX package; these
+hold the kernels (K1–K4) equal to the plain versions, bit for bit.
 """
 
 import numpy as np
@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from genomics_rs_tpu_torch.config import Scores
-from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
+from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, align_batch
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+from genomics_rs_tpu_torch.ops import gotoh_stream as gs
 from genomics_rs_tpu_torch.ops import traceback_device as td
 from genomics_rs_tpu_torch.ops import traceback_walker as tw
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
@@ -78,6 +79,74 @@ def test_walk_kernel_matches_plain(cuda, j0):
         got = tw.walk_full(dirs.to(cuda), li, j, 3, max_steps=40, j0=j0)
         assert np.array_equal(got[0], want[0])
         assert tuple(got[1:]) == tuple(want[1:])
+
+
+def _stream_batch(rng, ms, ns, Lm, Ln):
+    B = len(ms)
+    s1 = np.full((B, Lm), 0xFE, np.uint8)
+    s2 = np.full((B, Ln), PAD_S2, np.uint8)
+    for b in range(B):
+        base = BASES[rng.integers(0, 4, max(Lm, Ln) + 20)]
+        s1[b, : ms[b]] = base[: ms[b]]
+        other = base[9 : 9 + ns[b]].copy()
+        flip = rng.random(ns[b]) < 0.1
+        other[flip] = BASES[rng.integers(0, 4, int(flip.sum()))]
+        s2[b, : ns[b]] = other
+    return torch.from_numpy(s1), torch.from_numpy(s2), np.array(ms), np.array(ns)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+@pytest.mark.parametrize(
+    "ms,ns,Lm,Ln",
+    [([1100, 900, 0, 17], [1024, 1100, 30, 0], 1152, 1152), ([300], [250], 384, 256)],
+    ids=["mixed", "one"],
+)
+def test_stream_kernel_matches_plain(cuda, is_local, st, ms, ns, Lm, Ln):
+    """K3 scores, start cells and codes at every true cell."""
+    rng = np.random.default_rng(4)
+    s1, s2, ms, ns = _stream_batch(rng, ms, ns, Lm, Ln)
+    sc = Scores(2, -3, -2, -4, st)
+    want = gs.gotoh_stream_plain(s1, s2, ms, ns, sc, is_local, emit_dirs=True)
+    got = gs.gotoh_stream_fill(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, emit_dirs=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    gd, wd = got.dirs.cpu().numpy(), want.dirs.numpy()
+    for p in range(len(ms)):
+        assert np.array_equal(_codes_at(gd[p], ms[p], ns[p]), _codes_at(wd[p], ms[p], ns[p]))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_walk_many_kernel_matches_plain(cuda, is_local):
+    """K4 over a K3 bitmap, and over random codes at lane offsets."""
+    rng = np.random.default_rng(5)
+    s1, s2, ms, ns = _stream_batch(rng, [1000, 700, 1100], [900, 1152, 40], 1152, 1152)
+    res = gs.gotoh_stream_fill_dirs(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local)
+    B, KW = len(ms), res.KW
+    flat = res.dirs.view(B * KW, -1)
+    args = (res.start_i, res.start_j, np.arange(B) * KW, KW, 4096)
+    got = tw.walk_many(flat, *args)
+    want = tw.walk_many_plain(flat.cpu(), *args)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+    assert all(got[4])
+    dirs = torch.from_numpy(rng.integers(-(2**31), 2**31, (96, 700), dtype=np.int64).astype(np.int32))
+    args = ([250, 10, 299], [300, 600, 5], [0, 20, 50], 40, 64)
+    got = tw.walk_many(dirs.to(cuda), *args, loffs=[0, 300, 7])
+    want = tw.walk_many_plain(dirs, *args, loffs=[0, 300, 7])
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_align_batch_cuda_matches_cpu(cuda, is_local):
+    rng = np.random.default_rng(6)
+    a = "".join(rng.choice(list("ACGT"), 600))
+    pairs = [(Sequence("a", a[k * 20 :]), Sequence("b", a[: 500 + k * 30])) for k in range(3)]
+    want = align_batch(pairs, Scores(), is_local, device="cpu")
+    got = align_batch(pairs, Scores(), is_local, device="cuda")
+    assert [(r.score, r.alignment) for r in got] == [(r.score, r.alignment) for r in want]
 
 
 @pytest.mark.parametrize("is_local", [False, True])
