@@ -36,10 +36,38 @@ Phases, one line each:
      file equal to the per-pair aligner's
   9  K3/K4 kernel times (median of 3, CUDA events), plain times, and the
      wall times of ``allpairs_scores`` and ``align-matrix``
+ 10  K6 (short-read fill) kernel == its plain version, on the card: ragged
+     fills of 1–256 bp (global/local, classic/kimura, codes at every true
+     cell) and bench.py's 16,384 x 152 bp batch (padded 256)
+ 11  ``walk_rows16`` kernel == its plain version over K6's codes: 4,096
+     reads at the ``map`` shape (local) and 4,096 of the 152 bp batch
+     (global)
+ 12  ``align_reads`` on the card, both fill routes (<= 256 bp on K6 +
+     ``walk_rows16``, wider on K3 + K4), global and local: scores and start
+     cells == the C++ oracle, path, stats and CIGAR == the per-pair
+     ``PairwiseAligner.align``
+ 13  the read path's CLI at real size (the main path of this slice, launch
+     counters reset just before it): ``reads`` scores and ``reads --align
+     --format sam`` on the 16,384 x 152 bp batch, ``map`` of 100,000
+     simulated 128 bp reads and ``map -2`` of 10,000 pairs against a
+     seeded 1,078,175 bp genome (positions and strands against the reads'
+     origins), ``call`` on 100,000 x 150 bp reads with 50 planted SNPs
+     (>= 49 recovered, no false call); K6, ``walk_rows16``, K3 and K4
+     launched, no plain version; then ``call``'s first K3 + K4 round
+     (4,096 reads, 256 x 384, local) is replayed from its recorded inputs:
+     K3 dirs == plain (codes at every true cell) and the diag16 walks
+     (K4) == plain
+ 14  K6 / ``walk_rows16`` / call-round K3 and K4 kernel times (median of 3,
+     CUDA events), plain times and bounds; the walls of ``reads``, ``map``
+     (seeding and extension) and ``call``; ``map``'s device-busy share
+     from ``torch.profiler``
 
-The second-to-last line is a JSON summary of the kernels (K1–K4, with
-each one's launches on its own path, bound and times); the last line is
-``{"ok": true, "device": {...}}``.
+Bounds count interior DP cells (m x n per pair) and, for a walk, the
+code words its path must read.
+
+The second-to-last line is a JSON summary of the kernels (K1–K4, K6 and
+``walk_rows16``, with each one's launches on its own path, bound and
+times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,6 +76,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,6 +93,15 @@ N_GENOMES, GENOME_LEN = 10, 29_900
 LOCAL_SUBSET = 4
 #: the mixed-length CLI corpus: MIXED_N genomes of MIXED_MIN..MIXED_MAX bp.
 MIXED_N, MIXED_MIN, MIXED_MAX = 12, 1_000, 5_000
+#: The read workloads at the sizes of bench.py's read rows: the
+#: short-read batch (16,384 pairs of 152 bp, padded to 256), ``map`` of
+#: 100,000 x 128 bp reads (window 128 + 4 x 32 = 256 bytes, so K6) and
+#: ``call`` on 100,000 x 150 bp reads (window 278, so K3 + K4) with 50
+#: planted SNPs, on a random genome of chr12.fasta's length.
+SR_B, SR_LEN, SR_PAD = 16_384, 152, 256
+GENOME_BP = 1_078_175
+MAP_N, MAP_LEN, PAIRS_N = 100_000, 128, 10_000
+CALL_N, CALL_LEN, CALL_SNPS = 100_000, 150, 50
 
 #: device memory rate, H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -124,6 +162,32 @@ def random_dna(rng, n: int) -> str:
     return "".join(rng.choice(list("ACGT"), n))
 
 
+def words_read(moves, counts, si, sj, layout: str) -> int:
+    """4-byte code words a batch of walks must read, counted from their
+    paths (the least traffic a walk can make). ``moves`` (B, T) in
+    traceback order from ``(si, sj)``; ``counts`` live moves per walk. A
+    walk is monotone in i and j, so the cells it takes moves at that share
+    a word are consecutive: each run of them reads the word once.
+    ``"rows16"`` words are (i - 1, (j - 1) // 16) over interior cells (the
+    boundary codes are synthesized), ``"diag16"`` words ((i + j) // 16, i)
+    over every cell."""
+    from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_SUB
+
+    moves = np.asarray(moves)
+    live = np.arange(moves.shape[1])[None, :] < np.asarray(counts)[:, None]
+    di = (live & ((moves == DIR_SUB) | (moves == DIR_DEL))).astype(np.int64)
+    dj = (live & ((moves == DIR_SUB) | (moves == DIR_INS))).astype(np.int64)
+    i_at = np.asarray(si, np.int64)[:, None] - np.cumsum(di, 1) + di
+    j_at = np.asarray(sj, np.int64)[:, None] - np.cumsum(dj, 1) + dj
+    if layout == "rows16":
+        word = np.where((i_at > 0) & (j_at > 0), (i_at - 1) * (1 << 24) + (j_at - 1) // 16, -1)
+    else:
+        word = (i_at + j_at) // 16 * (1 << 24) + i_at
+    first = np.ones_like(live)
+    first[:, 1:] = word[:, 1:] != word[:, :-1]
+    return int((live & first & (word >= 0)).sum())
+
+
 def int32_ops_per_s(torch) -> float:
     """Peak int32 rate: SMs x 64 INT32 lanes per SM (Hopper) x the
     card's maximum SM clock as ``nvidia-smi`` reports it."""
@@ -168,6 +232,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
     )
     from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
     from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import traceback_batch as tb
     from genomics_rs_tpu_torch.ops import traceback_device as td
     from genomics_rs_tpu_torch.ops import traceback_walker as tw
     from genomics_rs_tpu_torch.config import Scores
@@ -180,7 +245,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
         round_up,
     )
 
-    counted = (rb, gs, td, tw)
+    counted = (rb, gs, td, tw, tb)
 
     def reset_counts():
         for mod in counted:
@@ -189,7 +254,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
 
     def plain_calls() -> int:
         return (rb.COUNTS["plain"] + gs.COUNTS["plain"] + td.COUNTS["plain"]
-                + tw.COUNTS["many_plain"])
+                + tw.COUNTS["many_plain"] + tb.COUNTS["plain"])
 
     def batch_of(pairs, Lm, Ln):
         """(s1, s2) uint8 (B, Lm), (B, Ln) on the card, ms, ns."""
@@ -218,7 +283,13 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
         return out, (time.perf_counter() - t0) * 1e3
 
     def cells(ms, ns) -> float:
-        return float(np.sum((np.asarray(ms) + 1.0) * (np.asarray(ns) + 1.0)))
+        """Interior DP cells, m x n per pair (row 0 and column 0 are closed
+        forms, not recurrence cells)."""
+        return float(np.sum(np.asarray(ms, np.float64) * np.asarray(ns, np.float64)))
+
+    def seq_bytes(ms, ns) -> float:
+        """Each pair's true characters, read once."""
+        return float(np.sum(np.asarray(ms, np.float64) + np.asarray(ns, np.float64)))
 
     # ---- phase 6: K3 kernel vs plain ----
     t_phase = time.perf_counter()
@@ -365,6 +436,8 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
                           for a, b in zip(walked, want)) else 1
         check(k4_err == 0 and all(walked[4]), "K4 kernel != plain on the group's walks")
         k4_moves = int(np.sum(walked[1]))
+        k4_words = words_read(tb._unpack(walked[0], np.asarray(walked[1], np.int64), max_steps),
+                              walked[1], wargs[0], wargs[1], "diag16")
 
         # Three pairs against the per-pair aligner (slice 1's path).
         three = group[:3]
@@ -452,11 +525,12 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
     k4 = cuda_ms(lambda: tw.walk_many(flat, *wargs), 3)
     c_all, c_grp = cells(corpus[2], corpus[3]), cells(gargs[2], gargs[3])
     nb = len(all_pairs)
-    k3_bound = bound(nb * 2 * Lc + nb * 20, c_all * OPS_PER_CELL["global"], rate)
-    k3_bound_l = bound(nb * 2 * Lc + nb * 20, c_all * OPS_PER_CELL["local"], rate)
-    k3_bound_d = bound(G * 2 * Lc + G * 20 + c_grp / 4,
+    k3_bytes = seq_bytes(corpus[2], corpus[3]) + nb * 20
+    k3_bound = bound(k3_bytes, c_all * OPS_PER_CELL["global"], rate)
+    k3_bound_l = bound(k3_bytes, c_all * OPS_PER_CELL["local"], rate)
+    k3_bound_d = bound(seq_bytes(gargs[2], gargs[3]) + G * 20 + c_grp / 4,
                        c_grp * (OPS_PER_CELL["global"] + OPS_PER_CELL["dirs"]), rate)
-    k4_bound = bound(4.25 * k4_moves + 36 * G, OPS_PER_MOVE * k4_moves, rate)
+    k4_bound = bound(4 * k4_words + k4_moves / 4 + 36 * G, OPS_PER_MOVE * k4_moves, rate)
     med = lambda ts: float(np.median(ts))  # noqa: E731
     print(f"[phase 9] card {card} | K3 {nb} pairs of {GENOME_LEN} bp ({c_all:.4g} cells): "
           f"global [{fmt(k3_g)}] ms = {c_all / med(k3_g) * 1e3:.4g} cells/s (plain "
@@ -465,7 +539,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
           f"{k3_bound_l[0]:.3f} ms; plain on {len(sub_pairs)} pairs "
           f"{k3_plain_local_ms:.1f} ms) | K3 dirs group of {G}: [{fmt(k3_d)}] ms (plain "
           f"{k3_plain_dirs_ms:.1f} ms, bound {k3_bound_d[0]:.3f} ms by {k3_bound_d[1]}) | "
-          f"K4 {G} walks, {k4_moves} moves: [{fmt(k4)}] ms = "
+          f"K4 {G} walks, {k4_moves} moves reading {k4_words} words: [{fmt(k4)}] ms = "
           f"{med(k4) * 1e6 / max(k4_moves // G, 1):.1f} ns per move of one walk (plain "
           f"{k4_plain_ms:.1f} ms, bound {k4_bound[0]:.6f} ms by {k4_bound[1]}) | wall: "
           f"allpairs_scores global {t_ap_g:.3f} s, local {t_ap_l:.3f} s; align-matrix "
@@ -483,6 +557,507 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
          "launches": main_launches["walk_many"], "max_abs_err": float(k4_err),
          "ms": med(k4), "plain_ms": float(k4_plain_ms),
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+    ]
+
+
+def revcomp(s: str) -> str:
+    return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def sam_rows(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [ln.split("\t") for ln in f.read().splitlines() if not ln.startswith("@")]
+
+
+def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
+    """Phases 10-14: the read workloads (``reads``, ``map``, ``call``) on
+    K6 and ``walk_rows16``, and on K3 and K4 for windows over 256 bytes.
+    Returns the two new kernels' rows of the summary line."""
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.models import reads as rd
+    from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, stream_walk_group
+    from genomics_rs_tpu_torch.models.mapper import KmerIndex, map_reads
+    from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+    from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
+    from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import traceback_batch as tb
+    from genomics_rs_tpu_torch.ops import traceback_device as td
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, SequenceContainer
+
+    counted = (rb, gs, td, tw, gsr, tb)
+
+    def reset_counts():
+        for mod in counted:
+            for key in mod.COUNTS:
+                mod.COUNTS[key] = 0
+
+    def plain_calls() -> int:
+        return sum(n for mod in counted for key, n in mod.COUNTS.items() if "plain" in key)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+
+    def on_card(s1, s2, ms, ns):
+        return (torch.from_numpy(np.ascontiguousarray(s1)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(s2)).to(dev),
+                np.asarray(ms, np.int64), np.asarray(ns, np.int64))
+
+    def k6_err(got, want, ms, ns) -> int:
+        """Max |difference| of scores and start cells, and of the codes at
+        every true cell (rows 1..m, columns 1..n) when both have codes."""
+        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got[:3], want[:3])]
+        if len(want) == 4:
+            B, L1, W = want[3].shape
+            shifts = 2 * torch.arange(16, device=dev)
+            ms_t = torch.as_tensor(ms, device=dev)[:, None, None]
+            ns_t = torch.as_tensor(ns, device=dev)[:, None, None]
+            rows = torch.arange(L1, device=dev)[None, :, None]
+            cols = torch.arange(W * 16, device=dev)[None, None, :]
+            for c0 in range(0, B, 512):
+                g, w = (x[c0 : c0 + 512].long() for x in (got[3], want[3]))
+                d = ((g[..., None] >> shifts) & 3) - ((w[..., None] >> shifts) & 3)
+                live = (rows < ms_t[c0 : c0 + 512]) & (cols < ns_t[c0 : c0 + 512])
+                errs.append(int((d.flatten(2).abs() * live).max()))
+        return max(errs)
+
+    def diag16_err(got, want, ms, ns, chunk=256) -> int:
+        """Max |difference| of K3 scores and start cells, and of the diag16
+        codes ``dirs[b, (i + j) // 16, i]`` at every true cell (0 <= i <= m,
+        0 <= j <= n)."""
+        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got[:3], want[:3])]
+        i = torch.arange(int(max(ms)) + 1, device=dev)[:, None]
+        j = torch.arange(int(max(ns)) + 1, device=dev)[None, :]
+        k = i + j
+        ms_t = torch.as_tensor(np.asarray(ms), device=dev)[:, None, None]
+        ns_t = torch.as_tensor(np.asarray(ns), device=dev)[:, None, None]
+        for c0 in range(0, len(ms), chunk):
+            g, w = (((x[c0 : c0 + chunk][:, k // 16, i].long()) >> (2 * (k % 16))) & 3
+                    for x in (got.dirs, want.dirs))
+            live = (i <= ms_t[c0 : c0 + chunk]) & (j <= ns_t[c0 : c0 + chunk])
+            errs.append(int(((g - w).abs() * live).max()))
+        return max(errs)
+
+    def ragged_batch(rng, B, L1, L2):
+        """Reads and 10%-mutated copies, lengths 1..L, one pair filling the
+        bucket."""
+        ms, ns = rng.integers(1, L1 + 1, B), rng.integers(1, L2 + 1, B)
+        ms[0], ns[0] = L1, L2
+        s1 = np.full((B, L1), PAD_S1, np.uint8)
+        s2 = np.full((B, L2), PAD_S2, np.uint8)
+        for b in range(B):
+            s1[b, : ms[b]] = acgt[rng.integers(0, 4, ms[b])]
+            k = min(ms[b], ns[b])
+            s2[b, :k] = s1[b, :k]
+            s2[b, k : ns[b]] = acgt[rng.integers(0, 4, ns[b] - k)]
+            flip = np.nonzero(rng.random(k) < 0.1)[0]
+            s2[b, flip] = acgt[rng.integers(0, 4, flip.size)]
+        return on_card(s1, s2, ms, ns)
+
+    # ---- phase 10: K6 kernel vs plain ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(51)
+    k6_max, n_fills = 0, 0
+    for L1, L2 in ((256, 256), (32, 16)):
+        args = ragged_batch(rng, 300, L1, L2)
+        for is_local in (False, True):
+            for st in (None, -1):
+                sck = Scores(2, -3, -2, -4, st)
+                want = gsr.gotoh_shortread_plain(*args, sck, is_local, emit_dirs=True)
+                err = max(k6_err(gsr.gotoh_scores_shortread(*args, sck, is_local, emit_dirs=True),
+                                 want, args[2], args[3]),
+                          k6_err(gsr.gotoh_scores_shortread(*args, sck, is_local),
+                                 want[:3], args[2], args[3]))
+                k6_max = max(k6_max, err)
+                n_fills += 1
+                check(err == 0, f"K6 kernel != plain ({L1} x {L2} ragged, local={is_local}, "
+                                f"st={st}): max |err| {err}")
+
+    # bench.py's short-read batch: unrelated 152 bp pairs from default_rng(5)
+    rng = np.random.default_rng(5)
+    s1r = np.full((SR_B, SR_PAD), PAD_S1, np.uint8)
+    s2r = np.full((SR_B, SR_PAD), PAD_S2, np.uint8)
+    s1r[:, :SR_LEN] = acgt[rng.integers(0, 4, (SR_B, SR_LEN))]
+    s2r[:, :SR_LEN] = acgt[rng.integers(0, 4, (SR_B, SR_LEN))]
+    sr = on_card(s1r, s2r, np.full(SR_B, SR_LEN), np.full(SR_B, SR_LEN))
+    sr_scores, k6_plain_ms = {}, {}
+    for is_local in (False, True):
+        got = gsr.gotoh_scores_shortread(*sr, sc, is_local)
+        want, k6_plain_ms[is_local] = timed(lambda: gsr.gotoh_shortread_plain(*sr, sc, is_local))
+        err = k6_err(got, want, sr[2], sr[3])
+        got = gsr.gotoh_scores_shortread(*sr, sc, is_local, emit_dirs=True)
+        want = gsr.gotoh_shortread_plain(*sr, sc, is_local, emit_dirs=True)
+        err = max(err, k6_err(got, want, sr[2], sr[3]))
+        k6_max = max(k6_max, err)
+        check(err == 0, f"K6 kernel != plain on the {SR_B} x {SR_LEN} batch (local={is_local}): "
+                        f"max |err| {err}")
+        sr_scores[is_local] = got[0].cpu().numpy()
+        del got, want
+
+    # the map shape: 4,096 reads of 128 bp (1% SNPs) in 256 bp windows
+    MB = 4096
+    win = acgt[rng.integers(0, 4, (MB, 256))]
+    s1m = win[:, 64:192].copy()
+    hit = rng.random(s1m.shape) < 0.01
+    s1m[hit] = acgt[rng.integers(0, 4, int(hit.sum()))]
+    mp = on_card(s1m, win, np.full(MB, 128), np.full(MB, 256))
+    fill_m = gsr.gotoh_scores_shortread(*mp, sc, True, emit_dirs=True)
+    want, k6_plain_dirs_ms = timed(lambda: gsr.gotoh_shortread_plain(*mp, sc, True, emit_dirs=True))
+    err = k6_err(fill_m, want, mp[2], mp[3])
+    k6_max = max(k6_max, err)
+    check(err == 0, f"K6 dirs kernel != plain at the map shape: max |err| {err}")
+    del want
+    print(f"[phase 10] K6 kernel == plain on {n_fills} ragged fills (1-256 bp, global/local, "
+          f"classic/kimura, scores-only and codes at every true cell), the {SR_B} x {SR_LEN} "
+          f"bp batch padded {SR_PAD} global and local (scores + codes) and {MB} reads at the "
+          f"map shape (128 x 256, local, codes); max |err| {k6_max} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 11: walk_rows16 kernel vs plain ----
+    t_phase = time.perf_counter()
+    sr4 = (sr[0][:MB], sr[1][:MB], sr[2][:MB], sr[3][:MB])
+    fill_g = gsr.gotoh_scores_shortread(*sr4, sc, False, emit_dirs=True)
+    walk_cases = (("map shape, local", fill_m, True, 128 + 256 + 1),
+                  (f"{SR_LEN} bp batch, global", fill_g, False, 2 * SR_PAD + 1))
+    walk_max, walk_plain_ms, walk_moves = 0, {}, {}
+    for name, (_, si, sj, codes), is_local, max_steps in walk_cases:
+        got = tb.walk_batch(codes, si, sj, sc, is_local, "rows16", max_steps)
+        want, walk_plain_ms[name] = timed(lambda: tb.walk_batch_plain(
+            codes, si.cpu().numpy(), sj.cpu().numpy(), sc, is_local, "rows16", max_steps))
+        same = all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want))
+        walk_max = max(walk_max, 0 if same else 1)
+        check(same and all(got[4]), f"walk_rows16 != plain ({name})")
+        if not is_local:
+            check(not got[2].any() and not got[3].any(), "a global walk did not end at (0, 0)")
+        walk_moves[name] = int(np.sum(got[1]))
+        if is_local:
+            wr_words = words_read(got[0], got[1], si.cpu().numpy(), sj.cpu().numpy(), "rows16")
+    print(f"[phase 11] walk_rows16 kernel == plain on {MB} walks at the map shape (local, "
+          f"{walk_moves[walk_cases[0][0]]} moves) and {sr4[2].size} of the {SR_LEN} bp batch (global, "
+          f"{walk_moves[walk_cases[1][0]]} moves, all ending at (0, 0)); plain "
+          + ", ".join(f"{k} {v:.0f} ms" for k, v in walk_plain_ms.items())
+          + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 12: align_reads on both routes vs oracle and per-pair aligner ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(61)
+    routes = {"K6": (60, 240), "K3": (260, 420)}
+    n_checked = 0
+    for route, (lo, hi) in routes.items():
+        qs, rs = [], []
+        for k in range(24):
+            r = random_dna(rng, int(rng.integers(lo, hi)))
+            q = mutate(rng, r[int(rng.integers(0, 20)) :], 0.03, 1)[: hi - 10]
+            qs.append(Sequence(f"q{k}", q))
+            rs.append(Sequence(f"r{k}", r))
+        for is_local in (False, True):
+            reset_counts()
+            aligned, cigars = rd.align_reads(qs, rs, sc, is_local=is_local, with_cigars=True,
+                                             device="cuda")
+            ran = ((gsr.COUNTS["kernel"], tb.COUNTS["kernel"]) if route == "K6"
+                   else (gs.COUNTS["kernel"], tw.COUNTS["many_kernel"]))
+            check(min(ran) > 0 and plain_calls() == 0,
+                  f"align_reads {route} route: launches {ran}, plain calls {plain_calls()}")
+            with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+                oracle = list(pool.map(lambda qr: native.gotoh_score_cpu(
+                    qr[0].sequence, qr[1].sequence, sc, is_local), zip(qs, rs)))
+            aligner = PairwiseAligner(sc, is_local=is_local, device="cuda")
+            for k, (a, cg, o) in enumerate(zip(aligned, cigars, oracle)):
+                check((a.score,) + a.alignment[0][1:] == o,
+                      f"align_reads {route} local={is_local} read {k}: "
+                      f"{(a.score,) + a.alignment[0][1:]} != oracle {o}")
+                ref = aligner.align(qs[k], rs[k])
+                check((a.alignment, a.matches, a.mismatches, a.opening_gaps, a.gap_extensions)
+                      == (ref.alignment, ref.matches, ref.mismatches, ref.opening_gaps,
+                          ref.gap_extensions) and cg == rd.cigar(ref),
+                      f"align_reads {route} local={is_local} read {k} != PairwiseAligner.align")
+                n_checked += 1
+    print(f"[phase 12] align_reads on cuda: {n_checked} reads over both routes (K6 + "
+          f"walk_rows16 for 60-240 bp, K3 + K4 for 260-420 bp), global and local: scores and "
+          f"start cells == C++ oracle, path, stats and CIGAR == PairwiseAligner.align "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 13: the read path's CLI at real size ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1207)
+    genome = acgt[rng.integers(0, 4, GENOME_BP)].tobytes().decode()
+    # map: 128 bp reads, 1% SNPs, a short indel in every fifth (cut from a
+    # longer fragment so every read stays 128 bp), odd reads reversed
+    map_pos = rng.integers(0, GENOME_BP - MAP_LEN - 12, MAP_N)
+    map_reads_txt = []
+    for i, p in enumerate(map_pos):
+        frag = mutate(rng, genome[p : p + MAP_LEN + 12], 0.01, int(i % 5 == 0))[:MAP_LEN]
+        map_reads_txt.append(revcomp(frag) if i % 2 else frag)
+    # map -2: fragments of 300-500 bp, mate 1 forward, mate 2 reversed
+    ins = rng.integers(300, 501, PAIRS_N)
+    pair_pos = rng.integers(0, GENOME_BP - 501, PAIRS_N)
+    mates = [(genome[p : p + MAP_LEN], revcomp(genome[p + n - MAP_LEN : p + n]))
+             for p, n in zip(pair_pos, ins)]
+    # call: bench.py's recipe (50 SNPs, 0.3% errors at q8, q38 elsewhere);
+    # a random genome has no repeats, so every locus is callable
+    truth_pos = np.sort(rng.choice(np.arange(500, GENOME_BP - 500), CALL_SNPS, replace=False))
+    flip = {"A": "G", "C": "T", "G": "A", "T": "C"}
+    donor = np.frombuffer(genome.encode(), np.uint8).copy()
+    for p in truth_pos:
+        donor[p] = ord(flip[chr(donor[p])])
+    code4 = np.zeros(256, np.uint8)
+    code4[acgt] = np.arange(4)
+    starts = rng.integers(0, GENOME_BP - CALL_LEN, CALL_N)
+    cwin = donor[starts[:, None] + np.arange(CALL_LEN)]
+    errs = rng.random((CALL_N, CALL_LEN)) < 0.003
+    bump = rng.integers(1, 4, (CALL_N, CALL_LEN))
+    cwin = np.where(errs, acgt[(code4[cwin] + bump) % 4], cwin)
+    quals = np.where(errs, np.uint8(33 + 8), np.uint8(33 + 38))
+    truth = {(int(p) + 1, chr(donor[p])) for p in truth_pos}
+
+    os.environ["LOG_LEVEL"] = "WARNING"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        with open(path("config.toml"), "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        with open(path("genome.fasta"), "w") as f:
+            f.write(f">chr12s random {GENOME_BP} bp\n{genome}\n")
+        for name, prefix, rows in (("q.fasta", "q", s1r), ("r.fasta", "r", s2r)):
+            with open(path(name), "w") as f:
+                f.writelines(f">{prefix}{i}\n{row[:SR_LEN].tobytes().decode()}\n"
+                             for i, row in enumerate(rows))
+        with open(path("map.fasta"), "w") as f:
+            f.writelines(f">m{i}\n{s}\n" for i, s in enumerate(map_reads_txt))
+        for k, name in enumerate(("p1.fasta", "p2.fasta")):
+            with open(path(name), "w") as f:
+                f.writelines(f">p{i}/{k + 1}\n{m[k]}\n" for i, m in enumerate(mates))
+        with open(path("call.fastq"), "w") as f:
+            for i in range(CALL_N):
+                s, q = cwin[i].tobytes().decode(), quals[i].tobytes().decode()
+                if i % 2:
+                    s, q = revcomp(s), q[::-1]
+                f.write(f"@c{i}\n{s}\n+\n{q}\n")
+        t_data = time.perf_counter() - t_phase
+
+        base = ["-c", path("config.toml")]
+        runs = {
+            "reads": ["reads", "-q", path("q.fasta"), "-r", path("r.fasta"), "-a", "global",
+                      "-o", path("reads.tsv")],
+            "reads --align": ["reads", "-q", path("q.fasta"), "-r", path("r.fasta"), "-a",
+                              "global", "--align", "--format", "sam", "-o", path("reads.sam")],
+            "map": ["map", "-q", path("map.fasta"), "-r", path("genome.fasta"),
+                    "-o", path("map.sam")],
+            "map -2": ["map", "-q", path("p1.fasta"), "-2", path("p2.fasta"), "-r",
+                       path("genome.fasta"), "-o", path("pairs.sam")],
+            "call": ["call", "-q", path("call.fastq"), "-r", path("genome.fasta"), "--weighted",
+                     "--min-baseq", "13", "--min-mapq", "0", "--min-alt-conf", "0.8",
+                     "--min-depth", "5", "--min-frac", "0.6", "-o", path("calls.vcf")],
+        }
+        walls, stdout = {}, {}
+        # The inputs of the run's first K3 + K4 round (a round of `call`)
+        # are kept, to hold both kernels against their plain versions at
+        # that shape below; keeping them launches nothing.
+        k3_rounds = []
+
+        def record_round(*args):
+            if not k3_rounds:
+                k3_rounds.append(args)
+            return stream_walk_group(*args)
+
+        rd.stream_walk_group = record_round
+        try:
+            reset_counts()
+            for name, argv in runs.items():
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(base + argv)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                stdout[name] = out.getvalue()
+                check(rc == 0, f"CLI {name} exited {rc}")
+        finally:
+            rd.stream_walk_group = stream_walk_group
+        main_launches = {"gotoh_shortread": gsr.COUNTS["kernel"],
+                         "walk_rows16": tb.COUNTS["kernel"],
+                         "gotoh_stream": gs.COUNTS["kernel"],
+                         "walk_many": tw.COUNTS["many_kernel"]}
+        main_plain = plain_calls()
+        check(all(v > 0 for v in main_launches.values()),
+              f"the read path did not launch every kernel: {main_launches}")
+        check(main_plain == 0, f"the read path ran a plain version {main_plain} times")
+
+        # reads: the TSV's scores are phase 10's K6 scores (== plain)
+        with open(path("reads.tsv")) as f:
+            tsv = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+        check(len(tsv) == SR_B and all(int(r[2]) == int(s) for r, s in zip(tsv, sr_scores[False])),
+              "reads TSV scores != the K6 scores of phase 10")
+        # reads --align --format sam: a sample of records == the per-pair aligner's
+        sam = sam_rows(path("reads.sam"))
+        check(len(sam) == SR_B, f"reads --align wrote {len(sam)} records, not {SR_B}")
+        aligner = PairwiseAligner(sc, device="cuda")
+        for k in range(0, SR_B, SR_B // 16):
+            q = Sequence(f"q{k}", s1r[k, :SR_LEN].tobytes().decode())
+            r = Sequence(f"r{k}", s2r[k, :SR_LEN].tobytes().decode())
+            ref = aligner.align(q, r)
+            rec = rd.sam_records([r], [ref], [rd.cigar(ref)], [(0, 0, SR_LEN, SR_LEN)])[0]
+            check("\t".join(sam[k]) + "\n" == rd._sam_line(rec),
+                  f"reads --align SAM record {k} != the per-pair aligner's")
+
+        # map: strands and positions against the reads' origins
+        rows = sam_rows(path("map.sam"))
+        check(len(rows) == MAP_N, f"map wrote {len(rows)} records, not {MAP_N}")
+        flags = np.array([int(r[1]) for r in rows])
+        pos = np.array([int(r[3]) for r in rows])
+        # The reference retrace may walk a zero-score plateau before the
+        # read's true start (long D runs ahead of the first M block), so
+        # either end of the alignment on the reference may be the
+        # exact one.
+        end = pos - 1 + np.array([sum(int(n) for n, op in re.findall(r"(\d+)([MD])", r[5]))
+                                  for r in rows])
+        strand_ok = (flags & 16) == (np.arange(MAP_N) % 2) * 16
+        near = (np.abs(pos - (map_pos + 1)) <= 32) | (np.abs(end - (map_pos + MAP_LEN)) <= 32)
+        placed = (flags & 4 == 0) & strand_ok & near
+        n_unmapped = int((flags & 4 != 0).sum())
+        check(placed.mean() >= 0.995, f"map placed {int(placed.sum())}/{MAP_N} reads "
+                                      f"({n_unmapped} unmapped)")
+        prs = sam_rows(path("pairs.sam"))
+        check(len(prs) == 2 * PAIRS_N, f"map -2 wrote {len(prs)} records")
+        proper = sum(int(r[1]) & 2 != 0 for r in prs[::2])
+        pair_ok = sum(int(r[3]) == p + 1 and (int(r[1]) & 16) == 0 for r, p in zip(prs[::2], pair_pos))
+        check(proper >= 0.99 * PAIRS_N and pair_ok >= 0.99 * PAIRS_N,
+              f"map -2: {proper} proper pairs, {pair_ok} first mates placed of {PAIRS_N}")
+
+        # call: planted SNPs recovered, no false call
+        with open(path("calls.vcf")) as f:
+            vcf = [ln.split("\t") for ln in f.read().splitlines() if not ln.startswith("#")]
+        got_snps = {(int(v[1]), v[4]) for v in vcf if len(v[3]) == 1 and len(v[4]) == 1}
+        recovered = len(got_snps & truth)
+        false_calls = len(vcf) - recovered
+        check(recovered >= CALL_SNPS - 1 and false_calls == 0,
+              f"call: {recovered}/{CALL_SNPS} SNPs recovered, {false_calls} false calls")
+
+        # call's first K3 + K4 round, replayed: K3 dirs == plain, and the
+        # diag16 walk (K4) == its plain version, on the same inputs
+        check(len(k3_rounds) == 1, "the read path ran no K3 + K4 round")
+        s1c, s2c, ms_c, ns_c, sc_c, loc_c, steps_c = k3_rounds[0][:7]
+        cr = on_card(s1c, s2c, ms_c, ns_c)
+        CB, (CL1, CL2) = len(ms_c), (cr[0].shape[1], cr[1].shape[1])
+        k3_call = gs.gotoh_stream_fill(*cr, sc_c, loc_c, emit_dirs=True)
+        want, k3_call_plain_ms = timed(lambda: gs.gotoh_stream_plain(*cr, sc_c, loc_c,
+                                                                     emit_dirs=True))
+        k3_call_err = diag16_err(k3_call, want, cr[2], cr[3])
+        check(k3_call_err == 0, f"K3 dirs kernel != plain on call's first round ({CB} reads, "
+                                f"{CL1} x {CL2}): max |err| {k3_call_err}")
+        del want
+        si_c, sj_c = (x.cpu().numpy().astype(np.int64) for x in k3_call[1:3])
+        walk_c = lambda: tb.walk_batch(k3_call.dirs, si_c, sj_c, sc_c, loc_c,  # noqa: E731
+                                       "diag16", steps_c)
+        got = walk_c()
+        want, k4_call_plain_ms = timed(lambda: tb.walk_batch_plain(
+            k3_call.dirs, si_c, sj_c, sc_c, loc_c, "diag16", steps_c))
+        same = all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want))
+        check(same and all(got[4]), f"K4 diag16 walk != plain on call's first round ({CB} walks)")
+        k4_call_moves = int(np.sum(got[1]))
+        del want
+        print(f"[phase 13] call's first round replayed ({CB} reads, {CL1} x {CL2}, "
+              f"local={loc_c}): K3 dirs == plain (scores, starts, codes at every true cell; "
+              f"plain {k3_call_plain_ms:.0f} ms), {CB} diag16 walks ({k4_call_moves} moves) "
+              f"K4 == plain (plain {k4_call_plain_ms:.0f} ms); max |err| 0", flush=True)
+        print(f"[phase 13] read path CLI on cuda ({t_data:.1f} s to make the data): reads "
+              f"{SR_B} x {SR_LEN} bp scores == K6 and 16 SAM records == PairwiseAligner.align; "
+              f"map placed {int(placed.sum())}/{MAP_N} reads (strand, start or end within 32 "
+              f"bp of the origin's; "
+              f"{n_unmapped} unmapped); map -2 {proper}/{PAIRS_N} proper pairs; call "
+              f"{recovered}/{CALL_SNPS} SNPs recovered, {false_calls} false calls; launches "
+              f"{main_launches}, plain calls {main_plain} ({time.perf_counter() - t_phase:.1f} s)",
+              flush=True)
+        for name in runs:
+            said = [ln for ln in stdout[name].splitlines() if ln.strip() and "wrote" not in ln]
+            stdout[name] = said[-1]
+            print(f"[phase 13] {name}: {stdout[name]}", flush=True)
+
+        # ---- phase 14: times ----
+        k6_g = cuda_ms(lambda: gsr.gotoh_scores_shortread(*sr, sc, False), 3)
+        k6_l = cuda_ms(lambda: gsr.gotoh_scores_shortread(*sr, sc, True), 3)
+        k6_d = cuda_ms(lambda: gsr.gotoh_scores_shortread(*mp, sc, True, emit_dirs=True), 3)
+        _, si, sj, codes = fill_m
+        wr = cuda_ms(lambda: tb.walk_batch(codes, si, sj, sc, True, "rows16", 385), 3)
+        k3_c = cuda_ms(lambda: gs.gotoh_stream_fill(*cr, sc_c, loc_c, emit_dirs=True), 3)
+        k4_c = cuda_ms(walk_c, 3)
+        # interior cells only: row 0 and column 0 are closed forms
+        c_sr = SR_B * float(SR_LEN) ** 2
+        c_mp = MB * 128.0 * 256.0
+        sr_bytes = SR_B * (2 * SR_LEN + 20)
+        k6_bound = bound(sr_bytes, c_sr * OPS_PER_CELL["global"], rate)
+        k6_bound_l = bound(sr_bytes, c_sr * OPS_PER_CELL["local"], rate)
+        k6_bound_d = bound(MB * (128 + 256 + 20) + c_mp / 4,
+                           c_mp * (OPS_PER_CELL["local"] + OPS_PER_CELL["dirs"]), rate)
+        m_moves = walk_moves[walk_cases[0][0]]
+        wr_bound = bound(4 * wr_words + m_moves / 4 + 28 * MB, OPS_PER_MOVE * m_moves, rate)
+
+        # map split into seeding and extension, and its device-busy share
+        genome_seq = SequenceContainer().from_fasta(path("genome.fasta")).sequences
+        reads_m = SequenceContainer().from_reads(path("map.fasta")).sequences
+        t0 = time.perf_counter()
+        index = KmerIndex(genome_seq, 21)
+        t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        map_reads(reads_m, genome_seq, sc, index=index, min_seeds=10**9, device="cuda")
+        t_seed = time.perf_counter() - t0
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            map_reads(reads_m, genome_seq, sc, index=index, device="cuda")
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+    dev_ms = {}
+    for e in prof.key_averages():
+        if str(e.device_type) != str(torch.autograd.DeviceType.CUDA):
+            continue  # a host op: its kernels are listed on their own
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            dev_ms[e.key] = us / 1e3
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[phase 14] card {card} | K6 {SR_B} x {SR_LEN} bp ({c_sr:.4g} cells): global "
+          f"[{fmt(k6_g)}] ms = {c_sr / med(k6_g) * 1e3:.4g} cells/s (plain "
+          f"{k6_plain_ms[False]:.1f} ms, bound {k6_bound[0]:.4f} ms by {k6_bound[1]}); local "
+          f"[{fmt(k6_l)}] ms (plain {k6_plain_ms[True]:.1f} ms, bound {k6_bound_l[0]:.4f} ms) | "
+          f"K6 dirs at the map shape ({MB} x 128 x 256, local): [{fmt(k6_d)}] ms (plain "
+          f"{k6_plain_dirs_ms:.1f} ms, bound {k6_bound_d[0]:.4f} ms by {k6_bound_d[1]}) | "
+          f"walk_rows16 {MB} walks, {m_moves} moves reading {wr_words} words: [{fmt(wr)}] ms "
+          f"(plain {walk_plain_ms[walk_cases[0][0]]:.1f} ms, bound {wr_bound[0]:.6f} ms by "
+          f"{wr_bound[1]}) | call's round ({CB} reads, {CL1} x {CL2}): K3 dirs [{fmt(k3_c)}] "
+          f"ms (plain {k3_call_plain_ms:.1f} ms), K4 diag16 walks [{fmt(k4_c)}] ms (plain "
+          f"{k4_call_plain_ms:.1f} ms)", flush=True)
+    print(f"[phase 14] walls: reads scores {walls['reads']:.3f} s, reads --align sam "
+          f"{walls['reads --align']:.3f} s, map {walls['map']:.3f} s (CLI: {stdout['map']}; "
+          f"library: index {t_index:.3f} s, seeding only {t_seed:.3f} s), map -2 "
+          f"{walls['map -2']:.3f} s, call {walls['call']:.3f} s | profiled map_reads: wall "
+          f"{t_prof:.3f} s, device time {sum(dev_ms.values()):.1f} ms (busy "
+          f"{sum(dev_ms.values()) / 10 / t_prof:.2f}%); "
+          + "; ".join(f"{k[:40]} {v:.1f} ms" for k, v in top), flush=True)
+    return [
+        {"name": "gotoh_shortread", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_shortread.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_shortread.py:196",
+         "launches": main_launches["gotoh_shortread"], "max_abs_err": float(k6_max),
+         "ms": med(k6_g), "plain_ms": float(k6_plain_ms[False]),
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "walk_rows16", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/traceback_walk.cu",
+         "replaces": "genomics_rs_tpu/ops/traceback_batch.py:71",
+         "launches": main_launches["walk_rows16"], "max_abs_err": float(walk_max),
+         "ms": med(wr), "plain_ms": float(walk_plain_ms[walk_cases[0][0]]),
+         "bound_ms": wr_bound[0], "bound_by": wr_bound[1], "library_ms": None},
     ]
 
 
@@ -827,6 +1402,7 @@ def main() -> None:
     check(np.array_equal(got[0], want[0]) and got[1:] == want[1:],
           "K2 kernel != plain at the 10 kb shape")
     n_moves = len(got[0])
+    k2_words = words_read(got[0][None, :], [n_moves], [si], [sj], "diag16")
 
     walls = []
     for _ in range(2):
@@ -836,16 +1412,17 @@ def main() -> None:
         walls.append(time.perf_counter() - t0)
     fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
     rate = int32_ops_per_s(torch)
-    k1_cells = (Lm + 1.0) * (Ln + 1.0)
-    k1_bound = bound(Lm + Ln + 12 * (Ln + 1) + k1_cells / 4 + 16,
+    m10, n10 = len(s10), len(t10)
+    k1_cells = float(m10) * n10  # interior cells; row 0 and column 0 are closed forms
+    k1_bound = bound(m10 + n10 + 12 * (n10 + 1) + k1_cells / 4 + 16,
                      k1_cells * (OPS_PER_CELL["local"] + OPS_PER_CELL["dirs"]), rate)
-    k2_bound = bound(4.25 * n_moves + 24, OPS_PER_MOVE * n_moves, rate)
+    k2_bound = bound(4 * k2_words + n_moves / 4 + 24, OPS_PER_MOVE * n_moves, rate)
     print(f"[phase 5] card {card} | K1 {Lm}x{Ln} local+dirs: kernel "
           f"[{fmt(k1_ms)}] ms, plain {k1_plain_ms:.1f} ms | K1 {R30}x{L30} "
           f"forward+cols: kernel [{fmt(k1_fwd30_ms)}] ms, +dirs: [{fmt(k1_dirs30_ms)}] ms "
           f"(plain on the path's 29.9 kb fills: bottom+cols {plain30['bottom+cols']:.1f} ms, "
           f"dirs {plain30['dirs']:.1f} ms) "
-          f"| K2 walk of {n_moves} moves: kernel [{fmt(k2_ms)}] ms, plain "
+          f"| K2 walk of {n_moves} moves ({k2_words} words read): kernel [{fmt(k2_ms)}] ms, plain "
           f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s",
           flush=True)
 
@@ -869,6 +1446,7 @@ def main() -> None:
     ]
     del kern, plain, want, got
     rows += align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
+    rows += read_phases(torch, dev, card, sc, cuda_ms, rate)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,23 @@
 """Command-line interface (counterpart of ``genomics_rs_tpu/cli.py``; the
-``align`` and ``align-matrix`` subcommands so far).
+``align``, ``align-matrix``, ``reads``, ``map`` and ``call`` subcommands
+so far).
 
   align         --alignment-type {local,global,1,0} --fasta-path FILE
-                [--device {cuda,cpu}]
   align-matrix  --fasta-dir DIR [--alignment-type global] [-o TSV]
-                [--alignments-out DIR] [--device {cuda,cpu}]
+                [--alignments-out DIR]
+  reads         -q READS -r REFS [-a local] [--align [--format {tsv,sam}]]
+                [--both-strands] [--engine ...] [-o OUT]
+  map           -q READS [-2 MATES] -r REF [-k 21] [--band 32] [...]
+                [--format {sam,tsv}] [-o OUT]
+  call          -q READS -r REF [-k 21] [--band 32] [--min-depth 8]
+                [--min-frac 0.7] [...] [-o VCF]
 
-plus the global ``--config-path`` (default ``config.toml``). The flags,
-the standard output and the files written are those of the JAX
-package's subcommands (``align-matrix``'s timing line aside);
+each with ``--device {cuda,cpu}``, plus the global ``--config-path``
+(default ``config.toml``). The flags, the standard output and the files
+written are those of the JAX package's subcommands (timing lines aside);
 ``--device`` picks the CUDA kernels (default) or their plain CPU
 versions. ``is_local`` is true iff the type is exactly "local" or "1".
+Options whose engines are not ported yet exit 2 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -76,7 +83,112 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     am.add_argument("--matrix", default=None, help="substitution matrix: " + NOT_PORTED)
     _device_flag(am)
+    _reads_parsers(sub)
     return p
+
+
+def _reads_parsers(sub) -> None:
+    rd = sub.add_parser(
+        "reads",
+        help="batch-score read pairs: query[i] vs ref[i] from two FASTA/FASTQ "
+        "files, auto-detected",
+    )
+    rd.add_argument("-q", "--queries", required=True)
+    rd.add_argument("-r", "--refs", required=True)
+    rd.add_argument("-a", "--alignment-type", default="local")
+    rd.add_argument(
+        "--engine",
+        default="auto",
+        choices=["auto", "shortread", "segmented", "stream", "stream8", "pallas", "scan"],
+        help="auto, shortread (K6) and stream (K3) run; segmented, stream8, "
+        "pallas and scan are " + NOT_PORTED,
+    )
+    rd.add_argument(
+        "--align",
+        action="store_true",
+        help="full per-read alignments (stats + CIGAR columns) instead of score-only",
+    )
+    rd.add_argument(
+        "--both-strands",
+        action="store_true",
+        help="also align each query's reverse complement and keep the better "
+        "orientation (adds a strand column; forward wins ties)",
+    )
+    rd.add_argument(
+        "--format",
+        choices=["tsv", "sam"],
+        default="tsv",
+        help="output format for --align: per-read TSV or SAM 1.6",
+    )
+    rd.add_argument("-o", "--output", default="read_scores.tsv")
+    _device_flag(rd)
+
+    mp = sub.add_parser(
+        "map",
+        help="seed-and-extend read mapping against one reference (host k-mer "
+        "index + diagonal voting, batched device extension)",
+    )
+    mp.add_argument("-q", "--queries", required=True)
+    mp.add_argument(
+        "-2", "--queries2", default=None,
+        help="mate file for paired-end mapping (record i pairs with record i of -q)",
+    )
+    mp.add_argument("--max-insert", type=int, default=1000,
+                    help="max outer distance for a proper pair (paired-end only)")
+    mp.add_argument("-r", "--ref", required=True)
+    mp.add_argument("-k", type=int, default=21, help="seed k-mer size")
+    mp.add_argument(
+        "--band", type=int, default=32,
+        help="diagonal vote band / extension window slack (bases); windows are "
+        "read_len + 4*band wide",
+    )
+    mp.add_argument("--stride", type=int, default=None,
+                    help="sample every stride-th read k-mer as a seed (default k//2)")
+    mp.add_argument("--max-hits", type=int, default=64,
+                    help="skip seeds with more reference hits than this (repeats)")
+    mp.add_argument("--min-seeds", type=int, default=2,
+                    help="vote threshold below which a read is unmapped")
+    mp.add_argument("--single-strand", action="store_true",
+                    help="map the forward orientation only")
+    mp.add_argument("--engine", default="auto", choices=["auto", "pallas", "scan"],
+                    help="auto and pallas extend on the kernels; scan is " + NOT_PORTED)
+    mp.add_argument("--seed-engine", default="host", choices=["host", "device"],
+                    help="where diagonal voting runs; device is " + NOT_PORTED)
+    mp.add_argument("--format", choices=["sam", "tsv"], default="sam")
+    mp.add_argument("-o", "--output", default="mapped.sam")
+    _device_flag(mp)
+
+    cl = sub.add_parser(
+        "call",
+        help="variant calling: map reads, pile up on the device, call consensus "
+        "SNPs/deletions/insertions",
+    )
+    cl.add_argument("-q", "--queries", required=True)
+    cl.add_argument("-r", "--ref", required=True)
+    cl.add_argument("-k", type=int, default=21, help="seed k-mer size")
+    cl.add_argument("--band", type=int, default=32)
+    cl.add_argument("--min-seeds", type=int, default=2)
+    cl.add_argument("--min-depth", type=int, default=8,
+                    help="minimum pileup depth to consider a position")
+    cl.add_argument("--min-frac", type=float, default=0.7,
+                    help="minimum alt-supporting fraction of the depth")
+    cl.add_argument("--min-baseq", type=int, default=0,
+                    help="drop M/X/= bases below this Phred quality (implies "
+                    "quality-weighted consensus)")
+    cl.add_argument("--min-mapq", type=int, default=0,
+                    help="drop reads below this mapping quality (implies "
+                    "quality-weighted consensus)")
+    cl.add_argument("--min-alt-conf", type=float, default=0.0,
+                    help="minimum mean weight of alt-supporting bases (implies the "
+                    "quality-weighted pileup)")
+    cl.add_argument("--weighted", action="store_true",
+                    help="weight votes by Phred*MAPQ correctness probability")
+    cl.add_argument("--single-strand", action="store_true",
+                    help="map the forward orientation only")
+    cl.add_argument("--engine", default="auto", choices=["auto", "pallas", "scan"],
+                    help="auto and pallas extend on the kernels; scan is " + NOT_PORTED)
+    cl.add_argument("-o", "--output", default="calls.vcf")
+    _device_flag(cl)
 
 
 def _device_flag(p: argparse.ArgumentParser) -> None:
@@ -132,14 +244,10 @@ def main(argv: list[str] | None = None) -> int:
 
     config = get_config(args.config_path)
 
-    for flag, used in (
-        ("--matrix", args.matrix),
-        ("--band", getattr(args, "band", 0)),
-        ("--engine scan", args.engine == "scan"),
-    ):
-        if used:
-            print(f"{flag} is {NOT_PORTED}", file=sys.stderr)
-            return 2
+    unported = _unported_flags(args)
+    if unported:
+        print(f"{unported[0]} is {NOT_PORTED}", file=sys.stderr)
+        return 2
     from genomics_rs_tpu_torch.device import resolve_device
 
     try:
@@ -175,12 +283,26 @@ def main(argv: list[str] | None = None) -> int:
         print(format_aligned_sequences(aligned))
         return 0
 
-    if args.mode == "align-matrix":
-        from genomics_rs_tpu_torch.utils.profiling import trace
+    from genomics_rs_tpu_torch.utils.profiling import trace
 
-        with trace("align-matrix"):
-            return _align_matrix(args, config, device, log)
-    return 2
+    modes = {"align-matrix": _align_matrix, "reads": _reads, "map": _map, "call": _call}
+    with trace(args.mode):
+        return modes[args.mode](args, config, device, log)
+
+
+def _unported_flags(args) -> list[str]:
+    """The flags of this run whose engines are not ported yet."""
+    if args.mode in ("align", "align-matrix"):
+        used = (("--matrix", args.matrix), ("--band", getattr(args, "band", 0)),
+                ("--engine scan", args.engine == "scan"))
+    elif args.mode == "reads":
+        # --align runs align_reads, which takes any engine but scan as auto.
+        unported = ("scan",) if args.align else ("segmented", "stream8", "pallas", "scan")
+        used = ((f"--engine {args.engine}", args.engine in unported),)
+    else:
+        used = (("--engine scan", args.engine == "scan"),
+                ("--seed-engine device", getattr(args, "seed_engine", "host") == "device"))
+    return [flag for flag, on in used if on]
 
 
 def _align_matrix(args, config, device, log) -> int:
@@ -222,6 +344,209 @@ def _align_matrix(args, config, device, log) -> int:
             with open(os.path.join(args.alignments_out, name), "w") as f:
                 f.write(text)
         print(f"wrote {len(alns)} pair alignments to {args.alignments_out}")
+    return 0
+
+
+def _load_pairs(args, log):
+    """(queries, refs) of ``reads``, one reference broadcast over many
+    reads; None after logging a count mismatch."""
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+
+    queries = SequenceContainer().from_reads(args.queries).sequences
+    refs = SequenceContainer().from_reads(args.refs).sequences
+    if len(refs) == 1 and len(queries) > 1:
+        log.info("one reference for %d reads: broadcasting", len(queries))
+        refs = refs * len(queries)
+    if len(queries) != len(refs):
+        log.error("query/ref count mismatch: %d vs %d", len(queries), len(refs))
+        return None
+    return queries, refs
+
+
+def _reads(args, config, device, log) -> int:
+    import time
+
+    import numpy as np
+
+    log.info("MODE: Reads (batch pair scoring)")
+    loaded = _load_pairs(args, log)
+    if loaded is None:
+        return 1
+    queries, refs = loaded
+    is_local = args.alignment_type in ("local", "1")
+    B = len(queries)
+    if args.format == "sam" and not args.align:
+        log.error("--format sam requires --align (per-read CIGARs)")
+        return 1
+    if args.align:
+        from genomics_rs_tpu_torch.models.reads import align_reads, write_sam
+
+        if args.engine != "auto":
+            log.info("engine %s is score-only; --align uses auto routing", args.engine)
+        want_sam = args.format == "sam"
+        t0 = time.perf_counter()
+        res = align_reads(queries, refs, config.scores, is_local=is_local, with_paths=False,
+                          with_cigars=True, both_strands=args.both_strands,
+                          with_mapinfo=want_sam, device=device)
+        aligned, cigars = res[0], res[1]
+        strands = res[2] if args.both_strands else None
+        mapinfo = res[-1] if want_sam else None
+        print(f"{B} reads aligned in {time.perf_counter() - t0:.3f}s")
+        if want_sam:
+            write_sam(args.output, refs, aligned, cigars, mapinfo, strands)
+            print(f"wrote {args.output}")
+            return 0
+        with open(args.output, "w") as f:
+            strand_col = "\tstrand" if strands is not None else ""
+            f.write("query\tref\tscore\tmatches\tmismatches\t"
+                    f"gap_extensions\topening_gaps\tcigar{strand_col}\n")
+            for k, (q, r, a, cg) in enumerate(zip(queries, refs, aligned, cigars)):
+                tail = f"\t{strands[k]}" if strands is not None else ""
+                f.write(f"{q.name}\t{r.name}\t{a.score}\t{a.matches}\t{a.mismatches}\t"
+                        f"{a.gap_extensions}\t{a.opening_gaps}\t{cg}{tail}\n")
+        print(f"wrote {args.output}")
+        return 0
+
+    from genomics_rs_tpu_torch.models.reads import encode_batch
+    from genomics_rs_tpu_torch.parallel.batch import score_pairs
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, round_up
+
+    sq = list(queries)
+    if args.both_strands:
+        sq = sq + [q.reverse_complement() for q in sq]  # one launch for both
+    sr = refs * 2 if args.both_strands else refs
+    L1 = round_up(max(max(len(s) for s in sq), 1), 128)
+    L2 = round_up(max(max(len(s) for s in sr), 1), 128)
+    s1b = encode_batch(sq, L1, PAD_S1)
+    s2b = encode_batch(sr, L2, PAD_S2)
+    ms = np.array([len(s) for s in sq], dtype=np.int32)
+    ns = np.array([len(s) for s in sr], dtype=np.int32)
+    t0 = time.perf_counter()
+    sc, si, sj = score_pairs(s1b, s2b, ms, ns, config.scores, is_local, engine=args.engine,
+                             device=device)
+    dt = time.perf_counter() - t0
+    cells = float(np.sum((ms + 1.0) * (ns + 1.0)))
+    print(f"{len(ms)} pairs, {cells:.3g} DP cells in {dt:.3f}s ({cells / dt:.3g} cells/s)")
+    if args.both_strands:
+        use_rc = sc[B:] > sc[:B]  # forward wins ties
+        pick = np.where(use_rc, np.arange(B) + B, np.arange(B))
+        sc, si, sj = sc[pick], si[pick], sj[pick]
+    with open(args.output, "w") as f:
+        strand_col = "\tstrand" if args.both_strands else ""
+        f.write(f"query\tref\tscore\tend_i\tend_j{strand_col}\n")
+        for k in range(B):
+            tail = "\t" + ("-" if use_rc[k] else "+") if args.both_strands else ""
+            f.write(f"{queries[k].name}\t{refs[k].name}\t{int(sc[k])}\t"
+                    f"{int(si[k])}\t{int(sj[k])}{tail}\n")
+    print(f"wrote {args.output}")
+    return 0
+
+
+def _map(args, config, device, log) -> int:
+    import time
+
+    from genomics_rs_tpu_torch.models.mapper import KmerIndex, map_reads
+    from genomics_rs_tpu_torch.models.reads import sam_records, write_sam
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+
+    log.info("MODE: Map (seed-and-extend read mapping)")
+    queries = SequenceContainer().from_reads(args.queries).sequences
+    refs = SequenceContainer().from_reads(args.ref).sequences
+    if not queries or not refs:
+        log.error("no reads or no reference loaded")
+        return 1
+    t0 = time.perf_counter()
+    try:
+        index = KmerIndex(refs, args.k)
+    except ValueError as e:
+        log.error("%s", e)
+        return 1
+    t_index = time.perf_counter() - t0
+    kw = dict(index=index, stride=args.stride, band=args.band, max_hits=args.max_hits,
+              min_seeds=args.min_seeds, both_strands=not args.single_strand,
+              engine=args.engine, device=device)
+    if args.queries2 is not None:
+        from genomics_rs_tpu_torch.models.mapper import map_pairs, write_sam_paired
+
+        mates = SequenceContainer().from_reads(args.queries2).sequences
+        if len(mates) != len(queries):
+            log.error("mate count mismatch: %d vs %d", len(queries), len(mates))
+            return 1
+        if args.format != "sam":
+            log.error("paired-end mapping writes SAM (--format sam)")
+            return 1
+        t0 = time.perf_counter()
+        try:
+            res1, res2 = map_pairs(queries, mates, refs, config.scores, **kw)
+        except ValueError as e:
+            log.error("%s", e)
+            return 1
+        t_map = time.perf_counter() - t0
+        n_mapped = sum(r.mapped for r in res1 + res2)
+        proper = write_sam_paired(args.output, res1, res2, header_refs=refs,
+                                  max_insert=args.max_insert)
+        print(f"{n_mapped}/{2 * len(res1)} ends mapped, {proper}/{len(res1)} proper pairs "
+              f"in {t_map:.3f}s (index {len(index)} {args.k}-mers in {t_index:.3f}s)")
+        print(f"wrote {args.output}")
+        return 0
+    t0 = time.perf_counter()
+    try:
+        results = map_reads(queries, refs, config.scores, **kw)
+    except ValueError as e:
+        log.error("%s", e)
+        return 1
+    t_map = time.perf_counter() - t0
+    n_mapped = sum(r.mapped for r in results)
+    print(f"{n_mapped}/{len(results)} reads mapped in {t_map:.3f}s "
+          f"(index {len(index)} {args.k}-mers in {t_index:.3f}s)")
+    cols = ([r.contig for r in results], [r.aligned for r in results],
+            [r.cigar for r in results], [r.mapinfo for r in results],
+            [r.strand for r in results])
+    if args.format == "sam":
+        write_sam(args.output, *cols, header_refs=refs, mapqs=[r.mapq for r in results])
+    else:
+        # Edge runs fold as in the SAM writer, so both formats report
+        # the same position.
+        with open(args.output, "w") as f:
+            f.write("query\tref\tstrand\tmapped\tpos\tscore\tmapq\tseeds\tcigar\n")
+            for r, rec in zip(results, sam_records(*cols)):
+                rname = r.contig.name if r.mapped else "*"
+                f.write(f"{r.read.name}\t{rname}\t{r.strand}\t{int(r.mapped)}\t"
+                        f"{rec['pos']}\t{r.score}\t{r.mapq}\t{r.seeds}\t{r.cigar}\n")
+    print(f"wrote {args.output}")
+    return 0
+
+
+def _call(args, config, device, log) -> int:
+    import time
+
+    from genomics_rs_tpu_torch.models.caller import call_reads, write_vcf
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+
+    log.info("MODE: Call (map -> pileup -> consensus variants)")
+    queries = SequenceContainer().from_reads(args.queries).sequences
+    refs = SequenceContainer().from_reads(args.ref).sequences
+    if not queries or not refs:
+        log.error("no reads or no reference loaded")
+        return 1
+    t0 = time.perf_counter()
+    try:
+        calls, pileups = call_reads(
+            queries, refs, config.scores, min_depth=args.min_depth, min_frac=args.min_frac,
+            min_baseq=args.min_baseq, min_mapq=args.min_mapq, weighted=args.weighted,
+            min_alt_conf=args.min_alt_conf, device=device, k=args.k, band=args.band,
+            min_seeds=args.min_seeds, both_strands=not args.single_strand,
+            engine=args.engine,
+        )
+    except ValueError as e:
+        log.error("%s", e)
+        return 1
+    dt = time.perf_counter() - t0
+    write_vcf(args.output, calls, refs)
+    covered = sum(int((p.sum(axis=1) > 0).sum()) for p in pileups.values())
+    print(f"{len(calls)} variants from {len(queries)} reads ({covered} reference positions "
+          f"covered) in {dt:.3f}s")
+    print(f"wrote {args.output}")
     return 0
 
 

@@ -26,6 +26,18 @@
 // still a chain of dependent loads, but the W chains are in flight together
 // and hide each other's latency, which one walk on one thread (K2) cannot.
 // The TPU kernel's DMA window needed KW >= 34; here any KW >= 1 goes.
+//
+// walk_rows16_kernel is the card form of genomics_rs_tpu/ops/
+// traceback_batch.py's walk_batch (layout "rows16"), which is XLA code (a
+// lax.scan over max_steps lockstep steps), not a Pallas kernel: B walks over
+// K6's per-read words codes[b, i-1, (j-1)/16] (interior cells only). The
+// boundary codes are synthesized as walk_batch does: row 0 is INS and
+// column 0 is DEL, except in local mode where a negative boundary score
+// (h + j*g, h + i*g) is a STOP. A stop ends the walk where it stands
+// (walk_batch's final cell is the stop cell, unlike K4's). One thread per
+// walk, as K4: each walk is a chain of dependent loads, and the B chains
+// hide each other's latency; a scan of lockstep torch ops would pay ~15
+// launches per step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,6 +136,58 @@ __global__ void walk_many_kernel(const unsigned* __restrict__ dirs,
   mt[4] = oob;
 }
 
+// starts[2b .. 2b+1] = (start_i, start_j) of walk b over the (L1, W) words
+// of read b; its moves go to words[b*NW ..], its meta to meta[5b ..] =
+// (count, i, j, done, oob).
+__global__ void walk_rows16_kernel(const unsigned* __restrict__ codes,
+                                   const int* __restrict__ starts,
+                                   unsigned* __restrict__ words,
+                                   int* __restrict__ meta, int B, int L1,
+                                   int W, int NW, int max_steps, int h, int g,
+                                   int is_local) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int i = starts[2 * b];
+  int j = starts[2 * b + 1];
+  const unsigned* c = codes + (size_t)b * L1 * W;
+  unsigned* out = words + (size_t)b * NW;
+  int pos = 0, done = 0, oob = 0;
+  unsigned acc = 0;
+  for (int step = 0; step < max_steps && !done; ++step) {
+    unsigned code;
+    if (i == 0) {
+      code = (!is_local || h + j * g >= 0) ? DIR_INS : DIR_STOP;
+    } else if (j == 0) {
+      code = (!is_local || h + i * g >= 0) ? DIR_DEL : DIR_STOP;
+    } else {
+      if (i > L1 || j < 0 || ((j - 1) >> 4) >= W) {
+        oob = 1;
+        break;
+      }
+      code = (c[(size_t)(i - 1) * W + ((j - 1) >> 4)] >> (2 * ((j - 1) & 15))) & 3u;
+    }
+    if (code == DIR_STOP) {
+      done = 1;
+      break;
+    }
+    const int sp = pos & 15;
+    if (sp == 0) acc = 0;
+    acc |= code << (2 * sp);
+    if (sp == 15) out[pos >> 4] = acc;
+    ++pos;
+    i = max(i - (code == DIR_INS ? 0 : 1), 0);
+    j = max(j - (code == DIR_DEL ? 0 : 1), 0);
+    if (i == 0 && j == 0) done = 1;
+  }
+  if (pos & 15) out[pos >> 4] = acc;
+  int* mt = meta + 5 * b;
+  mt[0] = pos;
+  mt[1] = i;
+  mt[2] = j;
+  mt[3] = done;
+  mt[4] = oob;
+}
+
 }  // namespace
 
 extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
@@ -146,5 +210,18 @@ extern "C" int walk_many_launch(const void* dirs, const void* starts,
                      (cudaStream_t)stream>>>(
       (const unsigned*)dirs, (const int*)starts, (unsigned*)words, (int*)meta,
       W, KW, KWT, V, NW, max_steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int walk_rows16_launch(const void* codes, const void* starts,
+                                  void* words, void* meta, int B, int L1,
+                                  int W, int NW, int max_steps, int h, int g,
+                                  int is_local, void* stream) {
+  if (B < 1 || L1 < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  constexpr int threads = 128;
+  walk_rows16_kernel<<<(B + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(
+      (const unsigned*)codes, (const int*)starts, (unsigned*)words,
+      (int*)meta, B, L1, W, NW, max_steps, h, g, is_local);
   return (int)cudaGetLastError();
 }

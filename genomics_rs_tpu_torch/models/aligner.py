@@ -11,7 +11,9 @@ exceed ``DIRS_BYTE_BUDGET`` goes to the checkpointed path
 
 ``align_batch`` gives the same alignments for many pairs at once: one
 batched fill with dirs per group of pairs (``ops/gotoh_stream``, one
-thread block per pair) and one batched walk (``walk_many``).
+thread block per pair) and one batched walk (K4, through
+``ops/traceback_batch.walk_batch``), in :func:`stream_walk_group`,
+which ``models/reads.align_reads`` shares for reads too wide for K6.
 
 Sequences are padded to multiples of ``PAD_MULTIPLE``, as in the JAX
 package, so both packages fill tables of the same shape.
@@ -31,13 +33,9 @@ from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
+from genomics_rs_tpu_torch.ops.traceback_batch import NO_MOVE, walk_batch
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
-from genomics_rs_tpu_torch.ops.traceback_walker import (
-    MAX_STEPS_CAP,
-    MPW,
-    unpack_moves,
-    walk_many,
-)
+from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW
 from genomics_rs_tpu_torch.sequence import (
     PAD_S1,
     PAD_S2,
@@ -195,15 +193,21 @@ def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
         s2b = np.stack([b.encoded(pad_to=Ln, pad_value=PAD_S2) for _, b in chunk])
         ms = np.array([len(a) for a, _ in chunk], np.int32)
         ns = np.array([len(b) for _, b in chunk], np.int32)
-        moves, scv, sci, scj = stream_walk_group(
+        moves, counts, i_f, j_f, done, scv, sci, scj = stream_walk_group(
             s1b, s2b, ms, ns, scores, is_local, max_steps, aligner.device
         )
+        ok = done if is_local else done & (i_f == 0) & (j_f == 0)
+        if not ok.all():
+            t = int(np.flatnonzero(~ok)[0])
+            raise RuntimeError(f"batched retrace left the table at ({i_f[t]}, {j_f[t]})")
         for t, (a, b) in enumerate(chunk):
-            out.append(classify_moves(moves[t], int(sci[t]), int(scj[t]), int(scv[t]), a, b))
+            out.append(classify_moves(moves[t, : counts[t]], int(sci[t]), int(scj[t]),
+                                      int(scv[t]), a, b))
     return out
 
 
-#: device bytes one align_batch group may hold.
+#: device bytes of K3 bitmaps and walk buffers one group (of
+#: ``align_batch``, or a round of ``models/reads.align_reads``) may hold.
 GROUP_BYTE_BUDGET = 4 << 30
 
 
@@ -221,34 +225,34 @@ def _stream_group_pairs(Lm: int, Ln: int, max_steps: int) -> int:
 def stream_walk_group(s1b: np.ndarray, s2b: np.ndarray, ms: np.ndarray,
                       ns: np.ndarray, scores: Scores, is_local: bool,
                       max_steps: int, device):
-    """One batched dirs fill plus every pair's walk for a padded group;
-    returns ``(moves, score, start_i, start_j)`` with ``moves[t]`` the
-    traceback-order uint8 codes of pair ``t``. Walks go to one
-    ``walk_many`` call when ``max_steps`` fits its buffer, else one
-    ``device_walk`` per pair."""
+    """One batched dirs fill (K3) plus every pair's walk for a padded
+    group. Returns numpy ``(moves, counts, i_f, j_f, done, score,
+    start_i, start_j)``: the first five as ``ops/traceback_batch.
+    walk_batch`` gives them, ``moves[t, :counts[t]]`` the traceback-order
+    codes of pair ``t``. The walks are one ``walk_batch`` call on the
+    ``"diag16"`` layout (K4) when ``max_steps`` fits its buffer, else one
+    ``device_walk`` per pair. The caller checks ``done`` and, for a
+    global fill, that every walk ended at (0, 0)."""
     stream = gotoh_stream_fill_dirs(
-        torch.from_numpy(s1b).to(device), torch.from_numpy(s2b).to(device),
+        torch.from_numpy(np.ascontiguousarray(s1b)).to(device),
+        torch.from_numpy(np.ascontiguousarray(s2b)).to(device),
         ms, ns, scores, is_local=is_local,
     )
-    sci, scj, scv = stream.start_i, stream.start_j, stream.score
-    B, KW = len(ms), stream.KW
+    sci, scj, scv = (np.asarray(x, np.int64)
+                     for x in (stream.start_i, stream.start_j, stream.score))
     if max_steps <= MAX_STEPS_CAP:
-        words, counts, i_fs, j_fs, dones = walk_many(
-            stream.dirs.view(B * KW, -1), sci, scj, np.arange(B) * KW, KW, max_steps
-        )
-        walks = [
-            (unpack_moves(words[t], int(counts[t])), int(i_fs[t]), int(j_fs[t]), bool(dones[t]))
-            for t in range(B)
-        ]
+        walked = walk_batch(stream.dirs, sci, scj, scores, is_local, "diag16", max_steps)
     else:
-        walks = [
-            device_walk(stream.segment_dirs(t), int(sci[t]), int(scj[t]), 0, max_steps=max_steps)
-            for t in range(B)
-        ]
-    for _, i_f, j_f, done in walks:
-        if not done or (not is_local and (i_f, j_f) != (0, 0)):
-            raise RuntimeError(f"batched retrace left the table at ({i_f}, {j_f})")
-    return [w[0] for w in walks], scv, sci, scj
+        B = len(ms)
+        moves = np.full((B, max_steps), NO_MOVE, np.uint8)
+        ends = np.zeros((4, B), np.int64)
+        for t in range(B):
+            codes, i_f, j_f, done = device_walk(
+                stream.segment_dirs(t), int(sci[t]), int(scj[t]), 0, max_steps=max_steps)
+            moves[t, : len(codes)] = codes
+            ends[:, t] = len(codes), i_f, j_f, done
+        walked = (moves, ends[0], ends[1], ends[2], ends[3] != 0)
+    return walked + (scv, sci, scj)
 
 
 def align_pair(

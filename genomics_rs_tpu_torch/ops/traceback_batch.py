@@ -1,0 +1,332 @@
+"""Batched tracebacks and whole-batch classification for reads
+(counterpart of ``genomics_rs_tpu/ops/traceback_batch.py``).
+
+* :func:`walk_batch` walks B tracebacks with the reference movement
+  rules (per-axis saturation, a stop code ends the walk where it stands,
+  done on reaching (0, 0)) and returns the unpacked moves, as the JAX
+  ``walk_batch`` (an XLA ``lax.scan``) does. Two layouts:
+
+  - ``"rows16"``: K6's per-read words ``codes[b, i-1, (j-1)//16]``,
+    interior cells only; boundary codes are synthesized (row 0 INS,
+    column 0 DEL; in local mode a negative boundary score is a STOP).
+    A CUDA tensor launches ``walk_rows16`` (``csrc/traceback_walk.cu``,
+    one thread per walk).
+  - ``"diag16"``: K3's per-pair packed words ``dirs[b, (i+j)//16, i]``,
+    boundary cells included. A CUDA tensor launches K4 (``walk_many``).
+
+  A CPU tensor runs :func:`walk_batch_plain`: the JAX scan's lockstep
+  step as torch ops, up to ``max_steps`` steps (it stops once every
+  walk is done). ``models/aligner.stream_walk_group`` is the one caller
+  of the ``"diag16"`` layout (``align_batch`` groups and the wide
+  ``align_reads`` rounds).
+* :func:`classify_batch` and :func:`_batch_cigars` are the JAX package's
+  whole-batch numpy classification and run-length CIGARs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_STOP, DIR_SUB
+from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, AlignmentChoice
+from genomics_rs_tpu_torch.ops.traceback_walker import MPW, walk_many
+
+#: per-step output for "no move recorded" (walk finished or stop).
+NO_MOVE = 255
+
+#: launches of ``walk_rows16`` / calls of the plain version.
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+def walk_batch(codes: torch.Tensor, start_i, start_j, scores, is_local: bool,
+               layout: str, max_steps: int):
+    """Walk B tracebacks from ``(start_i, start_j)``.
+
+    ``codes`` is (B, L1, W) int32 for ``"rows16"`` or (B, KW, V) int32
+    for ``"diag16"``; ``scores`` gives ``h``/``g`` for the rows16
+    boundary codes; ``max_steps`` must cover the longest path
+    (``L1 + L2 + 1`` does). Returns numpy ``(moves (B, max_steps) uint8
+    padded with NO_MOVE, counts, i_f, j_f, done)``: ``done`` is False only
+    when a walk ran out of steps. The device of ``codes`` picks the route.
+    """
+    if layout not in ("rows16", "diag16"):
+        raise ValueError(f"unknown layout {layout!r} (rows16 or diag16)")
+    if codes.dim() != 3:
+        raise ValueError(f"codes must be 3-D, not {tuple(codes.shape)}")
+    si = np.asarray(start_i.cpu() if torch.is_tensor(start_i) else start_i, np.int64).reshape(-1)
+    sj = np.asarray(start_j.cpu() if torch.is_tensor(start_j) else start_j, np.int64).reshape(-1)
+    if si.shape != (codes.shape[0],) or sj.shape != si.shape:
+        raise ValueError("start_i/start_j need one entry per walk")
+    if si.size == 0:
+        return (np.zeros((0, max_steps), np.uint8), si, si, si, np.zeros(0, bool))
+    if not _build.uses_kernel(codes):
+        return walk_batch_plain(codes, si, sj, scores, is_local, layout, max_steps)
+    if layout == "rows16":
+        return _walk_rows16_cuda(codes, si, sj, scores, is_local, max_steps)
+    return _walk_diag16_cuda(codes, si, sj, max_steps)
+
+
+def _unpack(words: np.ndarray, counts: np.ndarray, max_steps: int) -> np.ndarray:
+    """(B, NW) int32 words, 16 moves each -> (B, max_steps) uint8 moves,
+    NO_MOVE at and past each walk's count."""
+    B = words.shape[0]
+    w = words.astype(np.uint32)
+    t = 2 * np.arange(MPW, dtype=np.uint32)
+    moves = ((w[:, :, None] >> t) & 3).astype(np.uint8).reshape(B, -1)
+    out = np.full((B, max_steps), NO_MOVE, np.uint8)
+    T = min(moves.shape[1], max_steps)
+    live = np.arange(T)[None, :] < counts[:, None]
+    out[:, :T] = np.where(live, moves[:, :T], NO_MOVE)
+    return out
+
+
+def _walk_rows16_cuda(codes, si, sj, scores, is_local, max_steps):
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_rows16 takes CUDA codes, not {dev}")
+    _build.require(codes, "codes", torch.int32, dev)
+    B, L1, W = codes.shape
+    nw = -(-max_steps // MPW)
+    lib = _build.library()
+    starts = torch.from_numpy(np.stack([si, sj], 1).astype(np.int32)).to(dev)
+    words = torch.zeros((B, nw), dtype=torch.int32, device=dev)
+    meta = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.walk_rows16_launch(
+            _build.ptr(codes), _build.ptr(starts), _build.ptr(words), _build.ptr(meta),
+            B, L1, W, nw, int(max_steps), scores.h, scores.g, int(is_local),
+            _build.stream_handle(dev),
+        )
+    _build.check(err, "walk_rows16")
+    COUNTS["kernel"] += 1
+    meta = meta.cpu().numpy().astype(np.int64)
+    bad = np.nonzero(meta[:, 4])[0]
+    if bad.size:
+        b = int(bad[0])
+        raise IndexError(f"walk {b} left its codes at ({meta[b, 1]}, {meta[b, 2]})")
+    counts = meta[:, 0]
+    used = -(-int(counts.max()) // MPW)
+    moves = _unpack(words[:, :used].cpu().numpy(), counts, max_steps)
+    return moves, counts, meta[:, 1], meta[:, 2], meta[:, 3] != 0
+
+
+def _walk_diag16_cuda(dirs, si, sj, max_steps):
+    """K4 over K3's per-pair bitmaps. K4 steps off a stop cell, so the
+    final cell comes from the moves: a saturating axis only ever sees
+    codes that do not move it, so the sums are exact."""
+    B, KW, V = dirs.shape
+    words, counts, _, _, done = walk_many(
+        dirs.view(B * KW, V), si, sj, np.arange(B) * KW, KW, max_steps)
+    counts = np.asarray(counts, np.int64)
+    moves = _unpack(words, counts, max_steps)
+    i_f = si - ((moves == DIR_SUB) | (moves == DIR_DEL)).sum(1)
+    j_f = sj - ((moves == DIR_SUB) | (moves == DIR_INS)).sum(1)
+    return moves, counts, i_f, j_f, np.asarray(done, bool)
+
+
+def walk_batch_plain(codes, si, sj, scores, is_local, layout, max_steps):
+    """The plain version of :func:`walk_batch`: the JAX scan's step as
+    torch ops on the codes' device, every walk in lockstep."""
+    COUNTS["plain"] += 1
+    dev = codes.device
+    B = codes.shape[0]
+    i64 = dict(dtype=torch.int64, device=dev)
+    flat = codes.reshape(B, -1)
+    if layout == "rows16":
+        W = codes.shape[2]
+        hh, gg = scores.h, scores.g
+    else:
+        Mp = codes.shape[2]
+
+    def read_code(i, j):
+        if layout == "diag16":
+            k = i + j
+            word = flat.gather(1, ((k // 16) * Mp + i)[:, None])[:, 0].to(torch.int64)
+            return (word >> (2 * (k % 16))) & 3
+        ii = torch.clamp_min(i, 1)
+        jj = torch.clamp_min(j, 1)
+        word = flat.gather(1, ((ii - 1) * W + (jj - 1) // 16)[:, None])[:, 0].to(torch.int64)
+        interior = (word >> (2 * ((jj - 1) % 16))) & 3
+        if is_local:
+            row0 = torch.where(hh + j * gg >= 0, DIR_INS, DIR_STOP)
+            col0 = torch.where(hh + i * gg >= 0, DIR_DEL, DIR_STOP)
+        else:
+            row0 = torch.full_like(interior, DIR_INS)
+            col0 = torch.full_like(interior, DIR_DEL)
+        return torch.where(i == 0, row0, torch.where(j == 0, col0, interior))
+
+    i = torch.as_tensor(si, **i64)
+    j = torch.as_tensor(sj, **i64)
+    pos = torch.zeros(B, **i64)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    moves = torch.full((max_steps, B), NO_MOVE, dtype=torch.uint8, device=dev)
+    for step in range(max_steps):
+        if step % 64 == 0 and bool(done.all()):
+            break  # every later step would record nothing
+        code = read_code(i, j)
+        is_stop = code == DIR_STOP
+        live = ~done
+        rec = live & ~is_stop
+        i_new = torch.where(rec, torch.clamp_min(i - (code != DIR_INS).long(), 0), i)
+        j_new = torch.where(rec, torch.clamp_min(j - (code != DIR_DEL).long(), 0), j)
+        done = done | (live & is_stop) | (rec & (i_new == 0) & (j_new == 0))
+        moves[step] = torch.where(rec, code, NO_MOVE).to(torch.uint8)
+        pos = pos + rec.long()
+        i, j = i_new, j_new
+    return (moves.T.cpu().numpy(), pos.cpu().numpy(), i.cpu().numpy(),
+            j.cpu().numpy(), done.cpu().numpy())
+
+
+#: CIGAR op characters by numeric run code (0 = padding, dropped).
+_CIG_CHARS = np.array(["", "M", "I", "D"])
+
+
+def _batch_cigars(cigc: np.ndarray, counts: np.ndarray) -> list[str]:
+    """Run-length encode every read's CIGAR in one pass.
+
+    ``cigc`` (B, T) uint8 numeric op codes in *traceback* order
+    (1 = M, 2 = I, 3 = D, 0 past the path end); emitted strings are
+    start-of-alignment first. One global change-point scan over the
+    zero-separated reversed batch replaces per-read-per-run Python
+    formatting.
+    """
+    B, T = cigc.shape
+    if T == 0 or B == 0:
+        return [""] * B
+    ridx = counts[:, None] - 1 - np.arange(T)[None, :]
+    revc = np.where(ridx >= 0, np.take_along_axis(cigc, np.clip(ridx, 0, T - 1), 1), 0)
+    # A zero column separates consecutive reads in the flat view.
+    revz = np.concatenate([revc, np.zeros((B, 1), cigc.dtype)], 1).ravel()
+    chg = np.flatnonzero(revz[1:] != revz[:-1]) + 1
+    bounds = np.concatenate([[0], chg, [revz.size]])
+    vals = revz[bounds[:-1]]
+    keep = vals != 0
+    starts_f = bounds[:-1][keep]
+    runlens = np.diff(bounds)[keep]
+    rid = starts_f // (T + 1)
+    chunks = np.char.add(runlens.astype("U10"), _CIG_CHARS[vals[keep]]).tolist()
+    lo = np.searchsorted(rid, np.arange(B))
+    hi = np.searchsorted(rid, np.arange(B), side="right")
+    return ["".join(chunks[a:b]) for a, b in zip(lo, hi)]
+
+
+_CHOICE_BY_CODE = {
+    0: AlignmentChoice.MATCH,
+    1: AlignmentChoice.MISMATCH,
+    2: AlignmentChoice.INSERT,
+    3: AlignmentChoice.OPEN_INSERT,
+    4: AlignmentChoice.DELETE,
+    5: AlignmentChoice.OPEN_DELETE,
+}
+
+
+def classify_batch(moves, counts, start_i, start_j, scores_at_start, queries, refs,
+                   with_paths: bool = True, encoded: tuple | None = None):
+    """Classify every read's move list at once; returns
+    ``(aligned_list, cigar_list)``.
+
+    Replicates ``ops/traceback.classify_moves`` per read (the reference's
+    ``is_match`` off-by-one with None == None, open vs extend by the
+    previous move) with whole-batch numpy: ``moves`` (B, T) uint8 from
+    :func:`walk_batch`. ``with_paths=False`` leaves each alignment list
+    empty (stats and CIGARs only). ``encoded=(s1b, s2b, ms, ns)``, the
+    padded byte batches the caller built, lets the match test read them
+    instead of re-encoding every sequence; pad positions read as the
+    shared past-the-end sentinel.
+    """
+    moves = np.asarray(moves)
+    counts = np.asarray(counts)
+    start_i = np.asarray(start_i)
+    start_j = np.asarray(start_j)
+    B, T = moves.shape
+    # Work on the live prefix only: the buffer is padded to the longest
+    # possible path, real paths are about a read long.
+    if B and T:
+        T_eff = int(counts.max())
+        if T_eff < T:
+            moves = moves[:, : max(T_eff, 1)]
+            T = moves.shape[1]
+    live = np.arange(T)[None, :] < counts[:, None]
+
+    is_sub = (moves == DIR_SUB) & live
+    is_ins = (moves == DIR_INS) & live
+    is_del = (moves == DIR_DEL) & live
+
+    # The cell each move is taken AT (a saturating axis only ever sees
+    # codes that do not move it, so the cumulative sums are exact).
+    di = np.where(is_sub | is_del, 1, 0)
+    dj = np.where(is_sub | is_ins, 1, 0)
+    i_at = start_i[:, None] - np.cumsum(di, axis=1) + di
+    j_at = start_j[:, None] - np.cumsum(dj, axis=1) + dj
+
+    # Reference is_match at (i, j): bytes at the indexes PAST the
+    # consumed base, None == None beyond both ends (sentinel 0x100).
+    if encoded is not None:
+        s1b, s2b, ms, ns = (np.asarray(a) for a in encoded)
+
+        def _sentineled(sb, lens):
+            sx = np.concatenate([sb.astype(np.int32), np.full((B, 1), 0x100, np.int32)], axis=1)
+            live_cols = np.arange(sx.shape[1])[None, :] < lens[:, None]
+            return np.where(live_cols, sx, 0x100)
+
+        s1x = _sentineled(s1b, ms)
+        s2x = _sentineled(s2b, ns)
+    else:
+        L1 = max((len(s) for s in queries), default=0)
+        L2 = max((len(s) for s in refs), default=0)
+        s1x = np.full((B, L1 + T + 2), 0x100, np.int32)
+        s2x = np.full((B, L2 + T + 2), 0x100, np.int32)
+        for b, (q, r) in enumerate(zip(queries, refs)):
+            qb = np.frombuffer(q.sequence.encode("ascii"), np.uint8)
+            rb = np.frombuffer(r.sequence.encode("ascii"), np.uint8)
+            s1x[b, : len(qb)] = qb
+            s2x[b, : len(rb)] = rb
+    c1 = np.take_along_axis(s1x, np.clip(i_at, 0, s1x.shape[1] - 1), 1)
+    c2 = np.take_along_axis(s2x, np.clip(j_at, 0, s2x.shape[1] - 1), 1)
+    match = is_sub & (c1 == c2)
+    mismatch = is_sub & ~(c1 == c2)
+
+    # Open vs extend: a gap move opens unless the previous move (in
+    # traceback order) was the same gap kind.
+    prev = np.concatenate([np.full((B, 1), NO_MOVE, moves.dtype), moves[:, :-1]], axis=1)
+    ins_open = is_ins & (prev != DIR_INS)
+    del_open = is_del & (prev != DIR_DEL)
+
+    matches = match.sum(1)
+    mismatches = mismatch.sum(1)
+    opening = (ins_open | del_open).sum(1)
+    extensions = ((is_ins & ~ins_open) | (is_del & ~del_open)).sum(1)
+
+    choice = np.zeros((B, T), np.uint8)
+    choice[mismatch] = 1
+    choice[is_ins & ~ins_open] = 2
+    choice[ins_open] = 3
+    choice[is_del & ~del_open] = 4
+    choice[del_open] = 5
+
+    # CIGAR (query = s1): M consumes both; the DP DELETE move is a gap
+    # in s2 (consumes only the query) = CIGAR I; INSERT = D.
+    cigc = np.zeros((B, T), np.uint8)
+    cigc[is_sub] = 1
+    cigc[is_del] = 2
+    cigc[is_ins] = 3
+    cigars = _batch_cigars(cigc, counts)
+
+    out: list[AlignedSequences] = []
+    for b in range(B):
+        cnt = int(counts[b])
+        alignment: list = []
+        if with_paths and cnt:
+            alignment = [
+                (_CHOICE_BY_CODE[int(c)], int(x), int(y))
+                for c, x, y in zip(choice[b, :cnt], i_at[b, :cnt], j_at[b, :cnt])
+            ]
+        out.append(AlignedSequences(
+            s1=queries[b], s2=refs[b], alignment=alignment,
+            score=int(scores_at_start[b]), matches=int(matches[b]),
+            mismatches=int(mismatches[b]), gap_extensions=int(extensions[b]),
+            opening_gaps=int(opening[b]),
+        ))
+    return out, cigars

@@ -21,7 +21,7 @@ from genomics_rs_tpu.sequence import SequenceContainer as JaxContainer
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.models import aligner as port_aligner
 from genomics_rs_tpu_torch.models.aligner import align_batch
-from genomics_rs_tpu_torch.ops import gotoh_rowblock, gotoh_stream, traceback_walker
+from genomics_rs_tpu_torch.ops import gotoh_rowblock, gotoh_stream, traceback_batch
 from genomics_rs_tpu_torch.parallel import allpairs as ap
 from genomics_rs_tpu_torch.parallel import batch
 from genomics_rs_tpu_torch.sequence import Sequence, SequenceContainer
@@ -96,10 +96,10 @@ def test_pad_batch_matches_jax(pad_values):
         assert np.array_equal(g, w)
 
 
-@pytest.mark.parametrize("engine", ["shortread", "segmented", "stream8", "pallas", "scan"])
+@pytest.mark.parametrize("engine", ["segmented", "stream8", "pallas", "scan"])
 def test_unported_engines_raise(engine):
     s = np.zeros((1, 128), np.uint8)
-    with pytest.raises(NotImplementedError, match="K6–K9"):
+    with pytest.raises(NotImplementedError, match="K7–K9"):
         batch.score_pairs(s, s, [1], [1], Scores(), engine=engine, device="cpu")
 
 
@@ -145,12 +145,12 @@ def test_align_batch_groups_and_routes(monkeypatch):
     whole = align_batch(pairs, sc, device="cpu")
     KW, V = gotoh_stream.dirs_shape(384, 384)
     per_pair = KW * V * 4 + 8192 // 16 * 4
-    counts = dict(gotoh_stream.COUNTS), dict(traceback_walker.COUNTS)
+    counts = dict(gotoh_stream.COUNTS), dict(traceback_batch.COUNTS)
     monkeypatch.setattr(port_aligner, "GROUP_BYTE_BUDGET", 2 * per_pair)
     assert [_fields(r) for r in align_batch(pairs, sc, device="cpu")] == [
         _fields(r) for r in whole]
     assert gotoh_stream.COUNTS["plain"] - counts[0]["plain"] == 3
-    assert traceback_walker.COUNTS["many_plain"] - counts[1]["many_plain"] == 3
+    assert traceback_batch.COUNTS["plain"] - counts[1]["plain"] == 3
     before = gotoh_rowblock.COUNTS["plain"]
     monkeypatch.setattr(port_aligner, "GROUP_BYTE_BUDGET", per_pair)
     assert [_fields(r) for r in align_batch(pairs, sc, device="cpu")] == [
@@ -158,10 +158,10 @@ def test_align_batch_groups_and_routes(monkeypatch):
     assert gotoh_rowblock.COUNTS["plain"] - before == len(pairs)
     monkeypatch.setattr(port_aligner, "GROUP_BYTE_BUDGET", 4 << 30)
     monkeypatch.setattr(port_aligner, "MAX_STEPS_CAP", 1024)
-    many = traceback_walker.COUNTS["many_plain"]
+    many = traceback_batch.COUNTS["plain"]
     assert [_fields(r) for r in align_batch(pairs, sc, device="cpu")] == [
         _fields(r) for r in whole]
-    assert traceback_walker.COUNTS["many_plain"] == many
+    assert traceback_batch.COUNTS["plain"] == many
 
 
 def test_stream_group_pairs_counts_bitmaps():
@@ -274,7 +274,10 @@ def test_port_modules_do_not_import_jax():
     code = (
         "import sys, genomics_rs_tpu_torch.cli, genomics_rs_tpu_torch.parallel.allpairs, "
         "genomics_rs_tpu_torch.parallel.batch, genomics_rs_tpu_torch.ops.gotoh_stream, "
-        "genomics_rs_tpu_torch.models.msa, genomics_rs_tpu_torch.comparison.driver; "
+        "genomics_rs_tpu_torch.models.msa, genomics_rs_tpu_torch.comparison.driver, "
+        "genomics_rs_tpu_torch.ops.gotoh_shortread, genomics_rs_tpu_torch.ops.traceback_batch, "
+        "genomics_rs_tpu_torch.models.reads, genomics_rs_tpu_torch.models.mapper, "
+        "genomics_rs_tpu_torch.models.caller; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -3,7 +3,8 @@
 Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
-hold the kernels (K1–K4) equal to the plain versions, bit for bit.
+hold the kernels (K1–K4, K6, ``walk_rows16``) equal to the plain
+versions, bit for bit.
 """
 
 import numpy as np
@@ -13,7 +14,9 @@ import torch
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, align_batch
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+from genomics_rs_tpu_torch.ops import traceback_batch as tb
 from genomics_rs_tpu_torch.ops import traceback_device as td
 from genomics_rs_tpu_torch.ops import traceback_walker as tw
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
@@ -158,3 +161,71 @@ def test_align_cuda_matches_cpu(cuda, is_local):
     want = PairwiseAligner(sc, is_local, device="cpu").align(Sequence("a", a), Sequence("b", b))
     got = PairwiseAligner(sc, is_local, device="cuda").align(Sequence("a", a), Sequence("b", b))
     assert (got.score, got.alignment) == (want.score, want.alignment)
+
+
+def _short_batch(rng, B, L1, L2):
+    """Reads and mutated copies, lengths 1..L, one pair filling the bucket."""
+    ms = rng.integers(1, L1 + 1, B)
+    ns = rng.integers(1, L2 + 1, B)
+    ms[0], ns[0] = L1, L2
+    s1 = np.full((B, L1), 0xFE, np.uint8)
+    s2 = np.full((B, L2), PAD_S2, np.uint8)
+    for b in range(B):
+        s1[b, : ms[b]] = BASES[rng.integers(0, 4, ms[b])]
+        k = min(ms[b], ns[b])
+        s2[b, :k] = s1[b, :k]
+        s2[b, k : ns[b]] = BASES[rng.integers(0, 4, ns[b] - k)]
+        flip = np.nonzero(rng.random(k) < 0.1)[0]
+        s2[b, flip] = BASES[rng.integers(0, 4, flip.size)]
+    return torch.from_numpy(s1), torch.from_numpy(s2), ms, ns
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+@pytest.mark.parametrize("L1,L2", [(256, 256), (64, 48), (32, 16)])
+def test_shortread_kernel_matches_plain(cuda, is_local, st, L1, L2):
+    """K6 scores, start cells and codes at every true cell."""
+    rng = np.random.default_rng(8)
+    s1, s2, ms, ns = _short_batch(rng, 37, L1, L2)
+    sc = Scores(2, -3, -2, -4, st)
+    want = gsr.gotoh_shortread_plain(s1, s2, ms, ns, sc, is_local, emit_dirs=True)
+    got = gsr.gotoh_scores_shortread(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local,
+                                     emit_dirs=True)
+    scores_only = gsr.gotoh_scores_shortread(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got[:3], scores_only, want[:3]):
+        assert torch.equal(g.cpu(), w) and torch.equal(g2.cpu(), w)
+    gc, wc = got[3].cpu().numpy().astype(np.int64), want[3].numpy().astype(np.int64)
+    for b in range(len(ms)):
+        j = np.arange(ns[b])
+        shift = 2 * (j % 16)
+        assert np.array_equal((gc[b, : ms[b]][:, j // 16] >> shift) & 3,
+                              (wc[b, : ms[b]][:, j // 16] >> shift) & 3)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_walk_rows16_kernel_matches_plain(cuda, is_local):
+    rng = np.random.default_rng(9)
+    s1, s2, ms, ns = _short_batch(rng, 300, 128, 128)
+    sc = Scores()
+    score, si, sj, codes = gsr.gotoh_scores_shortread(s1.to(cuda), s2.to(cuda), ms, ns, sc,
+                                                      is_local, emit_dirs=True)
+    got = tb.walk_batch(codes, si, sj, sc, is_local, "rows16", 257)
+    want = tb.walk_batch(codes.cpu(), si.cpu(), sj.cpu(), sc, is_local, "rows16", 257)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+    assert all(got[4])
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_walk_batch_diag16_cuda_matches_plain(cuda, is_local):
+    """K4 under the walk_batch contract (the stop cell is the final cell)."""
+    rng = np.random.default_rng(10)
+    s1, s2, ms, ns = _stream_batch(rng, [300, 200, 280], [260, 300, 100], 384, 384)
+    fill = gs.gotoh_stream_fill(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local,
+                                emit_dirs=True)
+    args = (fill.start_i, fill.start_j, Scores(), is_local, "diag16", 769)
+    got = tb.walk_batch(fill.dirs, *args)
+    want = tb.walk_batch(fill.dirs.cpu(), *args)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
