@@ -58,16 +58,40 @@ Phases, one line each:
      K3 dirs == plain (codes at every true cell) and the diag16 walks
      (K4) == plain
  14  K6 / ``walk_rows16`` / call-round K3 and K4 kernel times (median of 3,
-     CUDA events), plain times and bounds; the walls of ``reads``, ``map``
-     (seeding and extension) and ``call``; ``map``'s device-busy share
-     from ``torch.profiler``
+     CUDA events), plain times and bounds, and K4's device and host time on
+     that round from one ``torch.profiler`` capture and from its launch alone
+     (CUDA events); the walls of ``reads``,
+     ``map`` (seeding and extension) and ``call``; ``map``'s device-busy
+     share from ``torch.profiler``
+ 15  the banded fill (K10 one pair, K12 a batch; one kernel) == its plain
+     version, on the card: small fills at V = 1024 and 2048 (full cover and
+     narrow, classic and kimura), an 11-pair batch at W = 128, 384 and 2048,
+     the 29,903 bp planted pair at V = 2048, and one fill for each wider
+     compiled form (16 lanes a thread at V = 8192; 32 lanes at V = 16,384
+     and 32,768; the wide form at V = 33,792 and 34,816); codes at every
+     true in-band cell
+ 16  K11 (banded walker) == its plain version over phase 15's bitmaps,
+     resumed past 1,000 moves, and the batch walks in one launch with the
+     shared geometry; an all-INS bitmap raises
+ 17  the banded path at real size (launch counters reset just before it):
+     ``align_banded`` of a seeded 1,078,175 bp genome with itself (score ==
+     length) and with its planted copy (score == the planted optimum) at
+     band 2048, the CLI ``align --band 2048`` (stats == the library's), and
+     ``banded_align_batch`` of 16 planted copies of a 29,903 bp genome
+     (scores == planted, two == the C++ oracle); K10, K12 and K11 launched,
+     no plain version; then K10 == its plain version on the first 32,768
+     rows of the 1 Mb window, K11 == its plain version on the 1 Mb planted
+     pair's walk and the 16 batch walks, and each of those paths, rescored
+     from its strings, runs end to end at a cost <= its score
+ 18  K10 / K11 / K12 times (median of 3, CUDA events) at 1 Mb and 29,903 bp,
+     plain times and bounds, and the banded walls
 
-Bounds count interior DP cells (m x n per pair) and, for a walk, the
-code words its path must read.
+Bounds count interior DP cells (m x n per pair), band cells (rows x
+lanes) and, for a walk, the code words its path must read.
 
-The second-to-last line is a JSON summary of the kernels (K1–K4, K6 and
-``walk_rows16``, with each one's launches on its own path, bound and
-times); the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON summary of the kernels (K1–K4, K6,
+``walk_rows16`` and K10–K12, with each one's launches on its own path,
+bound and times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -103,6 +127,20 @@ GENOME_BP = 1_078_175
 MAP_N, MAP_LEN, PAIRS_N = 100_000, 128, 10_000
 CALL_N, CALL_LEN, CALL_SNPS = 100_000, 150, 50
 
+#: The banded path at the sizes of the JAX bench rows chr12_banded_align (a
+#: 1,078,175 bp pair at band 2048; here GENOME_BP bp from a seed and its
+#: planted copy) and banded_batch (16 planted copies of a 29,903 bp genome
+#: at W = 2048). WIDE_FILLS: phase 15's one fill per compiled form of the
+#: kernel past 8 lanes a thread, (V, m, n): 16 lanes (V = 8192), 32 lanes
+#: at 512 and 1,024 threads, and the wide form (row state in device
+#: memory) on a band that slides and on one cut to n = 33,100 lanes, whose
+#: last thread holds fewer lanes than the others.
+BAND, BATCH_B, BATCH_LEN = 2048, 16, 29_903
+WIDE_FILLS = ((8_192, 8_600, 8_500), (16_384, 17_000, 16_900), (32_768, 33_100, 33_000),
+              (33_792, 34_100, 34_000), (34_816, 33_500, 33_100))
+#: rows of the 1 Mb window over which phase 17 holds K10's codes against
+#: the plain fill.
+PREFIX_ROWS = 32_768
 #: device memory rate, H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 #: integer ops per DP cell, counted from the recurrence in
@@ -115,6 +153,11 @@ OPS_PER_CELL = {"global": 12, "local": 19, "dirs": 9}
 #: integer ops per move of a walk (csrc/traceback_walk.cu): bounds test 4,
 #: decode 3, two saturating steps 4, stop/origin tests 2, packing 3.
 OPS_PER_MOVE = 16
+#: integer ops per band cell that the banded recurrence needs (not the
+#: kernel's lane shifts or scan fix-up): sub 2, S 1, P 1, seed 1, the I
+#: step 2 (add, max), the cell max 1, the code chain 6 (three compares,
+#: three selects), packing 3, A 4 (two adds, two maxes).
+OPS_PER_BAND_CELL = 21
 
 
 def fail(msg: str) -> None:
@@ -162,6 +205,35 @@ def random_dna(rng, n: int) -> str:
     return "".join(rng.choice(list("ACGT"), n))
 
 
+def planted_copy(rng, genome: str, sc, every: int = 400) -> tuple[str, int]:
+    """A copy of ``genome`` with one planted event every ``every`` bp: a SNP
+    to another base (1/4 of events), a 1-3 bp deletion (1/2) or a 1-3 bp
+    insertion of random bases (1/4). Returns ``(copy, score)``: the global
+    score of the planted alignment of ``genome`` (first) with the copy,
+    ``(m - snps - deleted) s_match + snps s_mismatch + sum(h + L g)``,
+    which is the optimum for events this sparse in random sequence
+    (tests/test_torch_banded.py holds it against the C++ full DP)."""
+    g = np.frombuffer(genome.encode(), np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pos = np.arange(every, g.size - every, every)
+    kind = rng.choice(3, pos.size, p=[0.25, 0.5, 0.25])  # SNP, deletion, insertion
+    lens = rng.integers(1, 4, pos.size)
+    parts, prev, snps, deleted, gaps = [], 0, 0, 0, 0
+    for p, k, L in zip(pos, kind, lens):
+        parts.append(g[prev:p])
+        if k == 0:
+            parts.append(acgt[(np.searchsorted(acgt, g[p]) + rng.integers(1, 4, 1)) % 4])
+            prev, snps = p + 1, snps + 1
+        elif k == 1:
+            prev, deleted, gaps = p + L, deleted + L, gaps + sc.h + L * sc.g
+        else:
+            parts.append(acgt[rng.integers(0, 4, L)])
+            prev, gaps = p, gaps + sc.h + L * sc.g
+    parts.append(g[prev:])
+    score = (g.size - snps - deleted) * sc.s_match + snps * sc.s_mismatch + gaps
+    return np.concatenate(parts).tobytes().decode(), int(score)
+
+
 def words_read(moves, counts, si, sj, layout: str) -> int:
     """4-byte code words a batch of walks must read, counted from their
     paths (the least traffic a walk can make). ``moves`` (B, T) in
@@ -204,6 +276,20 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     ops over the int32 rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(torch, prof) -> dict[str, float]:
+    """Device milliseconds by kernel name from a ``torch.profiler`` run."""
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type) != str(torch.autograd.DeviceType.CUDA):
+            continue  # a host op: its kernels are listed on their own
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = us / 1e3
+    return out
 
 
 def corpus_genomes() -> list[tuple[str, str]]:
@@ -469,15 +555,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
                           "--alignments-out", os.path.join(tmp, "aln2")])
             torch.cuda.synchronize()
             t_prof = time.perf_counter() - t0
-        dev_ms = {}
-        for e in prof.key_averages():
-            if str(e.device_type) != str(torch.autograd.DeviceType.CUDA):
-                continue  # a host op: its kernels are listed on their own
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            if us > 0:
-                dev_ms[e.key] = us / 1e3
+        dev_ms = device_ms(torch, prof)
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
         profile_line = (f"profiled align-matrix run: wall {t_prof:.3f} s, device time "
                         f"{sum(dev_ms.values()):.1f} ms (busy "
@@ -577,6 +655,7 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     from genomics_rs_tpu_torch.models import reads as rd
     from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, stream_walk_group
     from genomics_rs_tpu_torch.models.mapper import KmerIndex, map_reads
+    from genomics_rs_tpu_torch.ops import _build
     from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
     from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
     from genomics_rs_tpu_torch.ops import gotoh_stream as gs
@@ -964,6 +1043,7 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         same = all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want))
         check(same and all(got[4]), f"K4 diag16 walk != plain on call's first round ({CB} walks)")
         k4_call_moves = int(np.sum(got[1]))
+        k4_call_words = words_read(got[0], got[1], si_c, sj_c, "diag16")
         del want
         print(f"[phase 13] call's first round replayed ({CB} reads, {CL1} x {CL2}, "
               f"local={loc_c}): K3 dirs == plain (scores, starts, codes at every true cell; "
@@ -1000,6 +1080,37 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
                            c_mp * (OPS_PER_CELL["local"] + OPS_PER_CELL["dirs"]), rate)
         m_moves = walk_moves[walk_cases[0][0]]
         wr_bound = bound(4 * wr_words + m_moves / 4 + 28 * MB, OPS_PER_MOVE * m_moves, rate)
+        # call's round: K3 with dirs over the recorded buckets, K4 over
+        # the words its 4,096 diag16 paths read
+        c_call = float(np.sum(np.asarray(ms_c, np.float64) * np.asarray(ns_c, np.float64)))
+        mode = "local" if loc_c else "global"
+        k3_call_bound = bound(float(np.sum(np.asarray(ms_c) + np.asarray(ns_c))) + CB * 20
+                              + c_call / 4, c_call * (OPS_PER_CELL[mode] + OPS_PER_CELL["dirs"]),
+                              rate)
+        k4_call_bound = bound(4 * k4_call_words + k4_call_moves / 4 + 36 * CB,
+                              OPS_PER_MOVE * k4_call_moves, rate)
+        # K4's wrapper time on call's round, split into device and host
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof4:
+            t0 = time.perf_counter()
+            walk_c()
+            torch.cuda.synchronize()
+            t_k4_prof = (time.perf_counter() - t0) * 1e3
+        dev4 = device_ms(torch, prof4)
+        k4_dev = sum(v for k, v in dev4.items() if "walk_many" in k)
+        # The same launch alone by CUDA events: a capture made after phase
+        # 9's can lack the kernel's record.
+        B4, KW4, V4 = k3_call.dirs.shape
+        nw4 = -(-steps_c // 16)
+        starts4 = torch.from_numpy(np.stack([si_c, sj_c, np.arange(B4) * KW4, np.zeros(B4, np.int64)],
+                                            1).astype(np.int32)).to(dev)
+        words4 = torch.zeros((B4, nw4), dtype=torch.int32, device=dev)
+        meta4 = torch.empty((B4, 5), dtype=torch.int32, device=dev)
+        lib = _build.library()
+        k4_alone = cuda_ms(lambda: _build.check(lib.walk_many_launch(
+            _build.ptr(k3_call.dirs), _build.ptr(starts4), _build.ptr(words4), _build.ptr(meta4),
+            B4, KW4, B4 * KW4, V4, nw4, steps_c, _build.stream_handle(dev)), "walk_many"), 3)
 
         # map split into seeding and extension, and its device-busy share
         genome_seq = SequenceContainer().from_fasta(path("genome.fasta")).sequences
@@ -1010,22 +1121,12 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         t0 = time.perf_counter()
         map_reads(reads_m, genome_seq, sc, index=index, min_seeds=10**9, device="cuda")
         t_seed = time.perf_counter() - t0
-        from torch.profiler import ProfilerActivity, profile
-
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             map_reads(reads_m, genome_seq, sc, index=index, device="cuda")
             torch.cuda.synchronize()
             t_prof = time.perf_counter() - t0
-    dev_ms = {}
-    for e in prof.key_averages():
-        if str(e.device_type) != str(torch.autograd.DeviceType.CUDA):
-            continue  # a host op: its kernels are listed on their own
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            dev_ms[e.key] = us / 1e3
+    dev_ms = device_ms(torch, prof)
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
     print(f"[phase 14] card {card} | K6 {SR_B} x {SR_LEN} bp ({c_sr:.4g} cells): global "
           f"[{fmt(k6_g)}] ms = {c_sr / med(k6_g) * 1e3:.4g} cells/s (plain "
@@ -1036,8 +1137,13 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
           f"walk_rows16 {MB} walks, {m_moves} moves reading {wr_words} words: [{fmt(wr)}] ms "
           f"(plain {walk_plain_ms[walk_cases[0][0]]:.1f} ms, bound {wr_bound[0]:.6f} ms by "
           f"{wr_bound[1]}) | call's round ({CB} reads, {CL1} x {CL2}): K3 dirs [{fmt(k3_c)}] "
-          f"ms (plain {k3_call_plain_ms:.1f} ms), K4 diag16 walks [{fmt(k4_c)}] ms (plain "
-          f"{k4_call_plain_ms:.1f} ms)", flush=True)
+          f"ms (plain {k3_call_plain_ms:.1f} ms, bound {k3_call_bound[0]:.4f} ms by "
+          f"{k3_call_bound[1]}, {c_call:.4g} cells), K4 diag16 walks [{fmt(k4_c)}] ms (plain "
+          f"{k4_call_plain_ms:.1f} ms, bound {k4_call_bound[0]:.6f} ms by {k4_call_bound[1]}, "
+          f"{k4_call_moves} moves reading {k4_call_words} words; profiled: wall "
+          f"{t_k4_prof:.3f} ms, walk_many_kernel {k4_dev:.3f} ms on the device, all device "
+          f"{sum(dev4.values()):.3f} ms, host {t_k4_prof - sum(dev4.values()):.3f} ms; the "
+          f"kernel alone by CUDA events [{fmt(k4_alone)}] ms)", flush=True)
     print(f"[phase 14] walls: reads scores {walls['reads']:.3f} s, reads --align sam "
           f"{walls['reads --align']:.3f} s, map {walls['map']:.3f} s (CLI: {stdout['map']}; "
           f"library: index {t_index:.3f} s, seeding only {t_seed:.3f} s), map -2 "
@@ -1058,6 +1164,391 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
          "launches": main_launches["walk_rows16"], "max_abs_err": float(walk_max),
          "ms": med(wr), "plain_ms": float(walk_plain_ms[walk_cases[0][0]]),
          "bound_ms": wr_bound[0], "bound_by": wr_bound[1], "library_ms": None},
+    ]
+
+
+def banded_words(moves: np.ndarray, m: int, n: int, V: int) -> int:
+    """4-byte code words a banded walk from (m, n) must read: interior
+    cells' words ((i - 1) // 16, j - off(i) - 1), each run of consecutive
+    moves on one word read once."""
+    from genomics_rs_tpu_torch.ops.gotoh_banded import band_offset
+    from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_SUB
+
+    offs = band_offset(np.arange(m + 1), m, n, V)
+    mv = np.asarray(moves)
+    di = ((mv == DIR_SUB) | (mv == DIR_DEL)).astype(np.int64)
+    dj = ((mv == DIR_SUB) | (mv == DIR_INS)).astype(np.int64)
+    i_at = m - np.cumsum(di) + di
+    j_at = n - np.cumsum(dj) + dj
+    word = np.where((i_at > 0) & (j_at > 0),
+                    (i_at - 1) // 16 * (1 << 32) + (j_at - offs[i_at] - 1), -1)
+    first = np.ones(word.size, bool)
+    first[1:] = word[1:] != word[:-1]
+    return int((first & (word >= 0)).sum())
+
+
+def path_score(moves: np.ndarray, a: str, b: str, sc) -> int:
+    """The global score of the alignment that ``moves`` (walk order, from
+    (len(a), len(b))) spells, recomputed from the strings: s_match or
+    s_mismatch per diagonal move on a[i-1], b[j-1], and h + L g per gap
+    run. Fails unless the path ends at the origin."""
+    from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_SUB
+
+    mv = np.asarray(moves)
+    di = (mv != DIR_INS).astype(np.int64)
+    dj = (mv != DIR_DEL).astype(np.int64)
+    check(int(di.sum()) == len(a) and int(dj.sum()) == len(b),
+          f"a path of {len(mv)} moves does not run from ({len(a)}, {len(b)}) to the origin")
+    sub = mv == DIR_SUB
+    i_at = (len(a) - np.cumsum(di) + di)[sub]
+    j_at = (len(b) - np.cumsum(dj) + dj)[sub]
+    same = (np.frombuffer(a.encode(), np.uint8)[i_at - 1]
+            == np.frombuffer(b.encode(), np.uint8)[j_at - 1])
+    gap = ~sub
+    opens = gap & np.concatenate([[True], mv[1:] != mv[:-1]])
+    return int(same.sum() * sc.s_match + (~same).sum() * sc.s_mismatch
+               + opens.sum() * sc.h + gap.sum() * sc.g)
+
+
+def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
+    """Phases 15-18: the banded path (``align --band``, ``align_banded``,
+    ``banded_align_batch``) on K10, K11 and K12. Returns their rows of the
+    summary line."""
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.display.alignment import format_aligned_sequences
+    from genomics_rs_tpu_torch.models.banded import align_banded
+    from genomics_rs_tpu_torch.ops import gotoh_banded as gb
+    from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
+    from genomics_rs_tpu_torch.ops.traceback import classify_moves
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
+
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def encode(seqs, width, pad):
+        """(B, width) uint8 on the card."""
+        return torch.from_numpy(np.stack([Sequence("s", x).encoded(width, pad) for x in seqs])).to(dev)
+
+    def shorter_copy(rng, genome: str) -> tuple[str, int]:
+        """A planted copy no longer than ``genome`` (banded alignment puts
+        the longer sequence first)."""
+        while True:
+            copy, score = planted_copy(rng, genome, sc)
+            if len(copy) <= len(genome):
+                return copy, score
+
+    def pair_on_card(a: str, b: str, V: int):
+        """One pair padded as ``align_banded`` pads it: (1, L1), (1, L2)."""
+        return (encode([a], max(round_up(len(a), 128), 128), PAD_S1),
+                encode([b], max(round_up(len(b), 128), V), PAD_S2))
+
+    def band_err(got, want, ms, ns, V, geom=None) -> int:
+        """Max |difference| of the scores, and of the codes at every true
+        in-band cell of each pair (1 <= i <= m_p, j = off(i) + v + 1 <= n_p,
+        the window planned from ``geom``, default (max ms, max ns))."""
+        errs = [int((got[0].long().cpu() - want[0].long().cpu()).abs().max())]
+        M, N = geom or (int(max(ms)), int(max(ns)))
+        v = torch.arange(V, device=dev)[None, :]
+        for p in range(len(ms)):
+            for r0 in range(0, int(ms[p]), 2048):
+                r = np.arange(r0, min(int(ms[p]), r0 + 2048))  # i - 1
+                off = torch.from_numpy(gb.band_offset(r + 1, M, N, V)).to(dev)[:, None]
+                rows = torch.from_numpy(r).to(dev)
+                sh = (2 * (rows % 16))[:, None]
+                g_, w_ = ((x[p][rows // 16].long() >> sh) & 3 for x in (got[1], want[1]))
+                live = off + v + 1 <= int(ns[p])
+                errs.append(int(((g_ - w_).abs() * live).max()))
+        return max(errs)
+
+    # ---- phase 15: K10 and K12 kernels vs plain ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1515)
+    k10_err, k12_err, n_k10 = 0, 0, 0
+    walks = []  # (dirs (KW, V) on the card, m, n, V, geom) for phase 16
+    for V in (1024, 2048):
+        for m, n in ((V + 100, V - 24), (2 * V + 200, 2 * V + 120)):  # full cover, narrow
+            a = random_dna(rng, m)
+            b = mutate(rng, a, 0.04, 6)[:n]
+            for st in (None, -1):
+                sck = Scores(2, -3, -2, -4, st)
+                s1, s2 = pair_on_card(a, b, V)
+                score, dirs = gb.gotoh_banded(s1[0], s2[0], m, len(b), sck, V)
+                want = gb.gotoh_banded_plain(s1, s2, [m], [len(b)], sck, V)
+                err = band_err((torch.tensor([score]), dirs[None]), want, [m], [len(b)], V)
+                k10_err = max(k10_err, err)
+                n_k10 += 1
+                check(err == 0, f"K10 kernel != plain ({m} x {len(b)}, V={V}, st={st}): "
+                                f"max |err| {err}")
+                walks.append((dirs, m, len(b), V, None))
+    # a batch of 11 mixed-length pairs (two result groups) at three widths
+    base = random_dna(rng, 2_200)
+    a11 = [base[: 2_100 - int(rng.integers(0, 12))] for _ in range(11)]
+    b11 = [mutate(rng, a, 0.04, 2)[: len(a)] for a in a11]
+    ms11, ns11 = np.array([len(a) for a in a11]), np.array([len(b) for b in b11])
+    batches = {}
+    for W in (128, 384, 2048):
+        sck = Scores(2, -3, -2, -4, -1 if W == 384 else None)
+        s1b = encode(a11, 2_176, PAD_S1)
+        s2b = encode(b11, max(2_304, W), PAD_S2)
+        groups = gbb.gotoh_banded_batch(s1b, s2b, ms11, ns11, sck, W)
+        got = (torch.cat([g.score for g in groups]), torch.cat([g.dirs for g in groups]))
+        want = gb.gotoh_banded_plain(s1b, s2b, ms11, ns11, sck, W, gbb.COUNTS)
+        err = band_err(got, want, ms11, ns11, W)
+        k12_err = max(k12_err, err)
+        check(len(groups) == 2 and err == 0,
+              f"K12 kernel != plain (11 pairs, W={W}): max |err| {err}")
+        batches[W] = (got[1], (groups[0].M, groups[0].N))
+    # the 29,903 bp planted pair at V = 2048, and one fill per wider form
+    g29 = random_dna(rng, BATCH_LEN)
+    p29, planted29 = shorter_copy(rng, g29)
+    s1_29, s2_29 = pair_on_card(g29, p29, BAND)
+    score29, dirs29 = gb.gotoh_banded(s1_29[0], s2_29[0], BATCH_LEN, len(p29), sc, BAND)
+    want, k10_plain_ms = timed(lambda: gb.gotoh_banded_plain(
+        s1_29, s2_29, [BATCH_LEN], [len(p29)], sc, BAND))
+    err = band_err((torch.tensor([score29]), dirs29[None]), want, [BATCH_LEN], [len(p29)], BAND)
+    k10_err = max(k10_err, err)
+    check(err == 0 and score29 == planted29,
+          f"K10 at 29,903 bp: max |err| {err} vs plain, score {score29} (planted {planted29})")
+    walks.append((dirs29, BATCH_LEN, len(p29), BAND, None))
+    wide_plain_ms, wide_ms = {}, {}
+    for V, m, n in WIDE_FILLS:
+        a = random_dna(rng, m)
+        b = mutate(rng, a, 0.02, 4)[:n]
+        s1, s2 = pair_on_card(a, b, V)
+        score, dirs = gb.gotoh_banded(s1[0], s2[0], m, len(b), sc, V)
+        wide_ms[V] = cuda_ms(lambda: gb.gotoh_banded(s1[0], s2[0], m, len(b), sc, V), 1)[0]
+        want, wide_plain_ms[V] = timed(lambda: gb.gotoh_banded_plain(
+            s1, s2, [m], [len(b)], sc, V))
+        err = band_err((torch.tensor([score]), dirs[None]), want, [m], [len(b)], V)
+        k10_err = max(k10_err, err)
+        check(err == 0, f"K10 at V={V} ({m} x {len(b)}, {gb.lanes_computed(len(b), V)} lanes) "
+                        f"!= plain: max |err| {err}")
+        walks.append((dirs, m, len(b), V, None))
+        del want
+    print(f"[phase 15] K10 kernel == plain on {n_k10} fills (V = 1024 and 2048, full cover "
+          f"and narrow, classic and kimura), the 29,903 bp planted pair at V = {BAND} (score "
+          f"{score29} == planted; plain {k10_plain_ms:.0f} ms) and one fill per wider form, "
+          f"(V, m, n) kernel / plain ms: "
+          f"{', '.join(f'({V}, {m}, {n}) {wide_ms[V]:.2f} / {wide_plain_ms[V]:.0f}' for V, m, n in WIDE_FILLS)}; "
+          f"K12 kernel == plain on 11 pairs of "
+          f"{ms11.min()}-{ms11.max()} bp at W = 128, 384 (kimura), 2048; codes at every true "
+          f"in-band cell; max |err| {max(k10_err, k12_err)} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 16: K11 vs plain ----
+    t_phase = time.perf_counter()
+    k11_err, n_moves = 0, 0
+    for dirs, m, n, V, geom in walks:
+        got = gb.walk_banded(dirs, m, n, V, geom=geom)
+        want = gb.walk_banded_plain(dirs.cpu(), m, n, V, geom)
+        same = np.array_equal(got, want)
+        k11_err = max(k11_err, 0 if same else 1)
+        check(same, f"K11 != plain on the {m} x {n} bitmap at V={V}")
+        n_moves += len(got)
+    resumed = gb.walk_banded(dirs29, BATCH_LEN, len(p29), BAND, max_steps=1000)
+    t0 = time.perf_counter()
+    want29 = gb.walk_banded_plain(dirs29.cpu(), BATCH_LEN, len(p29), BAND)
+    k11_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(resumed, want29), "K11 resumed past 1,000 moves != plain")
+    n_batch_walks = 0
+    for W, (dirs, geom) in batches.items():
+        got = gb.walk_banded_batch(dirs, ms11, ns11, W, geom=geom)
+        for p in range(len(ms11)):
+            want = gb.walk_banded_plain(dirs[p].cpu(), int(ms11[p]), int(ns11[p]), W, geom)
+            same = np.array_equal(got[p], want)
+            k11_err = max(k11_err, 0 if same else 1)
+            check(same, f"K11 batch walk {p} (W={W}, geom {geom}) != plain")
+            n_batch_walks += 1
+    try:
+        gb.walk_banded(torch.full((18, 256), 0x55555555, dtype=torch.int32, device=dev),
+                       280, 100, 256, geom=(300, 290))
+        fail("K11 walked an all-INS bitmap out of the band without an error")
+    except RuntimeError as e:
+        check("left the band" in str(e), f"K11 on the all-INS bitmap: {e}")
+    print(f"[phase 16] K11 kernel == plain on {len(walks)} walks ({n_moves} moves; the "
+          f"29,903 bp one also resumed from 1,000-move launches, plain {k11_plain_ms:.0f} ms) "
+          f"and {n_batch_walks} batch walks in one launch per width with the shared geometry; "
+          f"the all-INS bitmap raises; max |err| {k11_err} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 17: the path at real size ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12_2048)
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, GENOME_BP)].tobytes().decode()
+    planted, planted_score = shorter_copy(rng, genome)
+    bgenome = random_dna(rng, BATCH_LEN)
+    copies = [shorter_copy(rng, bgenome) for _ in range(BATCH_B)]
+    bms = np.full(BATCH_B, BATCH_LEN)
+    bns = np.array([len(c) for c, _ in copies])
+    s1b = encode([bgenome] * BATCH_B, round_up(BATCH_LEN, 128), PAD_S1)
+    s2b = encode([c for c, _ in copies], max(round_up(int(bns.max()), 128), BAND), PAD_S2)
+    t_data = time.perf_counter() - t_phase
+    os.environ["LOG_LEVEL"] = "WARNING"
+    for mod in (gb, gbb):
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    g_seq = Sequence("chr12s", genome)
+    t0 = time.perf_counter()
+    self_aln = align_banded(g_seq, g_seq, sc, band=BAND, device="cuda")
+    t_self = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aln = align_banded(g_seq, Sequence("planted", planted), sc, band=BAND, device="cuda")
+    t_planted = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, fasta, out = (os.path.join(tmp, x) for x in ("config.toml", "pair.fasta", "out.txt"))
+        with open(cfg, "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        with open(fasta, "w") as f:
+            f.write(f">chr12s\n{genome}\n>planted\n{planted}\n")
+        t0 = time.perf_counter()
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            rc = cli.main(["-c", cfg, "align", "-a", "global", "--band", str(BAND), "-f", fasta,
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        with open(out) as f:
+            cli_tail = f.read().splitlines()[-6:]
+    t0 = time.perf_counter()
+    batch = gbb.banded_align_batch(s1b, s2b, bms, bns, sc, BAND)
+    t_batch = time.perf_counter() - t0
+    launches = {"gotoh_banded": gb.COUNTS["kernel"], "walk_banded": gb.COUNTS["walk_kernel"],
+                "gotoh_banded_batch": gbb.COUNTS["kernel"]}
+    plain = gb.COUNTS["plain"] + gb.COUNTS["walk_plain"] + gbb.COUNTS["plain"]
+    check(rc == 0, f"align --band exited {rc}")
+    check(launches["gotoh_banded"] >= 2 and launches["gotoh_banded_batch"] >= 1
+          and launches["walk_banded"] >= 3 and plain == 0,
+          f"the banded path: launches {launches}, plain calls {plain}")
+    check(self_aln.score == GENOME_BP and self_aln.matches == GENOME_BP,
+          f"self alignment: score {self_aln.score}, matches {self_aln.matches}")
+    check(aln.score == planted_score, f"planted pair: score {aln.score} != {planted_score}")
+    check(cli_tail == format_aligned_sequences(aln).splitlines()[-6:],
+          f"align --band's stats {cli_tail} != the library call's")
+    check([s for s, _ in batch] == [p for _, p in copies],
+          f"banded_align_batch scores {[s for s, _ in batch]} != planted")
+    with ThreadPoolExecutor(2) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(lambda k: native.gotoh_score_cpu(bgenome, copies[k][0], sc, False),
+                               (0, 1)))
+    check([o[0] for o in oracle] == [batch[0][0], batch[1][0]],
+          f"banded_align_batch pairs 0-1 {[batch[0][0], batch[1][0]]} != oracle {oracle}")
+    # The path's kernels at its own shapes against their plain versions:
+    # K10's codes over the first PREFIX_ROWS rows of the 1 Mb window (the
+    # plain fill of all its rows takes tens of minutes), K11's walk of the 1
+    # Mb planted pair (refilled: the fill is deterministic) and the 16 batch
+    # walks. Each path, rescored from its strings, runs end to end and
+    # costs at most its score: the walk follows each cell's best arm (S > I
+    # > D on ties), which can break a gap run the score extended.
+    m, n = GENOME_BP, len(planted)
+    s1e, s2e = pair_on_card(genome, planted, BAND)
+    _, dirs_big = gb.gotoh_banded(s1e[0], s2e[0], m, n, sc, BAND)
+    rows = min(PREFIX_ROWS, m)
+    want, k10_prefix_ms = timed(lambda: gb.gotoh_banded_plain(
+        s1e, s2e, [m], [n], sc, BAND, rows=rows))
+    kw = want[1].shape[1]
+    err = band_err((want[0], dirs_big[None, :kw]), want, [rows], [n], BAND, geom=(m, n))
+    k10_err = max(k10_err, err)
+    check(err == 0, f"K10 at {m} x {n}, rows 1..{rows} != plain: max |err| {err}")
+    del want
+    moves_big = gb.walk_banded(dirs_big, m, n, BAND)
+    t0 = time.perf_counter()
+    plain_big = gb.walk_banded_plain(dirs_big.cpu(), m, n, BAND)
+    k11_plain_big_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(moves_big, plain_big),
+          f"K11 at {m} x {n} ({len(moves_big)} moves) != plain ({len(plain_big)} moves)")
+    again = classify_moves(moves_big, m, n, aln.score, g_seq, Sequence("planted", planted))
+    check(again == aln, "the refilled 1 Mb walk's alignment != align_banded's")
+    rescored = [path_score(moves_big, genome, planted, sc)]
+    check(rescored[0] <= planted_score,
+          f"the 1 Mb path rescores to {rescored[0]}, above its score {planted_score}")
+    groups = gbb.gotoh_banded_batch(s1b, s2b, bms, bns, sc, BAND)
+    dirs12 = torch.cat([g.dirs for g in groups])
+    for p, (copy, planted_p) in enumerate(copies):
+        want = gb.walk_banded_plain(dirs12[p].cpu(), BATCH_LEN, int(bns[p]), BAND,
+                                    (groups[0].M, groups[0].N))
+        check(np.array_equal(batch[p][1], want), f"K11 batch walk {p} at 29,903 bp != plain")
+        rescored.append(path_score(batch[p][1], bgenome, copy, sc))
+        check(rescored[-1] <= planted_p,
+              f"batch pair {p}: its path rescores to {rescored[-1]}, above {planted_p}")
+    del dirs12, groups
+    print(f"[phase 17] banded path on cuda ({t_data:.1f} s to make the data): align_banded of "
+          f"the {GENOME_BP} bp genome with itself at band {BAND}: score {self_aln.score} == "
+          f"length, {self_aln.matches} matches ({t_self:.3f} s); with its planted copy "
+          f"({len(planted)} bp): score {aln.score} == planted ({t_planted:.3f} s); the CLI "
+          f"align --band {BAND}: stats == the library's ({t_cli:.3f} s wall); "
+          f"banded_align_batch of {BATCH_B} planted copies of {BATCH_LEN} bp at W = {BAND}: "
+          f"every score == planted, pairs 0-1 == C++ oracle ({t_batch:.3f} s); launches "
+          f"{launches}, plain calls {plain}; then K10 == plain on rows 1..{rows} of the 1 Mb "
+          f"window (plain {k10_prefix_ms:.0f} ms), K11 == plain on the path's walks (the 1 Mb "
+          f"planted pair's {len(moves_big)} moves, plain {k11_plain_big_ms:.0f} ms, and the "
+          f"{BATCH_B} batch walks), each path rescored from its strings <= its score (1 Mb: "
+          f"{rescored[0]} of {planted_score}; batch, summed: {sum(rescored[1:])} of {sum(p for _, p in copies)}) "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 18: times ----
+    k10_big = cuda_ms(lambda: gb.gotoh_banded(s1e[0], s2e[0], m, n, sc, BAND), 3)
+    k10_29 = cuda_ms(lambda: gb.gotoh_banded(s1_29[0], s2_29[0], BATCH_LEN, len(p29), sc, BAND), 3)
+    k11_big = cuda_ms(lambda: gb.walk_banded(dirs_big, m, n, BAND), 3)
+    k11_29 = cuda_ms(lambda: gb.walk_banded(dirs29, BATCH_LEN, len(p29), BAND), 3)
+    k12 = cuda_ms(lambda: gbb.gotoh_banded_batch(s1b, s2b, bms, bns, sc, BAND), 3)
+    got = gbb.gotoh_banded_batch(s1b, s2b, bms, bns, sc, BAND)
+    got = (torch.cat([g.score for g in got]), torch.cat([g.dirs for g in got]))
+    want, k12_plain_ms = timed(lambda: gb.gotoh_banded_plain(s1b, s2b, bms, bns, sc, BAND,
+                                                             gbb.COUNTS))
+    err = band_err(got, want, bms, bns, BAND)
+    k12_err = max(k12_err, err)
+    check(err == 0, f"K12 at {BATCH_B} x {BATCH_LEN} bp != plain: max |err| {err}")
+    del got, want, dirs_big
+    cells_big, cells29 = float(m) * BAND, float(BATCH_LEN) * BAND
+    cells12 = float(np.sum(bms)) * BAND
+    k10_bound = bound(BATCH_LEN + len(p29) + cells29 / 4 + 4, cells29 * OPS_PER_BAND_CELL, rate)
+    k10_bound_big = bound(m + n + cells_big / 4 + 4, cells_big * OPS_PER_BAND_CELL, rate)
+    k12_bound = bound(float(np.sum(bms + bns)) + cells12 / 4 + 4 * BATCH_B,
+                      cells12 * OPS_PER_BAND_CELL, rate)
+    w29 = banded_words(want29, BATCH_LEN, len(p29), BAND)
+    k11_bound = bound(4 * w29 + 4 * BATCH_LEN + len(want29) / 4, OPS_PER_MOVE * len(want29), rate)
+    print(f"[phase 18] card {card} | K10 {m} x {n} at V = {BAND} ({cells_big:.4g} band cells): "
+          f"[{fmt(k10_big)}] ms = {cells_big / med(k10_big) * 1e3:.4g} band cells/s "
+          f"({med(k10_big) * 1e6 / m:.1f} ns a row; bound {k10_bound_big[0]:.4f} ms by "
+          f"{k10_bound_big[1]}) | K10 {BATCH_LEN} bp: [{fmt(k10_29)}] ms (plain "
+          f"{k10_plain_ms:.1f} ms, bound {k10_bound[0]:.4f} ms by {k10_bound[1]}) | K11 "
+          f"{len(moves_big)} moves at 1 Mb: [{fmt(k11_big)}] ms = "
+          f"{med(k11_big) * 1e6 / len(moves_big):.1f} ns a move; {len(want29)} moves at 29,903 "
+          f"bp reading {w29} words: [{fmt(k11_29)}] ms (plain {k11_plain_ms:.1f} ms, bound "
+          f"{k11_bound[0]:.6f} ms by {k11_bound[1]}) | K12 {BATCH_B} x {BATCH_LEN} bp "
+          f"({cells12:.4g} band cells): [{fmt(k12)}] ms (plain {k12_plain_ms:.1f} ms, bound "
+          f"{k12_bound[0]:.4f} ms by {k12_bound[1]}) | plain on phase 15's fills: "
+          f"{k10_plain_ms:.1f} ms at 29,903 bp, "
+          f"{', '.join(f'{wide_plain_ms[V]:.1f} ms at V = {V}' for V, _, _ in WIDE_FILLS)}; "
+          f"K11 plain at 1 Mb {k11_plain_big_ms:.1f} ms | walls: "
+          f"align_banded 1 Mb self {t_self:.3f} s, planted {t_planted:.3f} s, CLI align --band "
+          f"{t_cli:.3f} s, banded_align_batch {t_batch:.3f} s", flush=True)
+    return [
+        {"name": "gotoh_banded", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_banded.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_banded.py:263",
+         "launches": launches["gotoh_banded"], "max_abs_err": float(k10_err),
+         "ms": med(k10_29), "plain_ms": float(k10_plain_ms),
+         "bound_ms": k10_bound[0], "bound_by": k10_bound[1], "library_ms": None},
+        {"name": "walk_banded", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/traceback_walk.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_banded.py:624",
+         "launches": launches["walk_banded"], "max_abs_err": float(k11_err),
+         "ms": med(k11_29), "plain_ms": float(k11_plain_ms),
+         "bound_ms": k11_bound[0], "bound_by": k11_bound[1], "library_ms": None},
+        {"name": "gotoh_banded_batch", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_banded.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_banded_batch.py:203",
+         "launches": launches["gotoh_banded_batch"], "max_abs_err": float(k12_err),
+         "ms": med(k12), "plain_ms": float(k12_plain_ms),
+         "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None},
     ]
 
 
@@ -1447,6 +1938,7 @@ def main() -> None:
     del kern, plain, want, got
     rows += align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
     rows += read_phases(torch, dev, card, sc, cuda_ms, rate)
+    rows += banded_phases(torch, dev, card, sc, cuda_ms, rate)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

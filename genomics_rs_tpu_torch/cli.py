@@ -3,6 +3,7 @@
 so far).
 
   align         --alignment-type {local,global,1,0} --fasta-path FILE
+                [--band N]
   align-matrix  --fasta-dir DIR [--alignment-type global] [-o TSV]
                 [--alignments-out DIR]
   reads         -q READS -r REFS [-a local] [--align [--format {tsv,sam}]]
@@ -59,7 +60,14 @@ def _build_parser() -> argparse.ArgumentParser:
         + NOT_PORTED,
     )
     a.add_argument("--matrix", default=None, help="substitution matrix: " + NOT_PORTED)
-    a.add_argument("--band", type=int, default=0, help="banded fill: " + NOT_PORTED)
+    a.add_argument(
+        "--band",
+        type=int,
+        default=0,
+        help="global-only: restrict the fill to a diagonal band this "
+        "many columns wide (exact when the optimal path stays in "
+        "band — similar pairs; chromosome-scale in seconds)",
+    )
     _device_flag(a)
 
     am = sub.add_parser(
@@ -277,8 +285,24 @@ def main(argv: list[str] | None = None) -> int:
         from genomics_rs_tpu_torch.models.aligner import align_pair
         from genomics_rs_tpu_torch.utils.profiling import trace
 
-        with trace("align"):
-            aligned = align_pair(container, sc, is_local=is_local, device=device)
+        if args.band:
+            if is_local:
+                print(
+                    "--band is global-only (banded local alignment is "
+                    "served by the map/reads modes)",
+                    file=sys.stderr,
+                )
+                return 2
+            from genomics_rs_tpu_torch.models.banded import align_banded
+
+            seqs = container.sequences
+            if len(seqs) > 2:
+                log.warning("More than two sequences found. Only the first two will be used.")
+            with trace("align"):
+                aligned = align_banded(seqs[0], seqs[1], sc, band=args.band, device=device)
+        else:
+            with trace("align"):
+                aligned = align_pair(container, sc, is_local=is_local, device=device)
         print_alignment_tables(aligned, sc, is_local)
         print(format_aligned_sequences(aligned))
         return 0
@@ -293,8 +317,7 @@ def main(argv: list[str] | None = None) -> int:
 def _unported_flags(args) -> list[str]:
     """The flags of this run whose engines are not ported yet."""
     if args.mode in ("align", "align-matrix"):
-        used = (("--matrix", args.matrix), ("--band", getattr(args, "band", 0)),
-                ("--engine scan", args.engine == "scan"))
+        used = (("--matrix", args.matrix), ("--engine scan", args.engine == "scan"))
     elif args.mode == "reads":
         # --align runs align_reads, which takes any engine but scan as auto.
         unported = ("scan",) if args.align else ("segmented", "stream8", "pallas", "scan")

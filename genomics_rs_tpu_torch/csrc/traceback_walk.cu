@@ -38,6 +38,18 @@
 // walk, as K4: each walk is a chain of dependent loads, and the B chains
 // hide each other's latency; a scan of lockstep torch ops would pay ~15
 // launches per step.
+//
+// walk_banded_kernel (K11) replaces genomics_rs_tpu/ops/gotoh_banded.py's
+// _walk_banded_pallas (body _kernel_walk_banded): the chase of the banded
+// fill's row-packed codes, dirs[(i-1)/16, v] at band lane v = j - off - 1,
+// from (m, n) to the origin. Row 0 is INS and column 0 is DEL (synthesized);
+// an interior lane outside [0, V) or a STOP code is corrupt data (oob).
+// off is tracked by the per-row slides deltas[i-1] = off(i) - off(i-1),
+// never by (i*n)/m, which overflows int32 at chromosome scale. One thread
+// per walk: all walks of a banded batch in one launch, each at its own
+// word-row offset, under one window geometry (one deltas stream); the TPU
+// kernel's DMA windows over the bitmap and the deltas are gone, the loads go
+// through the caches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -188,7 +200,79 @@ __global__ void walk_rows16_kernel(const unsigned* __restrict__ codes,
   mt[4] = oob;
 }
 
+// starts[4w .. 4w+3] = (i, j, off, koff) of walk w over the (KWT, V) words,
+// its bitmap the rows [koff, koff + KW); deltas has ND entries. Its moves go
+// to words[w*NW ..], its meta to meta[6w ..] = (pos, i, j, off, done, oob).
+__global__ void walk_banded_kernel(const unsigned* __restrict__ dirs,
+                                   const int* __restrict__ deltas,
+                                   const int* __restrict__ starts,
+                                   unsigned* __restrict__ words,
+                                   int* __restrict__ meta, int W, int KW, int V,
+                                   int KWT, int ND, int NW, int max_steps) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  int i = starts[4 * w];
+  int j = starts[4 * w + 1];
+  int off = starts[4 * w + 2];
+  const int koff = starts[4 * w + 3];
+  unsigned* out = words + (size_t)w * NW;
+  int pos = 0, done = i == 0 && j == 0, oob = 0;
+  unsigned acc = 0;
+  while (!done && pos < max_steps) {
+    unsigned code;
+    if (i == 0) {
+      code = DIR_INS;
+    } else if (j == 0) {
+      code = DIR_DEL;
+    } else {
+      const int v = j - off - 1;
+      const int row = (i - 1) >> 4;
+      if (v < 0 || v >= V || row >= KW || koff + row >= KWT || i > ND) {
+        oob = 1;
+        break;
+      }
+      code = (dirs[(size_t)(koff + row) * V + v] >> (2 * ((i - 1) & 15))) & 3u;
+      if (code == DIR_STOP) {
+        oob = 1;
+        break;
+      }
+    }
+    const int sp = pos & 15;
+    if (sp == 0) acc = 0;
+    acc |= code << (2 * sp);
+    if (sp == 15) out[pos >> 4] = acc;
+    ++pos;
+    if (code != DIR_INS) {
+      off -= deltas[i - 1];  // entering row i-1 undoes row i's slide
+      --i;
+    }
+    if (code != DIR_DEL) --j;
+    done = i == 0 && j == 0;
+  }
+  if (pos & 15) out[pos >> 4] = acc;
+  int* mt = meta + 6 * w;
+  mt[0] = pos;
+  mt[1] = i;
+  mt[2] = j;
+  mt[3] = off;
+  mt[4] = done;
+  mt[5] = oob;
+}
+
 }  // namespace
+
+extern "C" int walk_banded_launch(const void* dirs, const void* deltas,
+                                  const void* starts, void* words, void* meta,
+                                  int W, int KW, int V, int KWT, int ND, int NW,
+                                  int max_steps, void* stream) {
+  if (W < 1 || KW < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  constexpr int threads = 128;
+  walk_banded_kernel<<<(W + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(
+      (const unsigned*)dirs, (const int*)deltas, (const int*)starts,
+      (unsigned*)words, (int*)meta, W, KW, V, KWT, ND, NW, max_steps);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
                                      int KW, int V, int start_li, int start_j,

@@ -130,6 +130,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_shortread_launch.restype = i
     lib.walk_rows16_launch.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.walk_rows16_launch.restype = i
+    lib.gotoh_banded_launch.argtypes = [vp] * 8 + [i] * 11 + [vp]
+    lib.gotoh_banded_launch.restype = i
+    lib.walk_banded_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
+    lib.walk_banded_launch.restype = i
 
 
 def uses_kernel(t: torch.Tensor) -> bool:

@@ -1,0 +1,386 @@
+"""Banded Gotoh fill (kernel K10) and the banded walker (kernel K11);
+counterpart of ``genomics_rs_tpu/ops/gotoh_banded.py``.
+
+The fill covers a width-``V`` band around the length-proportional
+diagonal. Lane ``v`` of row ``i`` holds column ``j = off(i) + v + 1``::
+
+    off(i) = clamp((i * n) // m - V // 2, 0, max(0, n - V))
+
+so with ``n <= m`` the window slides by ``delta(i) = off(i) - off(i-1)``
+in {0, 1} per row. Per row, the previous row's carries are aligned by
+``delta``: the D carry ``A = max(max(I, S) + h + g, D + g)`` shifts up
+by ``delta`` (same column), the cell max ``M`` shifts down by ``1 -
+delta`` (previous column) with the column-0 boundary entering while the
+window still touches it; the horizontal chain I is a (max,+) prefix
+along the row. Out-of-band predecessors are ``NEG_INF``, and int32 adds
+wrap as JAX's do. Codes use the tie order S > I > D, packed 16 rows to
+an int32 word at each lane: ``dirs[(i-1)//16, v]``, ``(ceil(m/16), V)``.
+
+* :func:`plan_streams` is the host planning (int64 geometry) shared by
+  the single-pair and batched fills; :func:`band_offset` is JAX's.
+* :func:`gotoh_banded` launches ``csrc/gotoh_banded.cu`` on a CUDA
+  tensor (one thread block per pair, a row per step) and runs
+  :func:`gotoh_banded_plain` on a CPU tensor: ``_kernel_banded``'s step
+  restated for a flat ``(B, V)`` state, one loop step per row.
+* :func:`walk_banded` chases the codes from ``(m, n)`` to the origin,
+  tracking ``off`` by the per-row deltas (``(i*n)//m`` overflows int32
+  at chromosome scale). A CUDA bitmap launches ``walk_banded_kernel``
+  (``csrc/traceback_walk.cu``, one thread per walk, all walks of a batch
+  in one launch), a CPU bitmap runs :func:`walk_banded_plain`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops.gotoh_scan import (
+    DIR_DEL,
+    DIR_INS,
+    DIR_STOP,
+    DIR_SUB,
+    INT_MIN,
+    NEG_INF,
+)
+from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
+from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW, unpack_moves
+
+#: 2-bit codes per packed word (rows per int32).
+PACK = 16
+#: widest band the kernel keeps in registers (1,024 threads x 32 lanes
+#: each; a band wider than ``n`` is cut to ``n`` first, see
+#: :func:`lanes_computed`). A wider one runs the kernel's wide form: 1,024
+#: threads, the row state in device memory (``WIDE_THREADS`` x
+#: ``ceil(lanes / WIDE_THREADS)`` slots per array, two row parities of A,
+#: M and the s2 window).
+REGISTER_LANES, WIDE_THREADS = 32768, 1024
+
+#: launches of the fill kernel from :func:`gotoh_banded` (K10) and of the
+#: walker (K11); calls of their plain versions.
+COUNTS = {"kernel": 0, "plain": 0, "walk_kernel": 0, "walk_plain": 0}
+
+
+def band_offset(i, m: int, n: int, V: int):
+    """Window start of row ``i``: columns ``off+1 .. off+V`` are in band.
+    Host int64 math."""
+    lo = (np.asarray(i, np.int64) * n) // m - V // 2
+    return np.clip(lo, 0, max(0, n - V))
+
+
+def plan_streams(M: int, N: int, V: int):
+    """Per-row geometry of a fill over rows ``1..M`` of the window planned
+    from ``(M, N)``: ``(off, delta, at0)`` int64 numpy arrays indexed by
+    row - 1. ``at0`` marks rows whose window still touches column 0 (the
+    boundary fills enter there)."""
+    rows = np.arange(1, M + 1, dtype=np.int64)
+    off = band_offset(rows, M, N, V).astype(np.int64)
+    delta = off - band_offset(rows - 1, M, N, V).astype(np.int64)
+    if delta.max(initial=0) > 1 or delta.min(initial=0) < 0:
+        raise ValueError(
+            f"band window slides by more than one column per row "
+            f"(M={M}, N={N}): banded alignment needs N <= M"
+        )
+    return off, delta, off == 0
+
+
+def row_streams(enc1: torch.Tensor, enc2: torch.Tensor, M: int, N: int, V: int):
+    """The fill's per-row inputs for ``B`` pairs of encoded characters
+    ``enc1`` (B, L1) and ``enc2`` (B, L2): ``s1c`` (B, M) the row's s1
+    char and ``s2in`` (B, M) the s2 char entering the window on the right
+    (``s2[off(i) + V - 1]``), both clamped to the padded width as JAX
+    clamps them, on the tensors' device; and the numpy ``delta`` and
+    ``at0`` of :func:`plan_streams`."""
+    dev = enc1.device
+    off, delta, at0 = plan_streams(M, N, V)
+    s1_idx = np.minimum(np.arange(M), enc1.shape[1] - 1)
+    in_idx = np.minimum(off + V - 1, enc2.shape[1] - 1)
+    s1c = enc1[:, torch.from_numpy(s1_idx).to(dev)]
+    s2in = enc2[:, torch.from_numpy(in_idx).to(dev)]
+    return s1c.contiguous(), s2in.contiguous(), delta, at0
+
+
+def window_init(enc2: torch.Tensor, V: int, scores) -> torch.Tensor:
+    """(B, V) s2 chars of the row-0 window, padded with ``sentinel(0xFF)``."""
+    B, L2 = enc2.shape
+    out = torch.full((B, V), sentinel(0xFF, scores), dtype=torch.int32, device=enc2.device)
+    take = min(V, L2)
+    out[:, :take] = enc2[:, :take]
+    return out
+
+
+def lanes_computed(N: int, V: int) -> int:
+    """Lanes the kernel computes and stores. While ``N <= V`` the window
+    never slides (off = 0), so lanes past column N never reach a lane
+    below it: the band is cut to ``N`` rounded up to 32 (a multiple of
+    every lanes-per-thread count of the kernel), and the lanes past it
+    are left zero. Otherwise all ``V``."""
+    return min(V, -(-N // 32) * 32) if N <= V else V
+
+
+def _check_fill(s1e, s2e, m: int, n: int, V: int):
+    if V < 1024 or V % 1024:
+        raise ValueError(f"band width V={V} must be a multiple of 1024")
+    if not 1 <= n <= m:
+        raise ValueError(
+            f"banded alignment needs 1 <= n ({n}) <= m ({m}); swap "
+            "the pair (the band tracks the length-proportional "
+            "diagonal, which must slide at most one column per row)"
+        )
+    if s1e.dim() != 1 or s2e.dim() != 1 or s1e.device != s2e.device:
+        raise ValueError("s1e and s2e must be 1-D tensors on one device")
+
+
+def gotoh_banded(s1e: torch.Tensor, s2e: torch.Tensor, m: int, n: int, scores, V: int):
+    """Banded global fill of one pair. Returns ``(score, dirs)``: the int
+    score at ``(m, n)`` and ``dirs`` (ceil(m/16), V) int32 on the
+    sequences' device. ``s1e``/``s2e`` are uint8 byte codes (padding
+    past ``m``/``n`` allowed). Requires ``1 <= n <= m`` and ``V`` a
+    multiple of 1024. A CUDA tensor launches K10, a CPU tensor runs
+    :func:`gotoh_banded_plain`."""
+    _check_fill(s1e, s2e, m, n, V)
+    s1b, s2b = s1e[None, :], s2e[None, :]
+    ms, ns = np.array([m]), np.array([n])
+    if _build.uses_kernel(s1e):
+        score, dirs = fill_cuda(s1b, s2b, ms, ns, scores, V, COUNTS)
+    else:
+        score, dirs = gotoh_banded_plain(s1b, s2b, ms, ns, scores, V)
+    return int(score[0]), dirs[0]
+
+
+def probe_lanes(ms: np.ndarray, ns: np.ndarray, M: int, N: int, V: int) -> np.ndarray:
+    """Band lane of each pair's end cell ``(m_p, n_p)`` in the window
+    planned from ``(M, N)``."""
+    return np.asarray(ns, np.int64) - band_offset(np.asarray(ms, np.int64), M, N, V) - 1
+
+
+def fill_cuda(s1b, s2b, ms, ns, scores, V: int, counts: dict):
+    """Launch the banded fill over a batch of ``B`` pairs that share the
+    window of ``(M, N) = (max ms, max ns)``: one thread block per pair.
+    Returns ``(score (B,) int32, dirs (B, ceil(M/16), V) int32)`` on the
+    card and adds one to ``counts["kernel"]``. The callers check the
+    geometry."""
+    dev = s1b.device
+    if dev.type != "cuda":
+        raise ValueError(f"the banded fill kernel takes CUDA tensors, not {dev}")
+    _build.require(s1b, "s1b", torch.uint8, dev)
+    _build.require(s2b, "s2b", torch.uint8, dev)
+    B = s1b.shape[0]
+    M, N = int(np.max(ms)), int(np.max(ns))
+    KW = -(-M // PACK)
+    Vc = lanes_computed(N, V)
+    scratch = None
+    if Vc > REGISTER_LANES:
+        slots = -(-Vc // WIDE_THREADS) * WIDE_THREADS
+        scratch = torch.empty((B, 6 * slots), dtype=torch.int32, device=dev)
+    enc1, enc2 = encode_chars(s1b, scores), encode_chars(s2b, scores)
+    s1c, s2in, delta, at0 = row_streams(enc1, enc2, M, N, V)
+    flags = torch.from_numpy((delta | (at0.astype(np.int64) << 1)).astype(np.int32)).to(dev)
+    s2init = window_init(enc2, V, scores)
+    probe = torch.from_numpy(
+        np.stack([np.asarray(ms, np.int64), probe_lanes(ms, ns, M, N, V)], 1).astype(np.int32)
+    ).to(dev)
+    alloc = torch.empty if Vc == V else torch.zeros
+    dirs = alloc((B, KW, V), dtype=torch.int32, device=dev)
+    score = torch.full((B,), INT_MIN, dtype=torch.int32, device=dev)
+    kim = kimura_active(scores)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gotoh_banded_launch(
+            _build.ptr(s1c), _build.ptr(s2in), _build.ptr(flags), _build.ptr(s2init),
+            _build.ptr(probe), _build.ptr(dirs), _build.ptr(score), _build.ptr(scratch),
+            B, M, V, Vc, KW, scores.s_match, scores.s_mismatch,
+            scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
+            _build.stream_handle(dev),
+        )
+    _build.check(err, "gotoh_banded")
+    counts["kernel"] += 1
+    return score, dirs
+
+
+def gotoh_banded_plain(s1b, s2b, ms, ns, scores, V: int, counts: dict | None = None,
+                       rows: int | None = None):
+    """The plain PyTorch version of the banded fill over ``B`` pairs that
+    share the window of ``(M, N) = (max ms, max ns)``: state (B, V), one
+    step per row ``1..M``, on the tensors' device. Returns ``(score (B,),
+    dirs (B, ceil(M/16), V))`` as :func:`fill_cuda` does; every lane is
+    computed. ``rows`` stops after that many rows of the same window (dirs
+    then has ``ceil(rows/16)`` words a lane; a probe below is not read)."""
+    (COUNTS if counts is None else counts)["plain"] += 1
+    dev = s1b.device
+    B = s1b.shape[0]
+    ms = np.asarray(ms, np.int64)
+    ns = np.asarray(ns, np.int64)
+    M, N = int(ms.max()), int(ns.max())
+    i32 = dict(dtype=torch.int32, device=dev)
+    g, h = scores.g, scores.h
+    hg = h + g
+    st = scores.s_transition if kimura_active(scores) else None
+    enc1, enc2 = encode_chars(s1b, scores), encode_chars(s2b, scores)
+    s1c, s2in, delta, at0 = row_streams(enc1, enc2, M, N, V)
+    vpr = torch.from_numpy(probe_lanes(ms, ns, M, N, V)).to(dev)[:, None]
+    mpr = torch.from_numpy(ms).to(dev)[:, None]
+
+    lanes = torch.arange(V, **i32)[None, :]
+    lanes_g = lanes * g
+    neg_col = torch.full((B, 1), NEG_INF, **i32)
+    M_prev = (h + (lanes + 1) * g).expand(B, V).clone()
+    A_prev = M_prev + hg
+    s2w = window_init(enc2, V, scores)
+    fin = torch.full((B, V), INT_MIN, **i32)
+    R = M if rows is None else min(int(rows), M)
+    dirs = torch.zeros((B, -(-R // PACK), V), **i32)
+    acc = torch.zeros((B, V), **i32)
+    ends = set(ms.tolist())
+
+    for i in range(1, R + 1):
+        r = i - 1
+        if at0[r]:
+            fillM = 0 if i == 1 else h + (i - 1) * g
+            fillN = h + i * g + hg
+        else:
+            fillM = fillN = NEG_INF
+        if delta[r]:
+            Dn = torch.cat([A_prev[:, 1:], neg_col], 1)
+            M_al = M_prev
+            s2w = torch.cat([s2w[:, 1:], s2in[:, r : r + 1]], 1)
+        else:
+            Dn = A_prev
+            M_al = torch.cat([torch.full((B, 1), fillM, **i32), M_prev[:, :-1]], 1)
+        Sn = sub_score(s1c[:, r : r + 1], s2w, scores.s_match, scores.s_mismatch, st) + M_al
+        P = torch.maximum(Sn, Dn)
+        # I[v] = max_{u <= v} seed[u] + (v - u) g, exact in int32 (no sum
+        # here comes near the wrap)
+        seed = torch.cat([torch.full((B, 1), fillN, **i32), P[:, :-1] + hg], 1)
+        In = torch.cummax(seed - lanes_g, 1).values + lanes_g
+        cm = torch.maximum(In, P)
+        code = torch.where(cm == Sn, DIR_SUB, torch.where(
+            cm == In, DIR_INS, torch.where(cm == Dn, DIR_DEL, DIR_STOP))).to(torch.int32)
+        sp = r % PACK
+        acc = (code if sp == 0 else acc) | (code << (2 * sp))
+        if sp == PACK - 1 or i == R:
+            dirs[:, r // PACK] = acc
+        if i in ends:
+            fin = torch.where((i == mpr) & (lanes == vpr), cm, fin)
+        A_prev = torch.maximum(torch.maximum(In, Sn) + hg, Dn + g)
+        M_prev = cm
+    return fin.max(1).values, dirs
+
+
+def walk_banded(dirs, m: int, n: int, V: int, geom: tuple[int, int] | None = None,
+                max_steps: int | None = None) -> np.ndarray:
+    """Chase one pair's banded codes from ``(m, n)`` to the origin; returns
+    the move codes in walk order (uint8). ``geom`` overrides the window
+    geometry ``(M, N)`` (a batched fill plans one window for the batch;
+    the walk of a shorter pair starts at its own ``(m, n)``).
+    ``max_steps`` caps one kernel launch (a longer walk resumes). Raises
+    ``RuntimeError`` on a path that leaves the band or meets a stop
+    code."""
+    return walk_banded_batch(dirs[None], [m], [n], V, geom, max_steps)[0]
+
+
+def walk_banded_batch(dirs, ms, ns, V: int, geom: tuple[int, int] | None = None,
+                      max_steps: int | None = None) -> list[np.ndarray]:
+    """:func:`walk_banded` for ``B`` pairs' bitmaps ``dirs`` (B, KW, V)
+    under one window geometry (default: pair 0's own ``(m, n)``). A CUDA
+    bitmap launches K11 once for all walks (and again for walks that
+    filled ``max_steps``, default ``MAX_STEPS_CAP``); a CPU bitmap runs
+    :func:`walk_banded_plain` per walk."""
+    ms = np.asarray(ms, np.int64).reshape(-1)
+    ns = np.asarray(ns, np.int64).reshape(-1)
+    if dirs.dim() != 3 or dirs.shape[0] != ms.size or ns.shape != ms.shape:
+        raise ValueError("dirs must be (B, KW, V) with one (m, n) per pair")
+    if dirs.shape[2] != V:
+        raise ValueError(f"dirs have {dirs.shape[2]} lanes, not V={V}")
+    gM, gN = geom if geom is not None else (int(ms[0]), int(ns[0]))
+    if ms.max() > gM or ms.min() < 1:
+        raise ValueError(f"walks start in rows {ms.min()}..{ms.max()}, outside the "
+                         f"window's rows 1..{gM}")
+    if not _build.uses_kernel(dirs):
+        return [walk_banded_plain(dirs[b], int(ms[b]), int(ns[b]), V, (gM, gN))
+                for b in range(ms.size)]
+    cap = MAX_STEPS_CAP if max_steps is None else int(max_steps)
+    return _walk_banded_cuda(dirs, ms, ns, V, gM, gN, cap)
+
+
+def _oob(i: int, j: int) -> RuntimeError:
+    return RuntimeError(
+        f"banded traceback left the band or hit a stop code at ({i}, {j}) "
+        "— corrupt direction data"
+    )
+
+
+def _walk_banded_cuda(dirs, ms, ns, V, gM: int, gN: int, cap: int) -> list[np.ndarray]:
+    dev = dirs.device
+    _build.require(dirs, "dirs", torch.int32, dev)
+    if not 1 <= cap <= MAX_STEPS_CAP:
+        raise ValueError(f"max_steps must be in 1..{MAX_STEPS_CAP}")
+    B, KW, _ = dirs.shape
+    nw = -(-cap // MPW)
+    lib = _build.library()
+    off, deltas, _ = plan_streams(gM, gN, V)
+    deltas = deltas.astype(np.int32)
+    deltas_d = torch.from_numpy(deltas).to(dev)
+    # walk state: (i, j, off, koff) of every walk still running
+    state = np.stack([ms, ns, off[ms - 1], np.arange(B) * KW], 1)
+    live = np.arange(B)
+    chunks: list[list[np.ndarray]] = [[] for _ in range(B)]
+    while live.size:
+        W = live.size
+        starts = torch.from_numpy(state[live].astype(np.int32)).to(dev)
+        words = torch.empty((W, nw), dtype=torch.int32, device=dev)
+        meta = torch.empty((W, 6), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.walk_banded_launch(
+                _build.ptr(dirs), _build.ptr(deltas_d), _build.ptr(starts), _build.ptr(words),
+                _build.ptr(meta), W, KW, V, B * KW, int(deltas.size), nw, cap,
+                _build.stream_handle(dev),
+            )
+        _build.check(err, "walk_banded")
+        COUNTS["walk_kernel"] += 1
+        meta_h = meta.cpu().numpy().astype(np.int64)
+        bad = np.nonzero(meta_h[:, 5])[0]
+        if bad.size:
+            raise _oob(int(meta_h[bad[0], 1]), int(meta_h[bad[0], 2]))
+        # Every launch moves each live walk at least once, or flags it.
+        used = -(-int(meta_h[:, 0].max()) // MPW)
+        words_h = words[:, :used].cpu().numpy()
+        for k, b in enumerate(live):
+            chunks[b].append(unpack_moves(words_h[k], int(meta_h[k, 0])))
+        state[live, :3] = meta_h[:, 1:4]
+        live = live[meta_h[:, 4] == 0]
+    return [np.concatenate(c) for c in chunks]
+
+
+def walk_banded_plain(dirs, m: int, n: int, V: int,
+                      geom: tuple[int, int] | None = None) -> np.ndarray:
+    """The plain version of the banded walker: a host loop over one
+    pair's bitmap ``dirs`` (KW, V) from ``(m, n)``, in the window planned
+    from ``geom`` (default ``(m, n)``), tracking ``off`` by the rows'
+    deltas."""
+    COUNTS["walk_plain"] += 1
+    gM, gN = geom or (m, n)
+    offs, deltas, _ = plan_streams(gM, gN, V)
+    words = dirs.detach().to("cpu").numpy()
+    KW = words.shape[0]
+    i, j, off = int(m), int(n), int(offs[m - 1])
+    moves = []
+    while i > 0 or j > 0:
+        v = j - off - 1
+        if i == 0:
+            code = DIR_INS
+        elif j == 0:
+            code = DIR_DEL
+        else:
+            if not (0 <= v < V and ((i - 1) >> 4) < KW):
+                raise _oob(i, j)
+            code = (int(words[(i - 1) >> 4, v]) >> (2 * ((i - 1) & 15))) & 3
+            if code == DIR_STOP:
+                raise _oob(i, j)
+        moves.append(code)
+        if code != DIR_INS:
+            off -= int(deltas[i - 1])
+            i -= 1
+        if code != DIR_DEL:
+            j -= 1
+    return np.asarray(moves, np.uint8)

@@ -237,7 +237,8 @@ def test_cuda_request_without_cuda_is_an_error(monkeypatch):
 def test_port_does_not_import_jax():
     code = (
         "import sys, genomics_rs_tpu_torch.cli, genomics_rs_tpu_torch.models.aligner, "
-        "genomics_rs_tpu_torch.native, genomics_rs_tpu_torch.display.alignment; "
+        "genomics_rs_tpu_torch.native, genomics_rs_tpu_torch.display.alignment, "
+        "genomics_rs_tpu_torch.models.banded, genomics_rs_tpu_torch.ops.gotoh_banded_batch; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -288,7 +289,9 @@ def test_cli_align_stdout_matches_jax(tmp_path, capsys, monkeypatch, kind, score
     assert _after_banner(got) == _after_banner(want)
 
 
-@pytest.mark.parametrize("extra", [["--matrix", "BLOSUM62"], ["--band", "8"], ["--engine", "scan"]])
+@pytest.mark.parametrize(
+    "extra", [["--matrix", "BLOSUM62"], ["--matrix", "BLOSUM62", "--band", "8"], ["--engine", "scan"]]
+)
 def test_cli_unported_options_fail_clearly(tmp_path, capsys, extra):
     from genomics_rs_tpu_torch import cli
 

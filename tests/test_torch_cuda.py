@@ -3,8 +3,8 @@
 Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
-hold the kernels (K1–K4, K6, ``walk_rows16``) equal to the plain
-versions, bit for bit.
+hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12) equal to the
+plain versions, bit for bit.
 """
 
 import numpy as np
@@ -13,6 +13,9 @@ import torch
 
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, align_batch
+from genomics_rs_tpu_torch.models.banded import align_banded
+from genomics_rs_tpu_torch.ops import gotoh_banded as gb
+from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
@@ -229,3 +232,105 @@ def test_walk_batch_diag16_cuda_matches_plain(cuda, is_local):
     want = tb.walk_batch(fill.dirs.cpu(), *args)
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def _banded_batch(rng, ms, ns, Lm, Ln):
+    """Mutated copies: pair p is s1 of m_p bp and a 5%-mutated s2 of n_p."""
+    B = len(ms)
+    s1 = np.full((B, Lm), 0xFE, np.uint8)
+    s2 = np.full((B, Ln), PAD_S2, np.uint8)
+    for b in range(B):
+        base = BASES[rng.integers(0, 4, max(ms[b], ns[b]))]
+        s1[b, : ms[b]] = base[: ms[b]]
+        other = base[: ns[b]].copy()
+        flip = rng.random(ns[b]) < 0.05
+        other[flip] = BASES[rng.integers(0, 4, int(flip.sum()))]
+        s2[b, : ns[b]] = other
+    return torch.from_numpy(s1), torch.from_numpy(s2), np.array(ms), np.array(ns)
+
+
+def _band_codes(dirs, ms, ns, V, M, N):
+    """Codes at every true in-band cell of each pair, flattened."""
+    words = dirs.cpu().numpy().astype(np.int64)
+    out = []
+    for p in range(len(ms)):
+        i = np.arange(1, ms[p] + 1)
+        off = gb.band_offset(i, M, N, V)
+        for r in range(ms[p]):
+            v = np.arange(max(1, off[r] + 1), min(ns[p], off[r] + V) + 1) - off[r] - 1
+            out.append((words[p, r // 16, v] >> (2 * (r % 16))) & 3)
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("st", [None, -1])
+@pytest.mark.parametrize(
+    "ms,ns,V",
+    [([2500], [2400], 1024), ([1800], [1500], 2048), ([3000, 2990, 2950], [2980, 2900, 2940], 384),
+     ([700, 650], [690, 640], 2048), ([8600], [8400], 8192)],
+    ids=["K10-narrow", "K10-full", "K12-narrow", "K12-full", "K10-narrow-16-lanes"],
+)
+def test_banded_fill_kernel_matches_plain(cuda, st, ms, ns, V):
+    """K10 (one pair, V a multiple of 1024) and K12 (a batch): scores and
+    codes at every true in-band cell; 8 lanes a thread, and 16 at V =
+    8192."""
+    rng = np.random.default_rng(11)
+    s1, s2, ms, ns = _banded_batch(rng, ms, ns, max(ms), max(max(ns), V))
+    sc = Scores(2, -3, -2, -4, st)
+    want = gb.gotoh_banded_plain(s1, s2, ms, ns, sc, V)
+    got = gb.fill_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, V, {"kernel": 0})
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    M, N = int(max(ms)), int(max(ns))
+    assert np.array_equal(_band_codes(got[1], ms, ns, V, M, N), _band_codes(want[1], ms, ns, V, M, N))
+    if len(ms) == 1:
+        score, dirs = gb.gotoh_banded(s1[0].to(cuda), s2[0].to(cuda), M, N, sc, V)
+        assert score == int(want[0][0]) and torch.equal(dirs, got[1][0])
+    else:
+        groups = gbb.gotoh_banded_batch(s1.to(cuda), s2.to(cuda), ms, ns, sc, V)
+        assert torch.equal(torch.cat([g.score for g in groups]).cpu(), want[0])
+
+
+def test_banded_fill_wide_kernel_matches_plain(cuda):
+    """The wide form (more than 32,768 lanes, the row state in device
+    memory) on a band that slides, against the plain fill run on the
+    card."""
+    rng = np.random.default_rng(14)
+    V = 33_792
+    s1, s2, ms, ns = _banded_batch(rng, [V + 300], [V + 200], V + 300, V + 200)
+    sc = Scores(2, -3, -2, -4, -1)
+    want = gb.gotoh_banded_plain(s1.to(cuda), s2.to(cuda), ms, ns, sc, V)
+    score, dirs = gb.gotoh_banded(s1[0].to(cuda), s2[0].to(cuda), int(ms[0]), int(ns[0]), sc, V)
+    assert score == int(want[0][0])
+    M, N = int(ms[0]), int(ns[0])
+    assert np.array_equal(_band_codes(dirs[None], ms, ns, V, M, N),
+                          _band_codes(want[1], ms, ns, V, M, N))
+
+
+def test_banded_walk_kernel_matches_plain(cuda):
+    """K11 over a K12 batch in one launch (shared geometry), with a cap
+    that forces resumes, and the corrupt all-INS bitmap raising."""
+    rng = np.random.default_rng(12)
+    s1, s2, ms, ns = _banded_batch(rng, [2000, 1990, 1950, 2000], [1990, 1900, 1940, 1985],
+                                   2048, 2048)
+    sc = Scores()
+    want = gbb.banded_align_batch(s1, s2, ms, ns, sc, 256)
+    got = gbb.banded_align_batch(s1.to(cuda), s2.to(cuda), ms, ns, sc, 256)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert all(np.array_equal(g[1], w[1]) for g, w in zip(got, want))
+    groups = gbb.gotoh_banded_batch(s1.to(cuda), s2.to(cuda), ms, ns, sc, 256)
+    resumed = gb.walk_banded_batch(groups[0].dirs, ms, ns, 256, geom=(groups[0].M, groups[0].N),
+                                   max_steps=700)
+    assert all(np.array_equal(g, w[1]) for g, w in zip(resumed, want))
+    dirs = torch.full((18, 256), 0x55555555, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="left the band"):
+        gb.walk_banded(dirs.to(cuda), 280, 100, 256, geom=(300, 290))
+
+
+def test_align_banded_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(13)
+    a = "".join(rng.choice(list("ACGT"), 5000))
+    b = a[:1200] + a[1203:3000] + "ACG" + a[3000:4990]
+    sc = Scores()
+    want = align_banded(Sequence("a", a), Sequence("b", b), sc, band=1024, device="cpu")
+    got = align_banded(Sequence("a", a), Sequence("b", b), sc, band=1024, device="cuda")
+    assert (got.score, got.alignment) == (want.score, want.alignment)
