@@ -85,13 +85,38 @@ Phases, one line each:
      from its strings, runs end to end at a cost <= its score
  18  K10 / K11 / K12 times (median of 3, CUDA events) at 1 Mb and 29,903 bp,
      plain times and bounds, and the banded walls
+ 19  K15 (the query profile) kernel == its plain version, on the card: small
+     mixed batches under four matrices (BLOSUM62, asymmetric, |v| near 200,
+     no X; zero lengths, unknown bytes) and every entry of the 32,768 x 383
+     aa batch's profile
+ 20  the matrix fill (K13 and K14; one kernel) == its plain version: the
+     small batches global and local (zero lengths, B = 1, codes at every
+     true cell), 256 pairs of the 383 aa batch global and local with dirs,
+     and the ``dna_matrix`` bridge == K3 (classic/kimura, dirs)
+ 21  the protein path at real size (launch counters reset just before it),
+     BLOSUM62 at h = -11, g = -1: ``gotoh_scores_matrix`` on bench.py's
+     1,024 x 192-384 aa and 32,768 x 383 aa batches (global and local; 512
+     sampled scores and starts == the C++ LUT oracle), its pallas route on
+     1,024 pairs == the stream route, ``matrix_align_batch`` of 256 x 383
+     aa (3 pairs == ``PairwiseAligner(matrix=)``), the CLI ``align
+     --matrix``, ``align-matrix --matrix`` on 256 seeded proteins of
+     100-1,000 aa (TSV == the library's, a sample == the oracle) and with
+     ``--alignments-out`` on a 32-protein family, ``msa --matrix`` on
+     bench.py's 16 x 400 aa corpus and ``msa`` on 24 x 1.5 kb of DNA (rows
+     spell their sequences, the center is the argmax of the summed
+     scores); the profile kernel, both fill routes, K4, K2 and K3 launched,
+     no plain version; then the 256-pair group's walks, K4 == plain
+ 22  profile, fill and K4 times (median of 3, CUDA events), the one
+     PyTorch call that computes the profile (a (256, A) byte table indexed
+     by the batch), plain times, bounds, and the walls of phase 21's calls
 
 Bounds count interior DP cells (m x n per pair), band cells (rows x
-lanes) and, for a walk, the code words its path must read.
+lanes), for a walk the code words its path must read, and for the
+profile the bytes it reads and writes.
 
 The second-to-last line is a JSON summary of the kernels (K1–K4, K6,
-``walk_rows16`` and K10–K12, with each one's launches on its own path,
-bound and times); the last line is ``{"ok": true, "device": {...}}``.
+``walk_rows16``, K10–K12 and K13–K15, with each one's launches on its own
+path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1552,6 +1577,532 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     ]
 
 
+
+#: The protein path at the sizes of bench.py's protein rows (copied, not
+#: imported; one default_rng(17) stream in bench.py's order):
+#: protein_blosum_batch, 1,024 pairs of 192-384 aa padded to 384;
+#: protein_stream_batch, 32,768 pairs of 383 aa; protein_align_batch, its
+#: first 256 pairs; protein_msa, 16 point-mutated copies of a 400 aa base.
+#: BLOSUM62 at NCBI BLASTP's gap defaults (existence 11, extension 1).
+PROT_B, PROT_L = 1_024, 384
+PROT_STREAM_B, PROT_STREAM_L, PROT_ALIGN_B = 32_768, 383, 256
+PROT_MSA_N, PROT_MSA_L = 16, 400
+PROT_G, PROT_H = -1, -11
+#: the CLI's protein corpora: a directory of PROT_DIR_N seeded proteins of
+#: PROT_DIR_MIN..PROT_DIR_MAX aa (32,896 pairs i <= j) and a
+#: PROT_FAM_N-protein family (mutated copies of a PROT_FAM_L aa base,
+#: substitutions and indels); ``msa``'s DNA corpus, DNA_MSA_N copies of a
+#: DNA_MSA_L bp base.
+PROT_DIR_N, PROT_DIR_MIN, PROT_DIR_MAX = 256, 100, 1_000
+PROT_FAM_N, PROT_FAM_L = 32, 400
+DNA_MSA_N, DNA_MSA_L = 24, 1_500
+#: oracle checks of phase 21: sampled pairs per (batch, mode), 4 x 128.
+PROT_ORACLE_PER = 128
+#: integer ops per interior cell of the matrix recurrence
+#: (csrc/gotoh_stream_body.cuh under the profile substitution): I 3 (two
+#: adds, max), S 1 (add the profile value), Q 1, M 1, A 3 (two adds, max),
+#: P 1; local adds three zero floors and the argmax update (compare, three
+#: selects); dirs the code chain (three compares, three selects) and its
+#: packing (shift, or, flush test).
+OPS_PER_MATRIX_CELL = {"global": 10, "local": 17, "dirs": 9}
+
+
+def protein_bench_data() -> dict:
+    """bench.py's protein rows' data (bench.py:349-360, 394-399, 465-473,
+    497-505), drawn in its order from one default_rng(17)."""
+    prng = np.random.default_rng(17)
+    aa20 = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
+    pms = prng.integers(PROT_L // 2, PROT_L + 1, PROT_B).astype(np.int32)
+    pns = prng.integers(PROT_L // 2, PROT_L + 1, PROT_B).astype(np.int32)
+    p1 = np.full((PROT_B, PROT_L), 0xFE, np.uint8)
+    p2 = np.full((PROT_B, PROT_L), 0xFF, np.uint8)
+    for i in range(PROT_B):
+        p1[i, : pms[i]] = aa20[prng.integers(0, 20, pms[i])]
+        p2[i, : pns[i]] = aa20[prng.integers(0, 20, pns[i])]
+    shape = (PROT_STREAM_B, PROT_STREAM_L)
+    u1 = aa20[prng.integers(0, 20, shape)].astype(np.uint8)
+    u2 = aa20[prng.integers(0, 20, shape)].astype(np.uint8)
+    base = aa20[prng.integers(0, 20, PROT_MSA_L)]
+    msa = []
+    for k in range(PROT_MSA_N):
+        mut = base.copy()
+        for _ in range(20):
+            mut[prng.integers(0, PROT_MSA_L)] = aa20[prng.integers(0, 20)]
+        msa.append((f"prot{k}", bytes(mut).decode()))
+    return dict(p1=p1, p2=p2, pms=pms, pns=pns, u1=u1, u2=u2, msa=msa)
+
+
+def protein_family(rng, n: int, length: int) -> list[tuple[str, str]]:
+    """Mutated copies of one random protein: ~8% substitutions and 0-3
+    indels of 1-5 aa each."""
+    aa = list("ARNDCQEGHILKMFPSTWYV")
+    base = "".join(rng.choice(aa, length))
+    out = []
+    for k in range(n):
+        s = list(base)
+        for p in rng.integers(0, length, length // 12):
+            s[p] = str(rng.choice(aa))
+        for _ in range(int(rng.integers(0, 4))):
+            p = int(rng.integers(0, len(s) - 8))
+            if rng.random() < 0.5:
+                del s[p : p + int(rng.integers(1, 6))]
+            else:
+                s[p:p] = list(rng.choice(aa, int(rng.integers(1, 6))))
+        out.append((f"fam{k} len={len(s)}", "".join(s)))
+    return out
+
+
+def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
+    """Phases 19-22: the protein path (``--matrix``) and ``msa`` on the
+    query-profile kernel (K15) and the matrix fill (K13/K14). Returns their
+    rows of the summary line."""
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.display.alignment import format_aligned_sequences
+    from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, matrix_align_batch
+    from genomics_rs_tpu_torch.models.msa import center_star_msa, format_msa_clustal
+    from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
+    from genomics_rs_tpu_torch.ops import gotoh_matrix_stream as gms
+    from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
+    from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import subst
+    from genomics_rs_tpu_torch.ops import traceback_batch as tb
+    from genomics_rs_tpu_torch.ops import traceback_device as td
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.parallel.allpairs import allpairs_matrix_scores
+    from genomics_rs_tpu_torch.sequence import (
+        PAD_S1,
+        PAD_S2,
+        Sequence,
+        SequenceContainer,
+        round_up,
+    )
+
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    b62 = subst.blosum62()
+    psc = Scores(0, 0, PROT_G, PROT_H)
+    counted = (gm, gs, gsr, tw, td, tb)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+    def fill_err(got, want, ms, ns) -> int:
+        """Max |difference| of scores and start cells, and of the codes at
+        every true cell when both fills have dirs."""
+        errs = [int((g.long().cpu() - w.long().cpu()).abs().max()) if g.numel() else 0
+                for g, w in zip(got[:3], want[:3])]
+        if want.dirs is not None:
+            for p in range(len(ms)):
+                d = (codes_at(got.dirs[p], int(ms[p]), int(ns[p]))
+                     - codes_at(want.dirs[p].to(dev), int(ms[p]), int(ns[p])))
+                errs.append(int(d.abs().max()))
+        return max(errs)
+
+    def fill_both(s1, s2, ms, ns, mx, is_local, emit_dirs, g=PROT_G, h=PROT_H):
+        """The fill kernel and its plain version on the same inputs (the
+        plain fill on the card); returns (kernel, plain, plain ms)."""
+        code1 = gm.row_codes(s1, mx)
+        prof = gm.matrix_profile_plain(s2, ns, mx)
+        got = gm.matrix_fill(code1, prof, ms, ns, g, h, is_local, emit_dirs)
+        want, ms_plain = timed(lambda: gm.matrix_fill_plain(code1, prof, ms, ns, g, h,
+                                                            is_local, emit_dirs))
+        return got, want, ms_plain
+
+    def fields(a):
+        return (a.score, a.alignment, a.matches, a.mismatches, a.opening_gaps,
+                a.gap_extensions)
+
+    t_data = time.perf_counter()
+    data = protein_bench_data()
+    t_data = time.perf_counter() - t_data
+
+    # ---- phase 19: K15 (the query profile) kernel vs plain ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1919)
+    aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    mats = {"blosum62": b62,
+            "asymmetric": subst.SubstMatrix(aa.tobytes().decode(), rng.integers(-6, 9, (20, 20))),
+            "near200": subst.SubstMatrix(aa.tobytes().decode(), rng.integers(-200, 201, (20, 20))),
+            "no X": subst.dna_matrix(Scores(2, -3, -2, -4))}
+    small = {}
+    for kind, mx in mats.items():
+        letters = np.frombuffer(b"ACGT", np.uint8) if kind == "no X" else aa
+        ms = np.array([300, 0, 17, 250, 383])
+        ns = np.array([280, 40, 0, 260, 383])
+        s1 = letters[rng.integers(0, len(letters), (5, 384))].astype(np.uint8)
+        s2 = letters[rng.integers(0, len(letters), (5, 384))].astype(np.uint8)
+        s1[0, :4] = np.frombuffer(b"acUO", np.uint8)  # unknown bytes
+        s2[3, 5:8] = np.frombuffer(b"xu*", np.uint8)
+        small[kind] = (*on_card(s1, s2), ms, ns)
+    k15_err = 0
+    for kind, mx in mats.items():
+        _, s2, _, ns = small[kind]
+        got = gm.matrix_profile(s2, ns, mx)
+        err = int((got.int() - gm.matrix_profile_plain(s2, ns, mx).int()).abs().max())
+        k15_err = max(k15_err, err)
+        check(err == 0, f"K15 kernel != plain ({kind}): max |err| {err}")
+    u1, u2 = on_card(data["u1"], data["u2"])
+    uns = np.full(PROT_STREAM_B, PROT_STREAM_L)
+    prof_big = gm.matrix_profile(u2, uns, b62)
+    want, k15_plain_ms = timed(lambda: gm.matrix_profile_plain(u2, uns, b62))
+    err = int((prof_big != want).sum())
+    k15_err = max(k15_err, err)
+    check(err == 0, f"K15 kernel != plain on the {PROT_STREAM_B} x {PROT_STREAM_L} batch: "
+                    f"{err} entries differ")
+    del want
+    print(f"[phase 19] K15 (query profile) kernel == plain on {len(mats)} small mixed batches "
+          f"(BLOSUM62, asymmetric, |v| near 200, no X; zero lengths, unknown bytes) and on "
+          f"every entry of the {PROT_STREAM_B} x {PROT_STREAM_L} aa batch's profile "
+          f"({prof_big.numel() * 2 / 1e6:.0f} MB; plain {k15_plain_ms:.1f} ms); max |err| "
+          f"{k15_err} ({t_data:.1f} s to make the data, {time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # ---- phase 20: the matrix fill kernel vs plain ----
+    t_phase = time.perf_counter()
+    fill_errs, n_small = [0], 0
+    for kind, mx in mats.items():
+        s1, s2, ms, ns = small[kind]
+        for is_local in (False, True):
+            for sel in (slice(0, 4), slice(4, 5)):  # zero lengths; B = 1
+                got, want, _ = fill_both(s1[sel], s2[sel], ms[sel], ns[sel], mx, is_local, True)
+                err = fill_err(got, want, ms[sel], ns[sel])
+                fill_errs.append(err)
+                n_small += 1
+                check(err == 0, f"matrix fill kernel != plain ({kind}, local={is_local}, "
+                                f"B={len(ms[sel])}): max |err| {err}")
+    a1, a2 = u1[:PROT_ALIGN_B], u2[:PROT_ALIGN_B]
+    ams = np.full(PROT_ALIGN_B, PROT_STREAM_L)
+    plain_ms = {}
+    for is_local in (False, True):
+        got, want, plain_ms[is_local] = fill_both(a1, a2, ams, ams, b62, is_local, True)
+        err = fill_err(got, want, ams, ams)
+        fill_errs.append(err)
+        check(err == 0, f"matrix fill kernel != plain on {PROT_ALIGN_B} x {PROT_STREAM_L} aa "
+                        f"(local={is_local}, dirs): max |err| {err}")
+    _, _, plain_ms["scores"] = fill_both(a1, a2, ams, ams, b62, False, False)
+    del got, want
+    drng = np.random.default_rng(2020)
+    dbase = random_dna(drng, 900)
+    dpairs = [(dbase[:800], mutate(drng, dbase[50:850], 0.05, 3)), ("", dbase[:40]),
+              (dbase[:700], mutate(drng, dbase[:760], 0.05, 2))]
+    d1 = np.stack([Sequence("a", a).encoded(896, PAD_S1) for a, _ in dpairs])
+    d2 = np.stack([Sequence("b", b).encoded(896, PAD_S2) for _, b in dpairs])
+    dms = np.array([len(a) for a, _ in dpairs])
+    dns = np.array([len(b) for _, b in dpairs])
+    d1, d2 = on_card(d1, d2)
+    for is_local in (False, True):
+        for st in (None, -1):
+            sck = Scores(2, -3, -2, -4, st)
+            want = gs.gotoh_stream_fill(d1, d2, dms, dns, sck, is_local, emit_dirs=True)
+            got = gm.gotoh_matrix_fill(d1, d2, dms, dns, subst.dna_matrix(sck), sck.g, sck.h,
+                                       is_local, emit_dirs=True)
+            err = fill_err(got, want, dms, dns)
+            fill_errs.append(err)
+            check(err == 0, f"dna_matrix bridge != K3 (local={is_local}, st={st}): {err}")
+    fill_err_max = max(fill_errs)
+    print(f"[phase 20] matrix fill kernel == plain on {n_small} small fills ({len(mats)} "
+          f"matrices, global/local, zero lengths, B = 1, codes at every true cell) and on "
+          f"{PROT_ALIGN_B} x {PROT_STREAM_L} aa global and local with dirs (plain "
+          f"{plain_ms[False]:.0f} / {plain_ms[True]:.0f} ms); the dna_matrix bridge == K3 "
+          f"(classic/kimura, global/local, dirs); max |err| {fill_err_max} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 21: the protein path at real size ----
+    t_phase = time.perf_counter()
+    os.environ["LOG_LEVEL"] = "WARNING"
+    for mod in counted:
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    walls = {}
+    p1, p2 = on_card(data["p1"], data["p2"])
+    pms, pns = data["pms"], data["pns"]
+    results = {}
+    for is_local in (False, True):
+        t0 = time.perf_counter()
+        results["batch", is_local] = [x.cpu().numpy() for x in gm.gotoh_scores_matrix(
+            p1, p2, pms, pns, b62, PROT_G, PROT_H, is_local)]
+        walls[f"blosum_batch_{'local' if is_local else 'global'}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results["stream", is_local] = [x.cpu().numpy() for x in gm.gotoh_scores_matrix(
+            u1, u2, uns, uns, b62, PROT_G, PROT_H, is_local)]
+        walls[f"stream_batch_{'local' if is_local else 'global'}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = [x.cpu().numpy() for x in gm.gotoh_scores_matrix(
+        u1[:PROT_B], u2[:PROT_B], uns[:PROT_B], uns[:PROT_B], b62, PROT_G, PROT_H,
+        engine="pallas")]
+    walls["pallas_route"] = time.perf_counter() - t0
+    apairs = [(Sequence(f"a{i}", data["u1"][i].tobytes().decode()),
+               Sequence(f"b{i}", data["u2"][i].tobytes().decode())) for i in range(PROT_ALIGN_B)]
+    t0 = time.perf_counter()
+    alns = matrix_align_batch(apairs, b62, PROT_G, PROT_H)
+    walls["matrix_align_batch"] = time.perf_counter() - t0
+    three = [0, PROT_ALIGN_B // 2, PROT_ALIGN_B - 1]
+    one = PairwiseAligner(psc, device="cuda", matrix=b62)
+    t0 = time.perf_counter()
+    per_pair = [one.align(*apairs[t]) for t in three]
+    walls["aligner_3"] = time.perf_counter() - t0
+
+    crng = np.random.default_rng(2121)
+    lens = crng.integers(PROT_DIR_MIN, PROT_DIR_MAX + 1, PROT_DIR_N)
+    dir_prots = [(f"p{k} len={L}", "".join(crng.choice(list("ARNDCQEGHILKMFPSTWYV"), L)))
+                 for k, L in enumerate(lens)]
+    family = protein_family(crng, PROT_FAM_N, PROT_FAM_L)
+    dna_base = random_dna(crng, DNA_MSA_L)
+    dna_msa = [(f"d{k}", mutate(crng, dna_base, 0.03, 2)) for k in range(DNA_MSA_N)]
+    stdout = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "config.toml")
+        with open(cfg, "w") as f:
+            f.write(f"[scores]\ns_match = 2\ns_mismatch = -3\ng = {PROT_G}\nh = {PROT_H}\n")
+        pair_fa = os.path.join(tmp, "pair.fasta")
+        with open(pair_fa, "w") as f:
+            f.write(f">a0\n{apairs[0][0].sequence}\n>b0\n{apairs[0][1].sequence}\n")
+        pdir, fdir = os.path.join(tmp, "prots"), os.path.join(tmp, "family")
+        write_fasta_dir(pdir, dir_prots)
+        write_fasta_dir(fdir, family)
+        msa_fa, dna_fa = os.path.join(tmp, "msa.fasta"), os.path.join(tmp, "dna.fasta")
+        with open(msa_fa, "w") as f:
+            f.write("".join(f">{n}\n{s}\n" for n, s in data["msa"]))
+        with open(dna_fa, "w") as f:
+            f.write("".join(f">{n}\n{s}\n" for n, s in dna_msa))
+        runs = {
+            "align": ["align", "-a", "global", "-f", pair_fa, "--matrix", "BLOSUM62"],
+            "align-matrix": ["align-matrix", "-f", pdir, "--matrix", "BLOSUM62",
+                             "-o", os.path.join(tmp, "prots.tsv")],
+            "align-matrix --alignments-out": [
+                "align-matrix", "-f", fdir, "--matrix", "BLOSUM62",
+                "-o", os.path.join(tmp, "family.tsv"), "--alignments-out",
+                os.path.join(tmp, "family_aln")],
+            "msa --matrix": ["msa", "-f", msa_fa, "--matrix", "BLOSUM62"],
+            "msa": ["msa", "-f", dna_fa],
+        }
+        for name, argv in runs.items():
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["-c", cfg, *argv])
+            torch.cuda.synchronize()
+            walls[f"cli {name}"] = time.perf_counter() - t0
+            check(rc == 0, f"the CLI {name} exited {rc}")
+            stdout[name] = out.getvalue()
+        launches = {k: v for k, v in gm.COUNTS.items() if k.endswith("kernel")}
+        launches.update(walk_many=tw.COUNTS["many_kernel"], traceback_walk=tw.COUNTS["kernel"],
+                        gotoh_stream=gs.COUNTS["kernel"])
+        plain = (sum(v for k, v in gm.COUNTS.items() if k.endswith("plain"))
+                 + gs.COUNTS["plain"] + gsr.COUNTS["plain"] + tw.COUNTS["many_plain"]
+                 + td.COUNTS["plain"] + tb.COUNTS["plain"])
+        t_path = time.perf_counter() - t_phase
+        check(all(v > 0 for v in launches.values()) and plain == 0,
+              f"the protein path: launches {launches}, plain calls {plain}")
+
+        # What came out, held against the oracle and the library.
+        with open(os.path.join(tmp, "prots.tsv")) as f:
+            prow = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+        with open(os.path.join(tmp, "family.tsv")) as f:
+            frow = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+        fam_files = {n: open(os.path.join(tmp, "family_aln", n)).read()
+                     for n in os.listdir(os.path.join(tmp, "family_aln"))}
+        pseqs = load_fasta_dir(pdir).sequences  # the CLI's order (sorted file names)
+        fam = load_fasta_dir(fdir).sequences
+    lib = allpairs_matrix_scores(SequenceContainer(list(pseqs)), b62, PROT_G, PROT_H)
+    npairs = PROT_DIR_N * (PROT_DIR_N + 1) // 2
+    check(all(int(prow[j][1 + i]) == lib.matrix[j, i]
+              for j in range(PROT_DIR_N) for i in range(j + 1)),
+          "align-matrix --matrix TSV != allpairs_matrix_scores")
+    lut = b62.byte_lut()
+    samples = []
+    srng = np.random.default_rng(2222)
+    for key in (("batch", False), ("batch", True), ("stream", False), ("stream", True)):
+        B = PROT_B if key[0] == "batch" else PROT_STREAM_B
+        for t in srng.choice(B, PROT_ORACLE_PER, replace=False):
+            if key[0] == "batch":
+                a = data["p1"][t, : data["pms"][t]].tobytes().decode()
+                b = data["p2"][t, : data["pns"][t]].tobytes().decode()
+            else:
+                a, b = data["u1"][t].tobytes().decode(), data["u2"][t].tobytes().decode()
+            samples.append((key, int(t), a, b))
+    dir_samples = [(int(i), int(j)) for i, j in
+                   sorted(srng.choice(PROT_DIR_N, (8, 2)).tolist()) if i <= j]
+    with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(
+            lambda s: native.gotoh_score_cpu_subst(s[2], s[3], lut, PROT_G, PROT_H, s[0][1]),
+            samples))
+        dir_oracle = list(pool.map(
+            lambda ij: native.gotoh_score_cpu_subst(pseqs[ij[0]].sequence, pseqs[ij[1]].sequence,
+                                                    lut, PROT_G, PROT_H, False), dir_samples))
+    for (key, t, _, _), o in zip(samples, oracle):
+        got = tuple(int(x[t]) for x in results[key])
+        check(got == o, f"{key} pair {t}: port {got} != oracle {o}")
+    for (i, j), o in zip(dir_samples, dir_oracle):
+        check(int(prow[j][1 + i]) == o[0], f"align-matrix --matrix ({i}, {j}) != oracle {o}")
+    check(all(np.array_equal(a, b) for a, b in zip(seg, [x[:PROT_B] for x in
+                                                         results["stream", False]])),
+          "the pallas route != the stream route on the first 1,024 pairs")
+    for t, ref in zip(three, per_pair):
+        check(fields(alns[t]) == fields(ref),
+              f"matrix_align_batch pair {t} != PairwiseAligner(matrix=)")
+    check(stdout["align"].splitlines()[-6:]
+          == format_aligned_sequences(per_pair[0]).splitlines()[-6:],
+          "align --matrix's stats != the library's")
+    fam_lib = allpairs_matrix_scores(SequenceContainer(list(fam)), b62, PROT_G, PROT_H)
+    check(all(int(frow[j][1 + i]) == fam_lib.matrix[j, i]
+              for j in range(PROT_FAM_N) for i in range(j + 1)),
+          "the family's TSV != allpairs_matrix_scores")
+    check(len(fam_files) == PROT_FAM_N * (PROT_FAM_N - 1) // 2,
+          f"--alignments-out wrote {len(fam_files)} files")
+    for i, j in ((0, 1), (3, PROT_FAM_N // 2 + 1), (PROT_FAM_N - 2, PROT_FAM_N - 1)):
+        ref = one.align(fam[i], fam[j])
+        name, text = cli.pair_alignment_fasta(i, j, fam[i], fam[j], ref, False)
+        check(fam_files.get(name) == text, f"--alignments-out {name} != the per-pair aligner's")
+    msa_checks = []
+    for name, corpus, mx, sc_msa in (("msa --matrix", data["msa"], b62, psc),
+                                     ("msa", dna_msa, None, Scores(2, -3, PROT_G, PROT_H))):
+        res = center_star_msa(SequenceContainer([Sequence(n, s) for n, s in corpus]), sc_msa,
+                              matrix=mx)
+        check(all(r.replace("-", "") == s for r, (_, s) in zip(res.rows, corpus))
+              and len({len(r) for r in res.rows}) == 1,
+              f"{name}: a row does not spell its sequence")
+        full = res.score_matrix + res.score_matrix.T
+        np.fill_diagonal(full, 0)
+        check(res.center_index == int(np.argmax(full.sum(axis=1))),
+              f"{name}: the center is not the argmax of the summed scores")
+        check(format_msa_clustal(res) in stdout[name], f"{name}: the CLI's alignment != the library's")
+        msa_checks.append(f"{name}: {len(corpus)} rows of width {res.width}, center "
+                          f"{res.names[res.center_index]}")
+    print(f"[phase 21] protein path on cuda ({t_path:.1f} s): gotoh_scores_matrix on the "
+          f"{PROT_B} x {PROT_L // 2}-{PROT_L} aa batch ({walls['blosum_batch_global']:.3f} / "
+          f"{walls['blosum_batch_local']:.3f} s global / local) and the {PROT_STREAM_B} x "
+          f"{PROT_STREAM_L} aa batch ({walls['stream_batch_global']:.3f} / "
+          f"{walls['stream_batch_local']:.3f} s, grouped), {len(samples)} sampled scores and "
+          f"starts == C++ oracle; the pallas route on {PROT_B} pairs == the stream route "
+          f"({walls['pallas_route']:.3f} s); matrix_align_batch of {PROT_ALIGN_B} x "
+          f"{PROT_STREAM_L} aa ({walls['matrix_align_batch']:.3f} s), 3 pairs == "
+          f"PairwiseAligner(matrix=); CLI: align --matrix stats == the library's "
+          f"({walls['cli align']:.3f} s), align-matrix --matrix on {PROT_DIR_N} proteins of "
+          f"{lens.min()}-{lens.max()} aa ({npairs} pairs, {walls['cli align-matrix']:.3f} s): "
+          f"TSV == allpairs_matrix_scores, {len(dir_samples)} == oracle; --alignments-out on "
+          f"the {PROT_FAM_N}-protein family ({walls['cli align-matrix --alignments-out']:.3f} "
+          f"s): 3 files == per-pair aligner; {'; '.join(msa_checks)} (msa --matrix "
+          f"{walls['cli msa --matrix']:.3f} s, msa {walls['cli msa']:.3f} s); launches "
+          f"{launches}, plain calls {plain} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # Replay: the 256-pair alignment group's dirs fill, walked by K4 and by
+    # the plain walker on the same bitmap.
+    La = round_up(PROT_STREAM_L, 128)  # matrix_align_batch's padding and walk buffer
+    s1a = torch.from_numpy(np.stack([a.encoded(La, PAD_S1) for a, _ in apairs])).to(dev)
+    s2a = torch.from_numpy(np.stack([b.encoded(La, PAD_S2) for _, b in apairs])).to(dev)
+    res = gms.gotoh_matrix_stream_fill_dirs(s1a, s2a, ams, ams, b62, PROT_G, PROT_H)
+    max_steps = round_up(2 * La + 1, 1024)
+    flat = res.dirs.view(PROT_ALIGN_B * res.KW, -1)
+    wargs = (res.start_i, res.start_j, np.arange(PROT_ALIGN_B) * res.KW, res.KW, max_steps)
+    walked = tw.walk_many(flat, *wargs)
+    host = flat.cpu()
+    want, k4_plain_ms = timed(lambda: tw.walk_many_plain(host, *wargs))
+    check(all(np.array_equal(np.asarray(a, np.int64), np.asarray(b, np.int64))
+              for a, b in zip(walked, want)) and all(walked[4]),
+          "K4 != plain on the protein group's walks")
+    k4_moves = int(np.sum(walked[1]))
+
+    # ---- phase 22: times ----
+    t_phase = time.perf_counter()
+    code_u1 = gm.row_codes(u1, b62)
+    code_p1 = gm.row_codes(p1, b62)
+    prof_p = gm.matrix_profile(p2, pns, b62)
+    code_a1, prof_a = code_u1[:PROT_ALIGN_B], prof_big[:PROT_ALIGN_B]
+    k15_ms = cuda_ms(lambda: gm.matrix_profile(u2, uns, b62), 3)
+    k15_p_ms = cuda_ms(lambda: gm.matrix_profile(p2, pns, b62), 3)
+    # The one PyTorch call: a (256, A) byte -> profile-column table indexed by
+    # the batch's bytes (as int64; uint8 would index as a mask).
+    code_t, ext_t = gm._tables(b62, dev)
+    tab, u2_idx = ext_t[:, code_t].T.to(torch.int16).contiguous(), u2.long()
+    lib_ms = cuda_ms(lambda: tab[u2_idx], 3)
+    fill_ms = {}
+    for is_local in (False, True):
+        fill_ms["stream", is_local] = cuda_ms(lambda: gm.matrix_fill(
+            code_u1, prof_big, uns, uns, PROT_G, PROT_H, is_local, route="stream"), 3)
+        fill_ms["batch", is_local] = cuda_ms(lambda: gm.matrix_fill(
+            code_p1, prof_p, pms, pns, PROT_G, PROT_H, is_local), 3)
+    fill_ms["dirs"] = cuda_ms(lambda: gm.matrix_fill(
+        code_a1, prof_a, ams, ams, PROT_G, PROT_H, False, True, "stream"), 3)
+    k4_ms = cuda_ms(lambda: tw.walk_many(flat, *wargs), 3)
+    sub_ms = {}
+    for is_local in (False, True):
+        _, sub_ms[is_local] = timed(lambda: gm.matrix_fill_plain(
+            code_a1, prof_a, ams, ams, PROT_G, PROT_H, is_local))
+    c_stream = float(PROT_STREAM_B) * PROT_STREAM_L * PROT_STREAM_L
+    c_batch = float(np.sum(pms.astype(np.float64) * pns))
+    c_align = float(PROT_ALIGN_B) * PROT_STREAM_L * PROT_STREAM_L
+    A = prof_big.shape[1]
+    k15_bound = bound(float(PROT_STREAM_B) * PROT_STREAM_L * (1 + 2 * A), 0.0, rate)
+    k15_p_bound = bound(float(PROT_B) * PROT_L * (1 + 2 * A), 0.0, rate)
+
+    def fill_bound(B, Lm, Ln, cells, kind, dirs=False):
+        nbytes = B * Lm * 4 + B * A * Ln * 2 + 12 * B + (cells / 4 if dirs else 0)
+        ops = cells * (OPS_PER_MATRIX_CELL[kind] + (OPS_PER_MATRIX_CELL["dirs"] if dirs else 0))
+        return bound(nbytes, ops, rate)
+
+    b_stream = {k: fill_bound(PROT_STREAM_B, PROT_STREAM_L, PROT_STREAM_L, c_stream, k)
+                for k in ("global", "local")}
+    b_batch = {k: fill_bound(PROT_B, PROT_L, PROT_L, c_batch, k) for k in ("global", "local")}
+    b_dirs = fill_bound(PROT_ALIGN_B, PROT_STREAM_L, PROT_STREAM_L, c_align, "global", True)
+    k4_words = words_read(tb._unpack(walked[0], np.asarray(walked[1], np.int64), max_steps),
+                          walked[1], wargs[0], wargs[1], "diag16")
+    k4_bound = bound(4 * k4_words + k4_moves / 4 + 36 * PROT_ALIGN_B, OPS_PER_MOVE * k4_moves,
+                     rate)
+    rate_of = lambda cells, ts: cells / med(ts) * 1e3  # noqa: E731
+    print(f"[phase 22] card {card} | K15 profile {PROT_STREAM_B} x {PROT_STREAM_L} aa "
+          f"(A = {A}): [{fmt(k15_ms)}] ms (plain {k15_plain_ms:.3f} ms, table[s2] "
+          f"[{fmt(lib_ms)}] ms, bound {k15_bound[0]:.4f} ms by {k15_bound[1]}); {PROT_B} x "
+          f"{PROT_L}: [{fmt(k15_p_ms)}] ms (bound {k15_p_bound[0]:.4f} ms) | fill "
+          f"{PROT_STREAM_B} x {PROT_STREAM_L} aa ({c_stream:.4g} cells): global "
+          f"[{fmt(fill_ms['stream', False])}] ms = {rate_of(c_stream, fill_ms['stream', False]):.4g} "
+          f"cells/s (bound {b_stream['global'][0]:.3f} ms by {b_stream['global'][1]}), local "
+          f"[{fmt(fill_ms['stream', True])}] ms = {rate_of(c_stream, fill_ms['stream', True]):.4g} "
+          f"cells/s (bound {b_stream['local'][0]:.3f} ms) | fill {PROT_B} x {PROT_L // 2}-{PROT_L} aa "
+          f"({c_batch:.4g} cells): global [{fmt(fill_ms['batch', False])}] ms (bound "
+          f"{b_batch['global'][0]:.3f} ms), local [{fmt(fill_ms['batch', True])}] ms (bound "
+          f"{b_batch['local'][0]:.3f} ms) | fill with dirs {PROT_ALIGN_B} x {PROT_STREAM_L}: "
+          f"[{fmt(fill_ms['dirs'])}] ms (bound {b_dirs[0]:.4f} ms by {b_dirs[1]}) | plain fill "
+          f"on {PROT_ALIGN_B} pairs: scores global {sub_ms[False]:.1f} ms, local "
+          f"{sub_ms[True]:.1f} ms, with dirs {plain_ms[False]:.1f} ms | K4 {PROT_ALIGN_B} "
+          f"protein walks, {k4_moves} moves: [{fmt(k4_ms)}] ms (plain {k4_plain_ms:.1f} ms, "
+          f"bound {k4_bound[0]:.6f} ms by {k4_bound[1]}) | walls: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return [
+        {"name": "gotoh_matrix_pallas", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_matrix.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_matrix.py:502",
+         "launches": launches["pallas_kernel"], "max_abs_err": float(fill_err_max),
+         "ms": med(fill_ms["batch", False]), "plain_ms": float(sub_ms[False]),
+         "bound_ms": b_batch["global"][0], "bound_by": b_batch["global"][1],
+         "library_ms": None},
+        {"name": "gotoh_matrix_stream", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_matrix.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_matrix_stream.py:735",
+         "launches": launches["stream_kernel"], "max_abs_err": float(fill_err_max),
+         "ms": med(fill_ms["stream", False]), "plain_ms": float(sub_ms[False]),
+         "bound_ms": b_stream["global"][0], "bound_by": b_stream["global"][1],
+         "library_ms": None},
+        {"name": "matrix_profile", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_matrix.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_matrix_stream.py:559",
+         "launches": launches["profile_kernel"], "max_abs_err": float(k15_err),
+         "ms": med(k15_ms), "plain_ms": float(k15_plain_ms),
+         "bound_ms": k15_bound[0], "bound_by": k15_bound[1], "library_ms": med(lib_ms)},
+    ]
+
+
 def main() -> None:
     # ---- phase 0: the card ----
     card = card_line()
@@ -1939,6 +2490,7 @@ def main() -> None:
     rows += align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
     rows += read_phases(torch, dev, card, sc, cuda_ms, rate)
     rows += banded_phases(torch, dev, card, sc, cuda_ms, rate)
+    rows += protein_phases(torch, dev, card, cuda_ms, codes_at, rate)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ Ported so far: the ``align`` path (``models/aligner``,
 (``ops/traceback_walker``); and the ``align-matrix`` path
 (``parallel/allpairs``, ``parallel/batch``, ``models/aligner.align_batch``)
 with two more, the batched fill (``ops/gotoh_stream``) and the batched
-walker (``ops/traceback_walker.walk_many``).
+walker (``ops/traceback_walker.walk_many``); the read workloads
+(``models/reads``, ``models/mapper``, ``models/caller``); banded
+alignment (``models/banded``); protein alignment under a substitution
+matrix (``ops/gotoh_matrix``, ``ops/gotoh_matrix_stream``) and
+center-star MSA (``models/msa``).
 """
 
 __version__ = "0.1.0"

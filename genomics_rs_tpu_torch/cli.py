@@ -1,11 +1,13 @@
 """Command-line interface (counterpart of ``genomics_rs_tpu/cli.py``; the
-``align``, ``align-matrix``, ``reads``, ``map`` and ``call`` subcommands
-so far).
+``align``, ``align-matrix``, ``msa``, ``reads``, ``map`` and ``call``
+subcommands so far).
 
   align         --alignment-type {local,global,1,0} --fasta-path FILE
-                [--band N]
+                [--band N | --matrix NAME_OR_FILE]
   align-matrix  --fasta-dir DIR [--alignment-type global] [-o TSV]
-                [--alignments-out DIR]
+                [--alignments-out DIR] [--matrix NAME_OR_FILE]
+  msa           --fasta-path FILE_OR_DIR... [--matrix NAME_OR_FILE]
+                [--format {clustal,fasta}] [-o OUT]
   reads         -q READS -r REFS [-a local] [--align [--format {tsv,sam}]]
                 [--both-strands] [--engine ...] [-o OUT]
   map           -q READS [-2 MATES] -r REF [-k 21] [--band 32] [...]
@@ -59,7 +61,13 @@ def _build_parser() -> argparse.ArgumentParser:
         help="auto and pallas run the row-block fill; scan is "
         + NOT_PORTED,
     )
-    a.add_argument("--matrix", default=None, help="substitution matrix: " + NOT_PORTED)
+    a.add_argument(
+        "--matrix",
+        default=None,
+        help="full substitution matrix: a built-in name (BLOSUM62) or an "
+        "NCBI-format file; protein alignment, gap costs still from the "
+        "config's g/h",
+    )
     a.add_argument(
         "--band",
         type=int,
@@ -89,8 +97,48 @@ def _build_parser() -> argparse.ArgumentParser:
         help="also write every pair's full alignment (i < j) as a "
         "2-sequence gapped FASTA in this directory",
     )
-    am.add_argument("--matrix", default=None, help="substitution matrix: " + NOT_PORTED)
+    am.add_argument(
+        "--matrix",
+        default=None,
+        help="score under a full substitution matrix (BLOSUM62 or an "
+        "NCBI-format file): protein all-vs-all; gap costs still from the "
+        "config's g/h",
+    )
     _device_flag(am)
+
+    ms = sub.add_parser(
+        "msa",
+        help="multiple sequence alignment (center-star over the batched aligner)",
+    )
+    ms.add_argument(
+        "-f",
+        "--fasta-path",
+        required=True,
+        nargs="+",
+        help="FASTA file(s) or a directory of .fasta files; all sequences "
+        "found are aligned together",
+    )
+    ms.add_argument(
+        "--engine",
+        default="auto",
+        choices=["auto", "scan", "pallas"],
+        help="auto and pallas run the batched kernels; scan is " + NOT_PORTED,
+    )
+    ms.add_argument(
+        "--matrix",
+        default=None,
+        help="full substitution matrix (BLOSUM62 or an NCBI-format file): "
+        "protein MSA; gap costs from the config's g/h",
+    )
+    ms.add_argument("--format", choices=["clustal", "fasta"], default="clustal")
+    ms.add_argument(
+        "-o",
+        "--output",
+        default=None,
+        help="write the alignment here as well (format follows --format); "
+        "stdout always gets the clustal rendering",
+    )
+    _device_flag(ms)
     _reads_parsers(sub)
     return p
 
@@ -285,6 +333,17 @@ def main(argv: list[str] | None = None) -> int:
         from genomics_rs_tpu_torch.models.aligner import align_pair
         from genomics_rs_tpu_torch.utils.profiling import trace
 
+        matrix = None
+        if args.matrix:
+            from genomics_rs_tpu_torch.ops.subst import get_matrix
+
+            matrix = get_matrix(args.matrix)
+            log.info("Substitution matrix: %s (%d chars)", matrix.name or args.matrix,
+                     len(matrix.alphabet))
+            if args.band:
+                print("--matrix and --band are mutually exclusive", file=sys.stderr)
+                return 2
+
         if args.band:
             if is_local:
                 print(
@@ -302,22 +361,24 @@ def main(argv: list[str] | None = None) -> int:
                 aligned = align_banded(seqs[0], seqs[1], sc, band=args.band, device=device)
         else:
             with trace("align"):
-                aligned = align_pair(container, sc, is_local=is_local, device=device)
-        print_alignment_tables(aligned, sc, is_local)
+                aligned = align_pair(container, sc, is_local=is_local, device=device,
+                                     matrix=matrix)
+        print_alignment_tables(aligned, sc, is_local, matrix=matrix)
         print(format_aligned_sequences(aligned))
         return 0
 
     from genomics_rs_tpu_torch.utils.profiling import trace
 
-    modes = {"align-matrix": _align_matrix, "reads": _reads, "map": _map, "call": _call}
+    modes = {"align-matrix": _align_matrix, "msa": _msa, "reads": _reads, "map": _map,
+             "call": _call}
     with trace(args.mode):
         return modes[args.mode](args, config, device, log)
 
 
 def _unported_flags(args) -> list[str]:
     """The flags of this run whose engines are not ported yet."""
-    if args.mode in ("align", "align-matrix"):
-        used = (("--matrix", args.matrix), ("--engine scan", args.engine == "scan"))
+    if args.mode in ("align", "align-matrix", "msa"):
+        used = (("--engine scan", args.engine == "scan"),)
     elif args.mode == "reads":
         # --align runs align_reads, which takes any engine but scan as auto.
         unported = ("scan",) if args.align else ("segmented", "stream8", "pallas", "scan")
@@ -336,7 +397,17 @@ def _align_matrix(args, config, device, log) -> int:
     container = load_fasta_dir(args.fasta_dir)
     log.info("Number of sequences: %d", len(container.sequences))
     is_local = args.alignment_type in ("local", "1")
-    result = allpairs_scores(container, config.scores, is_local=is_local, device=device)
+    mx = None
+    if args.matrix:
+        from genomics_rs_tpu_torch.ops.subst import get_matrix
+        from genomics_rs_tpu_torch.parallel.allpairs import allpairs_matrix_scores
+
+        mx = get_matrix(args.matrix)
+        log.info("Substitution matrix: %s (%d chars)", mx.name or args.matrix, len(mx.alphabet))
+        result = allpairs_matrix_scores(container, mx, g=config.scores.g, h=config.scores.h,
+                                        is_local=is_local, device=device)
+    else:
+        result = allpairs_scores(container, config.scores, is_local=is_local, device=device)
     print(
         f"{len(result.names)} sequences, {result.cells:.3g} DP cells "
         f"in {result.elapsed_s:.2f}s ({result.cells_per_s:.3g} cells/s)"
@@ -345,7 +416,7 @@ def _align_matrix(args, config, device, log) -> int:
     print("Alignment score TSV:")
     print(tsv)
     if args.alignments_out:
-        from genomics_rs_tpu_torch.models.aligner import align_batch
+        from genomics_rs_tpu_torch.models.aligner import align_batch, matrix_align_batch
         from genomics_rs_tpu_torch.parallel.allpairs import bucketize_pairs
 
         os.makedirs(args.alignments_out, exist_ok=True)
@@ -357,16 +428,59 @@ def _align_matrix(args, config, device, log) -> int:
         alns: dict[tuple[int, int], object] = {}
         for key in sorted(groups):
             sub = [idx[k] for k in groups[key]]
-            res = align_batch(
-                [(seqs[i], seqs[j]) for i, j in sub], config.scores,
-                is_local=is_local, device=device,
-            )
+            batch = [(seqs[i], seqs[j]) for i, j in sub]
+            if mx is not None:
+                res = matrix_align_batch(batch, mx, g=config.scores.g, h=config.scores.h,
+                                         is_local=is_local, device=device)
+            else:
+                res = align_batch(batch, config.scores, is_local=is_local, device=device)
             alns.update(zip(sub, res))
         for i, j in idx:
             name, text = pair_alignment_fasta(i, j, seqs[i], seqs[j], alns[(i, j)], is_local)
             with open(os.path.join(args.alignments_out, name), "w") as f:
                 f.write(text)
         print(f"wrote {len(alns)} pair alignments to {args.alignments_out}")
+    return 0
+
+
+def _msa(args, config, device, log) -> int:
+    from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
+    from genomics_rs_tpu_torch.models.msa import (
+        center_star_msa,
+        format_msa_clustal,
+        write_msa_fasta,
+    )
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+
+    log.info("MODE: MSA (center-star multiple alignment)")
+    container = SequenceContainer()
+    for path in args.fasta_path:
+        if os.path.isdir(path):
+            container.sequences.extend(load_fasta_dir(path).sequences)
+        else:
+            container.from_fasta(path)
+    log.info("Number of sequences: %d", len(container.sequences))
+    if len(container.sequences) < 2:
+        log.error("msa needs at least two sequences")
+        return 1
+    msa_matrix = None
+    if args.matrix:
+        from genomics_rs_tpu_torch.ops.subst import get_matrix
+
+        msa_matrix = get_matrix(args.matrix)
+        log.info("Substitution matrix: %s (%d chars)", msa_matrix.name or args.matrix,
+                 len(msa_matrix.alphabet))
+    result = center_star_msa(container, config.scores, engine=args.engine, matrix=msa_matrix,
+                             device=device)
+    log.info("center: %s, alignment width %d", result.names[result.center_index], result.width)
+    print(format_msa_clustal(result))
+    if args.output:
+        if args.format == "fasta":
+            write_msa_fasta(result, args.output)
+        else:
+            with open(args.output, "w") as f:
+                f.write(format_msa_clustal(result) + "\n")
+        print(f"wrote {args.output}")
     return 0
 
 

@@ -138,16 +138,17 @@ def format_scores_table(table: np.ndarray) -> str:
 
 
 def print_alignment_tables(
-    a: AlignedSequences, scores: Scores, is_local: bool
+    a: AlignedSequences, scores: Scores, is_local: bool, matrix=None
 ) -> None:
-    """Full small-input diagnostics: path matrix + I/S/D score tables."""
+    """Full small-input diagnostics: path matrix + I/S/D score tables
+    (under ``matrix``, a ``SubstMatrix``, when given)."""
     from genomics_rs_tpu_torch.ops.gotoh_numpy import gotoh_tables_numpy
 
     vis = format_alignment_table(a)
     if vis is None:
         return
     print(vis)
-    I, S, D = gotoh_tables_numpy(a.s1.sequence, a.s2.sequence, scores, is_local)
+    I, S, D = gotoh_tables_numpy(a.s1.sequence, a.s2.sequence, scores, is_local, matrix=matrix)
     print("Delete Scores")
     print(format_scores_table(D))
     print("Insert Scores")

@@ -15,6 +15,12 @@ thread block per pair) and one batched walk (K4, through
 ``ops/traceback_batch.walk_batch``), in :func:`stream_walk_group`,
 which ``models/reads.align_reads`` shares for reads too wide for K6.
 
+Under a substitution matrix (``matrix=``, protein) both fill with the
+matrix fill (``ops/gotoh_matrix``: query profile, then K3's body):
+``PairwiseAligner`` one pair with dirs, walked by K2, with no
+checkpointed route (as in the JAX package); :func:`matrix_align_batch`
+one fill with dirs per group and one K4 walk.
+
 Sequences are padded to multiples of ``PAD_MULTIPLE``, as in the JAX
 package, so both packages fill tables of the same shape.
 """
@@ -28,10 +34,13 @@ import torch
 
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
+from genomics_rs_tpu_torch.ops.gotoh_matrix import gotoh_matrix_fill
+from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import gotoh_matrix_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock
 from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
+from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
 from genomics_rs_tpu_torch.ops.traceback_batch import NO_MOVE, walk_batch
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
@@ -56,8 +65,15 @@ def _encode(seq: Sequence, pad_to: int, pad_value: int, device) -> torch.Tensor:
 
 
 def _fill(s1e, s2e, m: int, n: int, scores: Scores, is_local: bool,
-          emit_dirs: bool = True) -> FillResult:
-    """The whole (m+1) x (n+1) table as one row block."""
+          emit_dirs: bool = True, matrix=None) -> FillResult:
+    """The whole (m+1) x (n+1) table: one row block, or under ``matrix``
+    one matrix fill at B = 1."""
+    if matrix is not None:
+        f = gotoh_matrix_fill(s1e[None], s2e[None], [m], [n], matrix, scores.g, scores.h,
+                              is_local, emit_dirs, route="stream")
+        score, si, sj = torch.stack([f.score[0], f.start_i[0], f.start_j[0]]).tolist()
+        return FillResult(dirs=None if f.dirs is None else f.dirs[0], score=score,
+                          start_i=si, start_j=sj)
     res = gotoh_rowblock(
         s1e, s2e,
         global_boundary_top(0, s2e.shape[0], scores, device=s2e.device),
@@ -81,6 +97,10 @@ class PairwiseAligner:
       is_local: local vs global alignment.
       device: ``"cuda"`` runs the CUDA kernels (an error when CUDA is
         absent), ``"cpu"`` their plain PyTorch versions.
+      matrix: optional full substitution matrix (``ops/subst.SubstMatrix``,
+        e.g. ``get_matrix("BLOSUM62")``) for protein alignment; gap costs
+        still come from ``scores.g``/``scores.h``. Mutually exclusive with
+        ``s_transition``.
     """
 
     #: Largest monolithic PACKED direction bitmap (bytes) before routing
@@ -89,10 +109,13 @@ class PairwiseAligner:
     #: Above this many rows, scores come from rolling row blocks.
     SCORE_ROWS_LIMIT = 131072
 
-    def __init__(self, scores: Scores, is_local: bool = False, device="cuda"):
+    def __init__(self, scores: Scores, is_local: bool = False, device="cuda", matrix=None):
         self.scores = scores
         self.is_local = is_local
         self.device = resolve_device(device)
+        self.matrix = matrix
+        if matrix is not None and scores.s_transition is not None:
+            raise ValueError("matrix and scores.s_transition are mutually exclusive")
 
     def align(self, seq1: Sequence, seq2: Sequence) -> AlignedSequences:
         m, n = len(seq1), len(seq2)
@@ -102,7 +125,7 @@ class PairwiseAligner:
         # The monolithic packed bitmap is (Lm+Ln+1) x roundup(Lm+1, 1024)
         # / 4 bytes; past the budget the checkpointed path bounds it.
         est_dirs = (Lm + Ln + 1) * (round_up(Lm + 1, 1024)) // 4
-        if est_dirs > self.DIRS_BYTE_BUDGET:
+        if self.matrix is None and est_dirs > self.DIRS_BYTE_BUDGET:
             from genomics_rs_tpu_torch.models.longalign import align_checkpointed
 
             block_rows = min(65535, max(round_up(m + 1, 1024) - 1, 1023))
@@ -118,11 +141,16 @@ class PairwiseAligner:
 
         s1e = _encode(seq1, Lm, PAD_S1, self.device)
         s2e = _encode(seq2, Ln, PAD_S2, self.device)
+        if self.matrix is not None:
+            warn_unknown_bytes(
+                self.matrix, np.concatenate([seq1.encoded()[:m], seq2.encoded()[:n]]),
+                where="align",
+            )
         timer = PhaseTimer("align", device=self.device)
         with spinner(
             "Computing sequence table...", "Sequence table computed"
         ), timer.span("fill table", cells=(m + 1.0) * (n + 1.0)):
-            res = _fill(s1e, s2e, m, n, self.scores, self.is_local)
+            res = _fill(s1e, s2e, m, n, self.scores, self.is_local, matrix=self.matrix)
         with spinner(
             "Retracing optimal alignment...", "Retrace complete"
         ), timer.span("retrace"):
@@ -145,7 +173,7 @@ class PairwiseAligner:
     def score_only(self, seq1: Sequence, seq2: Sequence) -> int:
         """Alignment score without traceback (no direction bitmap)."""
         m, n = len(seq1), len(seq2)
-        if m > self.SCORE_ROWS_LIMIT:
+        if self.matrix is None and m > self.SCORE_ROWS_LIMIT:
             from genomics_rs_tpu_torch.models.longalign import score_long
 
             return int(
@@ -159,7 +187,7 @@ class PairwiseAligner:
         res = _fill(
             _encode(seq1, Lm, PAD_S1, self.device),
             _encode(seq2, Ln, PAD_S2, self.device),
-            m, n, self.scores, self.is_local, emit_dirs=False,
+            m, n, self.scores, self.is_local, emit_dirs=False, matrix=self.matrix,
         )
         return int(res.score)
 
@@ -193,17 +221,23 @@ def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
         s2b = np.stack([b.encoded(pad_to=Ln, pad_value=PAD_S2) for _, b in chunk])
         ms = np.array([len(a) for a, _ in chunk], np.int32)
         ns = np.array([len(b) for _, b in chunk], np.int32)
-        moves, counts, i_f, j_f, done, scv, sci, scj = stream_walk_group(
-            s1b, s2b, ms, ns, scores, is_local, max_steps, aligner.device
-        )
-        ok = done if is_local else done & (i_f == 0) & (j_f == 0)
-        if not ok.all():
-            t = int(np.flatnonzero(~ok)[0])
-            raise RuntimeError(f"batched retrace left the table at ({i_f[t]}, {j_f[t]})")
-        for t, (a, b) in enumerate(chunk):
-            out.append(classify_moves(moves[t, : counts[t]], int(sci[t]), int(scj[t]),
-                                      int(scv[t]), a, b))
+        walked = stream_walk_group(s1b, s2b, ms, ns, scores, is_local, max_steps,
+                                   aligner.device)
+        out += _classify_group(chunk, walked, is_local, "batched")
     return out
+
+
+def _classify_group(chunk, walked, is_local: bool, what: str) -> list[AlignedSequences]:
+    """The alignments of a walked group (``walked`` as
+    :func:`stream_walk_group` returns it), after checking that every
+    walk ended (at (0, 0) for a global fill)."""
+    moves, counts, i_f, j_f, done, scv, sci, scj = walked
+    ok = done if is_local else done & (i_f == 0) & (j_f == 0)
+    if not ok.all():
+        t = int(np.flatnonzero(~ok)[0])
+        raise RuntimeError(f"{what} retrace left the table at ({i_f[t]}, {j_f[t]})")
+    return [classify_moves(moves[t, : counts[t]], int(sci[t]), int(scj[t]), int(scv[t]), a, b)
+            for t, (a, b) in enumerate(chunk)]
 
 
 #: device bytes of K3 bitmaps and walk buffers one group (of
@@ -238,12 +272,18 @@ def stream_walk_group(s1b: np.ndarray, s2b: np.ndarray, ms: np.ndarray,
         torch.from_numpy(np.ascontiguousarray(s2b)).to(device),
         ms, ns, scores, is_local=is_local,
     )
+    return walk_dirs(stream, scores, is_local, max_steps)
+
+
+def walk_dirs(stream, scores: Scores, is_local: bool, max_steps: int):
+    """Every pair's walk over a batched fill's per-pair bitmaps
+    (``StreamDirsResult``), returned as :func:`stream_walk_group` does."""
     sci, scj, scv = (np.asarray(x, np.int64)
                      for x in (stream.start_i, stream.start_j, stream.score))
     if max_steps <= MAX_STEPS_CAP:
         walked = walk_batch(stream.dirs, sci, scj, scores, is_local, "diag16", max_steps)
     else:
-        B = len(ms)
+        B = len(sci)
         moves = np.full((B, max_steps), NO_MOVE, np.uint8)
         ends = np.zeros((4, B), np.int64)
         for t in range(B):
@@ -255,15 +295,58 @@ def stream_walk_group(s1b: np.ndarray, s2b: np.ndarray, ms: np.ndarray,
     return walked + (scv, sci, scj)
 
 
+def matrix_align_batch(pairs: list[tuple[Sequence, Sequence]], matrix, g: int, h: int,
+                       is_local: bool = False, device="cuda") -> list[AlignedSequences]:
+    """Full alignments (path + stats) for a batch of pairs under a full
+    substitution matrix, the protein counterpart of :func:`align_batch`,
+    equal to ``PairwiseAligner(matrix=matrix).align`` pair by pair.
+
+    Groups of :func:`_stream_group_pairs` pairs, each one matrix fill
+    with dirs (``ops/gotoh_matrix_stream.gotoh_matrix_stream_fill_dirs``)
+    and one K4 walk (``walk_batch(..., "diag16")``), then host
+    classification. As in the JAX package, a path longer than the walk
+    buffer (``Lm + Ln + 1 > MAX_STEPS_CAP``) or a group the stream entry
+    refuses (a zero length, ``|v| > 127``) goes to the per-pair aligner.
+    """
+    aligner = PairwiseAligner(Scores(0, 0, g, h), is_local=is_local, device=device,
+                              matrix=matrix)
+    if not pairs:
+        return []
+    Lm = max(round_up(max(len(a) for a, _ in pairs), PAD_MULTIPLE), PAD_MULTIPLE)
+    Ln = max(round_up(max(len(b) for _, b in pairs), PAD_MULTIPLE), PAD_MULTIPLE)
+    if Lm + Ln + 1 > MAX_STEPS_CAP:
+        return [aligner.align(a, b) for a, b in pairs]
+    max_steps = min(round_up(Lm + Ln + 1, 1024), MAX_STEPS_CAP)
+    group = max(_stream_group_pairs(Lm, Ln, max_steps), 1)
+    out: list[AlignedSequences] = []
+    for g0 in range(0, len(pairs), group):
+        chunk = pairs[g0 : g0 + group]
+        s1b = np.stack([a.encoded(pad_to=Lm, pad_value=PAD_S1) for a, _ in chunk])
+        s2b = np.stack([b.encoded(pad_to=Ln, pad_value=PAD_S2) for _, b in chunk])
+        ms = np.array([len(a) for a, _ in chunk], np.int32)
+        ns = np.array([len(b) for _, b in chunk], np.int32)
+        res = gotoh_matrix_stream_fill_dirs(
+            torch.from_numpy(s1b).to(aligner.device), torch.from_numpy(s2b).to(aligner.device),
+            ms, ns, matrix, g, h, is_local=is_local,
+        )
+        if res is None:
+            out += [aligner.align(a, b) for a, b in chunk]
+            continue
+        walked = walk_dirs(res, aligner.scores, is_local, max_steps)
+        out += _classify_group(chunk, walked, is_local, "matrix batched")
+    return out
+
+
 def align_pair(
     container: SequenceContainer,
     scores: Scores,
     is_local: bool = False,
     device="cuda",
+    matrix=None,
 ) -> AlignedSequences:
     """Align the first two sequences of a container (the reference's
     Align mode: it warns and uses only the first two)."""
     if len(container.sequences) > 2:
         log.warning("More than two sequences found. Only the first two will be used.")
-    aligner = PairwiseAligner(scores, is_local=is_local, device=device)
+    aligner = PairwiseAligner(scores, is_local=is_local, device=device, matrix=matrix)
     return aligner.align(container.sequences[0], container.sequences[1])

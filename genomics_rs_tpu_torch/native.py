@@ -1,5 +1,6 @@
-"""ctypes binding of the repository's C++ score oracle,
-``gotoh_score_cpu`` in ``native/gotoh_cpu.cpp``.
+"""ctypes binding of the repository's C++ score oracles,
+``gotoh_score_cpu`` and ``gotoh_score_cpu_subst`` (a (256, 256) byte-pair
+score table: protein matrices) in ``native/gotoh_cpu.cpp``.
 
 An independent reference-equivalent CPU fill (int64, row-major, linear
 memory): the check for pair sizes no Python oracle reaches. It is
@@ -61,6 +62,8 @@ def library() -> ctypes.CDLL:
         lib.gotoh_score_cpu.argtypes = [vp, i64, vp, i64, i64, i64, i64, i64,
                                         ctypes.c_int, vp]
         lib.gotoh_score_cpu.restype = ctypes.c_int
+        lib.gotoh_score_cpu_subst.argtypes = [vp, i64, vp, i64, vp, i64, i64, ctypes.c_int, vp]
+        lib.gotoh_score_cpu_subst.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -80,4 +83,24 @@ def gotoh_score_cpu(s1: str, s2: str, scores, is_local: bool) -> tuple[int, int,
     )
     if rc != 0:
         raise RuntimeError(f"gotoh_score_cpu returned {rc}")
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def gotoh_score_cpu_subst(s1: str, s2: str, lut256, g: int, h: int,
+                          is_local: bool) -> tuple[int, int, int]:
+    """(score, start_i, start_j) with ``sub(a, b) = lut256[a, b]``, e.g.
+    ``SubstMatrix.byte_lut()``."""
+    lib = library()
+    lut = np.ascontiguousarray(lut256, dtype=np.int32)
+    if lut.shape != (256, 256):
+        raise ValueError(f"lut256 must be (256, 256), got {lut.shape}")
+    a = np.frombuffer(s1.encode("latin-1"), np.uint8).copy()
+    b = np.frombuffer(s2.encode("latin-1"), np.uint8).copy()
+    out = np.zeros(3, np.int64)
+    rc = lib.gotoh_score_cpu_subst(
+        a.ctypes.data, len(a), b.ctypes.data, len(b), lut.ctypes.data,
+        g, h, int(is_local), out.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError(f"gotoh_score_cpu_subst returned {rc}")
     return int(out[0]), int(out[1]), int(out[2])

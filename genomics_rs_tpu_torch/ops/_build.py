@@ -134,6 +134,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_banded_launch.restype = i
     lib.walk_banded_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.walk_banded_launch.restype = i
+    lib.matrix_profile_launch.argtypes = [vp] * 5 + [i] * 3 + [vp]
+    lib.matrix_profile_launch.restype = i
+    lib.gotoh_matrix_launch.argtypes = [vp] * 7 + [i] * 10 + [vp]
+    lib.gotoh_matrix_launch.restype = i
 
 
 def uses_kernel(t: torch.Tensor) -> bool:

@@ -1,0 +1,304 @@
+"""Protein (substitution-matrix) Gotoh fill: the query profile and the
+matrix fill (counterpart of ``genomics_rs_tpu/ops/gotoh_matrix.py``).
+
+A full matrix (BLOSUM62 and the like) scores a cell by an arbitrary
+``M[a, b]`` lookup, so the JAX package builds each pair's substitution
+plane with exact bf16 one-hot matmuls and shears it diagonal-major for
+its TPU kernels (K13 ``_matrix_seg_call``; K14 and K15 in
+``gotoh_matrix_stream``). The port needs neither the matmul nor the
+shear:
+
+* :func:`matrix_profile` (K15's counterpart, ``csrc/gotoh_matrix.cu``):
+  the query profile ``prof[p, a, j] = ext[a, code(s2[p, j])]``, int16
+  (B, A, Ln), 0 past ``n_p``; ``ext`` is the matrix extended with an
+  unknown-byte row and column at its minimum when the alphabet has no
+  ``X`` (:func:`_ext_matrix`), ``code`` the byte -> alphabet index map
+  (:func:`_alpha_code`). Row ``a`` is s1's character, column s2's.
+* :func:`matrix_fill` (K13's and K14's counterpart, one kernel): K3's
+  fill (``ops/gotoh_stream``) with ``s(i, j) = prof[p, code(s1[i-1]),
+  j-1]``; same outputs, same per-pair ``(B, KW, V)`` dirs.
+
+A CUDA tensor launches the kernels, a CPU tensor runs
+:func:`matrix_profile_plain` and :func:`matrix_fill_plain`. Launches are
+counted by route: ``"pallas"`` (K13's contract, scores and starts) and
+``"stream"`` (K14's: the ``gotoh_matrix_stream`` entries, dirs, the
+aligners).
+
+:func:`gotoh_scores_matrix` keeps the JAX router's engines: ``"auto"``,
+``"pallas"`` and ``"stream"`` all run the matrix fill; ``"scan"`` is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomics_rs_tpu_torch.device import resolve_device
+from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops.gotoh_stream import StreamFill, _lengths, dirs_shape, wavefront_plain
+from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
+from genomics_rs_tpu_torch.sequence import round_up
+
+#: launches of the two kernels and calls of their plain versions, the
+#: fill's by route.
+COUNTS = {"profile_kernel": 0, "profile_plain": 0, "pallas_kernel": 0, "pallas_plain": 0,
+          "stream_kernel": 0, "stream_plain": 0}
+
+#: batches at least this large take the ``"stream"`` route under
+#: ``engine="auto"`` (the JAX router's bound)...
+STREAM_MIN_B = 8
+#: ...and at least this large its grouped form.
+STREAM_GROUPED_MIN_B = 2048
+
+NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
+
+
+def _alpha_code(matrix) -> np.ndarray:
+    """(256,) int32: byte -> alphabet index; unknown bytes -> the
+    wildcard index (``X``) when present, else the extra row that
+    :func:`_ext_matrix` scores at the matrix minimum."""
+    A = len(matrix.alphabet)
+    fallback = matrix.alphabet.index("X") if "X" in matrix.alphabet else A
+    idx = np.full(256, fallback, dtype=np.int32)
+    for i, ch in enumerate(matrix.alphabet):
+        idx[ord(ch)] = i
+    return idx
+
+
+def _ext_matrix(matrix) -> np.ndarray:
+    """The matrix, extended with the unknown-byte row and column (at the
+    matrix minimum) when the alphabet has no ``X``."""
+    A = len(matrix.alphabet)
+    if "X" in matrix.alphabet:
+        return np.asarray(matrix.matrix, dtype=np.int32)
+    ext = np.full((A + 1, A + 1), int(matrix.matrix.min()), dtype=np.int32)
+    ext[:A, :A] = matrix.matrix
+    return ext
+
+
+def _alpha_bytes(matrix):
+    """(alphabet byte values (A0,) uint8, fallback index, ext dim A)."""
+    A0 = len(matrix.alphabet)
+    fallback = matrix.alphabet.index("X") if "X" in matrix.alphabet else A0
+    ab = np.frombuffer(matrix.alphabet.encode("latin-1"), dtype=np.uint8).copy()
+    return ab, fallback, A0 if "X" in matrix.alphabet else A0 + 1
+
+
+def _tables(matrix, dev):
+    """(code (256,) int32, ext (A, A) int32) on ``dev``."""
+    return (torch.as_tensor(_alpha_code(matrix)).to(dev),
+            torch.as_tensor(_ext_matrix(matrix)).to(dev))
+
+
+def _col_lengths(ns, B: int, Ln: int) -> np.ndarray:
+    """The s2 lengths as int64 numpy, checked against (B,) and 0..Ln."""
+    return _lengths(np.zeros(B, np.int64), ns, B, 0, Ln)[1]
+
+
+def matrix_profile(s2eb: torch.Tensor, ns, matrix) -> torch.Tensor:
+    """The query profile of a batch's s2 rows: int16 (B, A, Ln),
+    ``prof[p, a, j] = ext[a, code(s2[p, j])]`` for ``j < n_p``, else 0.
+    The device of ``s2eb`` picks the route."""
+    if _build.uses_kernel(s2eb):
+        return _profile_cuda(s2eb, ns, matrix)
+    return matrix_profile_plain(s2eb, ns, matrix)
+
+
+def matrix_profile_plain(s2eb: torch.Tensor, ns, matrix) -> torch.Tensor:
+    """The plain version: one index op, ``ext[:, code[s2]]``, then the
+    zeros past each ``n_p``."""
+    COUNTS["profile_plain"] += 1
+    dev = s2eb.device
+    B, Ln = s2eb.shape
+    ns_h = _col_lengths(ns, B, Ln)
+    code, ext = _tables(matrix, dev)
+    prof = ext[:, code[s2eb.long()]].permute(1, 0, 2)  # (B, A, Ln)
+    live = torch.arange(Ln, device=dev)[None, :] < torch.as_tensor(ns_h).to(dev)[:, None]
+    return torch.where(live[:, None, :], prof, 0).to(torch.int16).contiguous()
+
+
+def _profile_cuda(s2eb, ns, matrix) -> torch.Tensor:
+    dev = s2eb.device
+    if dev.type != "cuda":
+        raise ValueError(f"the profile kernel takes CUDA tensors, not {dev}")
+    B, Ln = s2eb.shape
+    _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
+    ns_h = _col_lengths(ns, B, Ln)
+    code, ext = _tables(matrix, dev)
+    A = ext.shape[0]
+    prof = torch.empty((B, A, Ln), dtype=torch.int16, device=dev)
+    if B == 0 or Ln == 0:
+        return prof.zero_()
+    ns_d = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.matrix_profile_launch(
+            _build.ptr(s2eb), _build.ptr(ns_d), _build.ptr(code), _build.ptr(ext),
+            _build.ptr(prof), B, Ln, A, _build.stream_handle(dev),
+        )
+    _build.check(err, "matrix_profile")
+    COUNTS["profile_kernel"] += 1
+    return prof
+
+
+def row_codes(s1eb: torch.Tensor, matrix) -> torch.Tensor:
+    """(B, Lm) int32 alphabet code of every s1 byte (one index op)."""
+    code, _ = _tables(matrix, s1eb.device)
+    return code[s1eb.long()]
+
+
+def matrix_fill(code1: torch.Tensor, prof: torch.Tensor, ms, ns, g: int, h: int,
+                is_local: bool = False, emit_dirs: bool = False,
+                route: str = "pallas") -> StreamFill:
+    """Fill every pair from its row codes (B, Lm) and query profile
+    (B, A, Ln). The device of ``code1`` picks the kernel or the plain
+    version; ``route`` ("pallas" or "stream") names the JAX contract the
+    call serves, for the launch counts."""
+    if route not in ("pallas", "stream"):
+        raise ValueError(f"unknown route {route!r}")
+    fn = _matrix_cuda if _build.uses_kernel(code1) else matrix_fill_plain
+    return fn(code1, prof, ms, ns, g, h, is_local, emit_dirs, route)
+
+
+def gotoh_matrix_fill(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix, g: int,
+                      h: int, is_local: bool = False, emit_dirs: bool = False,
+                      route: str = "pallas") -> StreamFill:
+    """Profile (K15's counterpart) and fill (K13's/K14's) of a padded
+    uint8 batch ``s1eb`` (B, Lm), ``s2eb`` (B, Ln) with true lengths
+    ``ms``/``ns``."""
+    prof = matrix_profile(s2eb, ns, matrix)
+    return matrix_fill(row_codes(s1eb, matrix), prof, ms, ns, g, h, is_local, emit_dirs, route)
+
+
+def _matrix_cuda(code1, prof, ms, ns, g, h, is_local, emit_dirs, route) -> StreamFill:
+    dev = code1.device
+    if dev.type != "cuda":
+        raise ValueError(f"the matrix fill kernel takes CUDA tensors, not {dev}")
+    B, Lm = code1.shape
+    A, Ln = prof.shape[1], prof.shape[2]
+    _build.require(code1, "code1", torch.int32, dev, (B, Lm))
+    _build.require(prof, "prof", torch.int16, dev, (B, A, Ln))
+    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    KW, V = dirs_shape(Lm, Ln)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ms_d = torch.as_tensor(ms_h, dtype=torch.int32).to(dev)
+    ns_d = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)
+    dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
+    res = torch.empty((B, 3), **i32)
+    threads = min(1024, round_up(Lm + 1, 32))
+    # Strips past the first hand rows down through scratch; a pair that
+    # fits one strip never touches it.
+    scratch = torch.empty((B, 4 * (Ln + 1)) if Lm + 1 > threads else (1,), **i32)
+    if B == 0:
+        return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gotoh_matrix_launch(
+            _build.ptr(code1), _build.ptr(prof), _build.ptr(ms_d), _build.ptr(ns_d),
+            _build.ptr(dirs), _build.ptr(res), _build.ptr(scratch),
+            B, Lm, Ln, A, V, KW, g, h, int(is_local), threads,
+            _build.stream_handle(dev),
+        )
+    _build.check(err, "gotoh_matrix")
+    COUNTS[f"{route}_kernel"] += 1
+    return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs)
+
+
+def matrix_fill_plain(code1, prof, ms, ns, g: int, h: int, is_local: bool = False,
+                      emit_dirs: bool = False, route: str = "pallas") -> StreamFill:
+    """The plain version: K3's plain body (``gotoh_stream.
+    wavefront_plain``) with the substitution of lane ``iv`` at
+    anti-diagonal ``k`` gathered from the profile, ``prof[p,
+    code1[p, iv-1], k-iv-1]`` (clamped to the profile off the true
+    cells). Runs on the tensors' device."""
+    COUNTS[f"{route}_plain"] += 1
+    dev = code1.device
+    B, Lm = code1.shape
+    A, Ln = prof.shape[1], prof.shape[2]
+    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    V = dirs_shape(Lm, Ln)[1]
+    iv = torch.arange(V, device=dev)[None, :]
+    # Lane iv reads profile line code1[p, iv-1] (line 0 at row 0 and past Lm).
+    lines = torch.zeros((B, V), dtype=torch.int64, device=dev)
+    lines[:, 1 : Lm + 1] = code1.long()
+    base = lines * max(Ln, 1)
+    flat = (prof.reshape(B, A * Ln).to(torch.int32) if Ln
+            else torch.zeros((B, A), dtype=torch.int32, device=dev))
+
+    def sub_at(k: int) -> torch.Tensor:
+        col = (k - 1 - iv).clamp(0, max(Ln - 1, 0))
+        return torch.gather(flat, 1, (base + col).expand(B, V))
+
+    return wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, g, h, is_local, emit_dirs, dev)
+
+
+def _on_device(x, dev) -> torch.Tensor:
+    """A uint8 batch as a tensor: tensors keep their device, numpy goes
+    to ``dev``."""
+    if torch.is_tensor(x):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
+
+
+def _check_matrix(matrix) -> int:
+    """max |v| of the extended matrix; raises past 256 as the JAX package
+    does (its bf16 one-hot planes are exact only to 256; the port's int16
+    profile keeps the same admitted range)."""
+    vmax = int(np.abs(_ext_matrix(matrix)).max())
+    if vmax > 256:
+        raise ValueError(
+            "substitution-matrix entries must satisfy |v| <= 256 "
+            f"(bf16-exact one-hot selection); got max |v| = {vmax}"
+        )
+    return vmax
+
+
+def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool = False,
+                        engine: str = "auto", device="cuda"):
+    """Score a batch of pairs under a full substitution matrix.
+
+    ``s1b``/``s2b``: padded (B, Lm)/(B, Ln) uint8 byte batches, tensors
+    (their device picks the route) or numpy arrays (moved to ``device``;
+    then, as in the JAX package, a batch mostly outside the alphabet is
+    warned about). ``engine``: ``"auto"``, ``"pallas"`` (K13's route) or
+    ``"stream"`` (K14's, grouped from ``STREAM_GROUPED_MIN_B`` pairs)
+    run the matrix fill; ``"scan"`` is not ported. Returns ``(score,
+    start_i, start_j)``, int32 tensors of shape (B,) on the fill's
+    device, with the reference's local keep-last argmax.
+    """
+    host = not torch.is_tensor(s1b) and not torch.is_tensor(s2b)
+    if host:
+        ms_np, ns_np = np.asarray(ms), np.asarray(ns)
+        live = np.concatenate([s1b[i, : ms_np[i]] for i in range(s1b.shape[0])]
+                              + [s2b[i, : ns_np[i]] for i in range(s2b.shape[0])])
+        warn_unknown_bytes(matrix, live, where="matrix batch")
+    vmax = _check_matrix(matrix)
+    if engine == "scan":
+        raise NotImplementedError(f"the matrix scan engine is {NOT_PORTED}")
+    if engine not in ("auto", "pallas", "stream"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "pallas" and vmax > 127:
+        raise ValueError(
+            "pallas matrix engine streams int8 substitution "
+            f"scores; |matrix| max {vmax} > 127"
+        )
+    dev = resolve_device(device) if host else None
+    s1, s2 = _on_device(s1b, dev), _on_device(s2b, dev)
+    B = s1.shape[0]
+    if engine == "auto":
+        engine = "stream" if vmax <= 127 and B >= STREAM_MIN_B else "pallas"
+    if engine == "stream":
+        from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import (
+            gotoh_scores_matrix_stream,
+            gotoh_scores_matrix_stream_grouped,
+        )
+
+        out = None
+        if B >= STREAM_GROUPED_MIN_B:
+            out = gotoh_scores_matrix_stream_grouped(s1, s2, ms, ns, matrix, g, h, is_local)
+        if out is None:
+            out = gotoh_scores_matrix_stream(s1, s2, ms, ns, matrix, g, h, is_local)
+        if out is not None:
+            return out
+    return tuple(gotoh_matrix_fill(s1, s2, ms, ns, matrix, g, h, is_local)[:3])

@@ -1,0 +1,102 @@
+"""The protein stream entries (counterpart of
+``genomics_rs_tpu/ops/gotoh_matrix_stream.py``).
+
+The JAX module packs many pairs into one TPU lane vector along both
+axes (K14, ``_mstream_fill``) and builds that stream's substitution
+input with an assembler kernel (K15, ``_mstream_build_fast``). The port
+fills one pair per thread block, so these entries are the matrix fill
+of ``ops/gotoh_matrix`` (profile kernel, then fill kernel) under the
+``"stream"`` route, with the JAX contracts:
+
+* :func:`gotoh_scores_matrix_stream` and its grouped form, ``(score,
+  start_i, start_j)``;
+* :func:`gotoh_matrix_stream_fill_dirs`, scores plus direction codes.
+  JAX's dirs are one global word array addressed per pair by word and
+  lane offsets; the port keeps K3's per-pair ``(B, KW, V)`` bitmaps, so
+  ``koff(p) = p * KW``, ``loff(p) = 0`` and ``segment_dirs(p) =
+  dirs[p]``.
+
+Each returns ``None`` where the JAX entry does for input or matrix
+reasons: no pairs, a zero length, or a matrix entry past the int8
+stream (``|v| > 127``). JAX's TPU-geometry refusals (lane budget, drift
+bound) have no counterpart: the kernel computes only true cells.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomics_rs_tpu_torch.ops.gotoh_matrix import _ext_matrix, gotoh_matrix_fill
+from genomics_rs_tpu_torch.ops.gotoh_stream import StreamDirsResult
+
+
+def _host(x) -> np.ndarray:
+    """Lengths as a flat int32 numpy array."""
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x, np.int32).reshape(-1)
+
+
+def _applicable(ms, ns, matrix) -> bool:
+    ms, ns = _host(ms), _host(ns)
+    if ms.size < 1 or (ms < 1).any() or (ns < 1).any():
+        return False
+    return int(np.abs(_ext_matrix(matrix)).max()) <= 127
+
+
+def gotoh_scores_matrix_stream(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix,
+                               g: int, h: int, is_local: bool = False):
+    """``(score, start_i, start_j)`` int32 tensors of shape (B,) of one
+    matrix fill, or ``None`` (see the module doc). The device of
+    ``s1eb`` picks the kernels or their plain versions."""
+    if not _applicable(ms, ns, matrix):
+        return None
+    return tuple(gotoh_matrix_fill(s1eb, s2eb, ms, ns, matrix, g, h, is_local,
+                                   route="stream")[:3])
+
+
+def gotoh_scores_matrix_stream_grouped(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix,
+                                       g: int, h: int, is_local: bool = False,
+                                       group_size: int = 1024):
+    """The scores of a large batch, one profile and one fill per
+    sub-batch of ``group_size`` pairs (bounding the profile's memory);
+    same results as :func:`gotoh_scores_matrix_stream`, or ``None``."""
+    if not _applicable(ms, ns, matrix):
+        return None
+    ms, ns = _host(ms), _host(ns)
+    outs = []
+    for g0 in range(0, len(ms), group_size):
+        sl = slice(g0, g0 + group_size)
+        outs.append(gotoh_matrix_fill(s1eb[sl], s2eb[sl], ms[sl], ns[sl], matrix, g, h,
+                                      is_local, route="stream")[:3])
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+class MatrixStreamDirsResult(StreamDirsResult):
+    """Scores, start cells (numpy; ``(m, n)`` in global mode) and the
+    per-pair packed bitmaps ``dirs`` (B, KW, V) of a matrix fill, with
+    the JAX result's per-pair addressing."""
+
+    def __init__(self, fill, ms, ns):
+        super().__init__(fill)
+        self.ms = np.asarray(ms)
+        self.ns = np.asarray(ns)
+
+    def koff(self, p: int) -> int:
+        return p * self.KW
+
+    def loff(self, p: int) -> int:
+        return 0
+
+
+def gotoh_matrix_stream_fill_dirs(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix,
+                                  g: int, h: int,
+                                  is_local: bool = False) -> MatrixStreamDirsResult | None:
+    """The matrix fill with packed direction codes, the alignment
+    counterpart of :func:`gotoh_scores_matrix_stream`; ``None`` where it
+    is."""
+    if not _applicable(ms, ns, matrix):
+        return None
+    ms, ns = _host(ms), _host(ns)
+    fill = gotoh_matrix_fill(s1eb, s2eb, ms, ns, matrix, g, h, is_local, emit_dirs=True,
+                             route="stream")
+    return MatrixStreamDirsResult(fill, ms, ns)

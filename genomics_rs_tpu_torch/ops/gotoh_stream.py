@@ -173,31 +173,51 @@ def gotoh_stream_plain(
     """The plain PyTorch version: K1's anti-diagonal step
     (``gotoh_rowblock_plain``) vectorised over the batch, state (B, V)
     with lane ``iv`` = row ``iv``, run to the batch's last true
-    diagonal. Runs on the tensors' device. Lanes ahead of the wavefront
-    and cells past a pair's (m, n) carry bounded garbage that no true
-    cell reads, and the local argmax masks them out."""
+    diagonal (:func:`wavefront_plain`), with the two-score or kimura
+    substitution. Runs on the tensors' device."""
     COUNTS["plain"] += 1
     dev = s1eb.device
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
     ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
-    KW, V = dirs_shape(Lm, Ln)
+    V = lane_count(Lm)
     i32 = dict(dtype=torch.int32, device=dev)
-    g, h = scores.g, scores.h
-    hg = g + h
     st = scores.s_transition if kimura_active(scores) else None
-
     s1m = torch.full((B, V), sentinel(0xFD, scores), **i32)
     s1m[:, 1 : Lm + 1] = encode_chars(s1eb, scores)
     s2c = encode_chars(s2eb, scores)
     s2pad = torch.full((B, 1), sentinel(0xFF, scores), **i32)
+    s2j = torch.full((B, V), 0xFF, **i32)
+
+    def sub_at(k: int) -> torch.Tensor:
+        # The s2 character of lane iv's column j = k - iv shifts in at lane 0.
+        nonlocal s2j
+        inj = s2c[:, max(k - 1, 0) : max(k - 1, 0) + 1] if k - 1 < Ln else s2pad
+        s2j = torch.cat([inj, s2j[:, :-1]], 1)
+        return sub_score(s1m, s2j, scores.s_match, scores.s_mismatch, st)
+
+    return wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, scores.g, scores.h,
+                           is_local, emit_dirs, dev)
+
+
+def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int,
+                    is_local: bool, emit_dirs: bool, dev) -> StreamFill:
+    """The batched fill's plain body, shared by K3's and the matrix
+    fill's plain versions: ``sub_at(k)`` gives the (B, V) int32
+    substitution scores of anti-diagonal ``k`` (lane ``iv`` holds cell
+    ``(iv, k - iv)``; any bounded value off the true cells). Lanes ahead
+    of the wavefront and cells past a pair's (m, n) carry bounded
+    garbage that no true cell reads, and the local argmax masks them
+    out."""
+    KW, V = dirs_shape(Lm, Ln)
+    i32 = dict(dtype=torch.int32, device=dev)
+    hg = g + h
     iv = torch.arange(V, **i32)[None, :]
     m_col = torch.as_tensor(ms_h, dtype=torch.int32).to(dev)[:, None]
     n_col = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)[:, None]
     neg1 = torch.full((B, 1), NEG_INF, **i32)
     I = torch.full((B, V), NEG_INF, **i32)
     P, A, M, SM = I.clone(), I.clone(), I.clone(), I.clone()
-    s2j = torch.full((B, V), 0xFF, **i32)
     K = int((ms_h + ns_h).max()) + 1 if B else 0
     probes: dict[int, list[int]] = {}
     for p in range(B):
@@ -209,8 +229,6 @@ def gotoh_stream_plain(
     dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
 
     for k in range(K):
-        inj = s2c[:, max(k - 1, 0) : max(k - 1, 0) + 1] if k - 1 < Ln else s2pad
-        s2j = torch.cat([inj, s2j[:, :-1]], 1)
         Dn = torch.cat([neg1, A[:, :-1]], 1)
         SMn = torch.cat([neg1, M[:, :-1]], 1)
         In = torch.maximum(I + g, P + hg)
@@ -218,7 +236,7 @@ def gotoh_stream_plain(
             In = torch.clamp_min(In, 0)
         # S adds the substitution to M of the up-left cell (shifted one
         # step ago); D takes the row above's open/extend value A.
-        Sn = sub_score(s1m, s2j, scores.s_match, scores.s_mismatch, st) + SM
+        Sn = sub_at(k) + SM
         if k < V:  # column 0 of lane k
             In[:, k] = NEG_INF
             Sn[:, k] = NEG_INF

@@ -8,8 +8,10 @@ the matrix is kept as a lower triangle, like the reference's similarity
 matrix. Pairs are grouped by power-of-two length class, each group
 padded to its own longest lengths (round 128) and scored in one
 ``score_pairs`` call: one K3 launch per bucket on a CUDA device.
-``allpairs_matrix_scores`` (protein) and ``allpairs_scores_resumable``
-wait for ROADMAP Queue A items 11 and 14.
+``allpairs_matrix_scores`` (protein) scores each bucket under a
+substitution matrix with one profile and one matrix fill
+(``ops/gotoh_matrix``; buckets over 1,024 pairs in groups of 1,024).
+``allpairs_scores_resumable`` waits for ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import logging
 import time
 
 import numpy as np
+import torch
 
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.parallel.batch import score_pairs
@@ -121,6 +124,60 @@ def allpairs_scores(container: SequenceContainer, scores, is_local: bool = False
         names=names,
         lengths=[int(x) for x in lens],
         matrix=matrix,
+        elapsed_s=elapsed,
+        cells=total_cells,
+        cells_per_s=total_cells / elapsed,
+        padded_cells=padded_cells,
+    )
+
+
+def allpairs_matrix_scores(container: SequenceContainer, matrix, g: int, h: int,
+                           is_local: bool = False, device="cuda") -> AllPairsResult:
+    """All-pairs scores under a full substitution matrix (protein), in
+    :func:`allpairs_scores`'s layout and buckets. A bucket of more than
+    1,024 pairs goes to the grouped stream entry, as the JAX package
+    routes it on its device; any other to ``gotoh_scores_matrix``."""
+    from genomics_rs_tpu_torch.ops.gotoh_matrix import gotoh_scores_matrix
+    from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import gotoh_scores_matrix_stream_grouped
+
+    dev = resolve_device(device)
+    seqs = container.sequences
+    names = [s.name for s in seqs]
+    num = len(names)
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    pairs = [(i, j) for j in range(num) for i in range(num) if i <= j]
+    total_cells = float(sum((lens[i] + 1.0) * (lens[j] + 1.0) for i, j in pairs))
+    out = np.zeros((num, num), dtype=np.int64)
+
+    t0 = time.perf_counter()
+    groups = bucketize_pairs(pairs, lens)
+    padded_cells = 0.0
+    for key in sorted(groups):
+        sub = [pairs[k] for k in groups[key]]
+        Lm = max(round_up(max(int(lens[i]) for i, _ in sub), 128), 128)
+        Ln = max(round_up(max(int(lens[j]) for _, j in sub), 128), 128)
+        s1b = np.stack([seqs[i].encoded(pad_to=Lm, pad_value=PAD_S1) for i, _ in sub])
+        s2b = np.stack([seqs[j].encoded(pad_to=Ln, pad_value=PAD_S2) for _, j in sub])
+        ms = np.array([lens[i] for i, _ in sub], dtype=np.int32)
+        ns = np.array([lens[j] for _, j in sub], dtype=np.int32)
+        padded_cells += float(len(sub)) * (Lm + 1.0) * (Ln + 1.0)
+        out3 = None
+        if len(sub) > 1024:
+            out3 = gotoh_scores_matrix_stream_grouped(
+                torch.from_numpy(s1b).to(dev), torch.from_numpy(s2b).to(dev), ms, ns,
+                matrix, g, h, is_local)
+        if out3 is None:
+            out3 = gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g, h, is_local, device=dev)
+        for (i, j), v in zip(sub, out3[0].cpu().numpy()):
+            out[j, i] = int(v)
+    elapsed = time.perf_counter() - t0
+
+    log.info("[AllPairs/matrix] %d pairs, %.3g cells in %.2fs (%.3g cells/s)",
+             len(pairs), total_cells, elapsed, total_cells / elapsed)
+    return AllPairsResult(
+        names=names,
+        lengths=[int(x) for x in lens],
+        matrix=out,
         elapsed_s=elapsed,
         cells=total_cells,
         cells_per_s=total_cells / elapsed,

@@ -238,7 +238,9 @@ def test_port_does_not_import_jax():
     code = (
         "import sys, genomics_rs_tpu_torch.cli, genomics_rs_tpu_torch.models.aligner, "
         "genomics_rs_tpu_torch.native, genomics_rs_tpu_torch.display.alignment, "
-        "genomics_rs_tpu_torch.models.banded, genomics_rs_tpu_torch.ops.gotoh_banded_batch; "
+        "genomics_rs_tpu_torch.models.banded, genomics_rs_tpu_torch.ops.gotoh_banded_batch, "
+        "genomics_rs_tpu_torch.ops.gotoh_matrix, genomics_rs_tpu_torch.ops.gotoh_matrix_stream, "
+        "genomics_rs_tpu_torch.ops.subst, genomics_rs_tpu_torch.models.msa; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -292,13 +294,29 @@ def test_cli_align_stdout_matches_jax(tmp_path, capsys, monkeypatch, kind, score
 @pytest.mark.parametrize(
     "extra", [["--matrix", "BLOSUM62"], ["--matrix", "BLOSUM62", "--band", "8"], ["--engine", "scan"]]
 )
-def test_cli_unported_options_fail_clearly(tmp_path, capsys, extra):
+def test_cli_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, extra):
+    """``--engine scan`` is not ported and exits 2; ``--matrix`` is ported
+    and gives the JAX CLI's bytes and exit code (with ``--band`` its
+    "mutually exclusive" error, rc 2)."""
+    from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
+    monkeypatch.setenv("GENOMICS_TPU_JAX_CACHE", str(tmp_path / "jaxcache"))
     fasta, cfg = _write_inputs(tmp_path, "ACGT", "ACGA", SCORES)
-    rc = cli.main(["-c", cfg, "align", "-a", "global", "-f", fasta, "--device", "cpu", *extra])
-    assert rc == 2
-    assert "not yet ported (ROADMAP Queue A)" in capsys.readouterr().err
+    argv = ["-c", cfg, "align", "-a", "global", "-f", fasta, *extra]
+    rc = cli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr()
+    if "--engine" in extra:
+        assert rc == 2
+        assert "not yet ported (ROADMAP Queue A)" in got.err
+        return
+    assert jax_cli.main(argv) == rc == (2 if "--band" in extra else 0)
+    want = capsys.readouterr()
+    assert _after_banner(got.out) == _after_banner(want.out)
+    if rc == 2:
+        assert got.err == want.err == "--matrix and --band are mutually exclusive\n"
+    else:
+        assert "Alignment Score" in got.out
 
 
 def test_cli_cuda_without_cuda_fails_clearly(tmp_path, capsys, monkeypatch):

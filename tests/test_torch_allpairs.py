@@ -227,13 +227,24 @@ def test_cli_align_matrix_matches_jax(tmp_path, capsys, monkeypatch, kind, score
 
 
 @pytest.mark.parametrize("extra", [["--matrix", "BLOSUM62"], ["--engine", "scan"]])
-def test_cli_align_matrix_unported_options_fail_clearly(tmp_path, capsys, extra):
+def test_cli_align_matrix_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, extra):
+    """``--engine scan`` is not ported and exits 2; ``--matrix`` is ported
+    and gives the JAX CLI's exit code, standard output and TSV."""
+    from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
+    monkeypatch.setenv("GENOMICS_TPU_JAX_CACHE", str(tmp_path / "jaxcache"))
     fasta_dir, cfg = _write_corpus(tmp_path, _corpus(1, (20, 30)), CLASSIC)
-    rc = cli.main(["-c", cfg, "align-matrix", "-f", fasta_dir, "--device", "cpu", *extra])
-    assert rc == 2
-    assert "not yet ported (ROADMAP Queue A)" in capsys.readouterr().err
+    argv = ["-c", cfg, "align-matrix", "-f", fasta_dir, *extra]
+    rc = cli.main(argv + ["-o", str(tmp_path / "port.tsv"), "--device", "cpu"])
+    got = capsys.readouterr()
+    if "--engine" in extra:
+        assert rc == 2
+        assert "not yet ported (ROADMAP Queue A)" in got.err
+        return
+    assert rc == 0 and jax_cli.main(argv + ["-o", str(tmp_path / "jax.tsv")]) == 0
+    assert _stdout_without_timing(got.out) == _stdout_without_timing(capsys.readouterr().out)
+    assert (tmp_path / "port.tsv").read_bytes() == (tmp_path / "jax.tsv").read_bytes()
 
 
 def test_cli_align_matrix_cuda_without_cuda_fails_clearly(tmp_path, capsys, monkeypatch):
@@ -277,7 +288,8 @@ def test_port_modules_do_not_import_jax():
         "genomics_rs_tpu_torch.models.msa, genomics_rs_tpu_torch.comparison.driver, "
         "genomics_rs_tpu_torch.ops.gotoh_shortread, genomics_rs_tpu_torch.ops.traceback_batch, "
         "genomics_rs_tpu_torch.models.reads, genomics_rs_tpu_torch.models.mapper, "
-        "genomics_rs_tpu_torch.models.caller; "
+        "genomics_rs_tpu_torch.models.caller, genomics_rs_tpu_torch.ops.gotoh_matrix, "
+        "genomics_rs_tpu_torch.ops.gotoh_matrix_stream, genomics_rs_tpu_torch.ops.subst; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -3,8 +3,9 @@
 Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
-hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12) equal to the
-plain versions, bit for bit.
+hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12, the query profile
+and the matrix fill of K13–K15) equal to the plain versions, bit for
+bit.
 """
 
 import numpy as np
@@ -12,16 +13,18 @@ import pytest
 import torch
 
 from genomics_rs_tpu_torch.config import Scores
-from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, align_batch
+from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, align_batch, matrix_align_batch
 from genomics_rs_tpu_torch.models.banded import align_banded
 from genomics_rs_tpu_torch.ops import gotoh_banded as gb
 from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
+from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
 from genomics_rs_tpu_torch.ops import traceback_batch as tb
 from genomics_rs_tpu_torch.ops import traceback_device as td
 from genomics_rs_tpu_torch.ops import traceback_walker as tw
+from genomics_rs_tpu_torch.ops import subst
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.sequence import PAD_S2, Sequence
 
@@ -334,3 +337,112 @@ def test_align_banded_cuda_matches_cpu(cuda):
     want = align_banded(Sequence("a", a), Sequence("b", b), sc, band=1024, device="cpu")
     got = align_banded(Sequence("a", a), Sequence("b", b), sc, band=1024, device="cuda")
     assert (got.score, got.alignment) == (want.score, want.alignment)
+
+
+PROT = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
+
+
+def _prot_batch(rng, ms, ns, Lm, Ln, letters=PROT):
+    """Related protein pairs (a shifted, mutated copy), padded; a few
+    lowercase bytes, which score as X (BLOSUM62) or the minimum."""
+    B = len(ms)
+    s1 = np.full((B, Lm), 0xFE, np.uint8)
+    s2 = np.full((B, Ln), PAD_S2, np.uint8)
+    for b in range(B):
+        base = letters[rng.integers(0, len(letters), max(Lm, Ln) + 20)]
+        s1[b, : ms[b]] = base[: ms[b]]
+        other = base[7 : 7 + ns[b]].copy()
+        flip = rng.random(ns[b]) < 0.2
+        other[flip] = letters[rng.integers(0, len(letters), int(flip.sum()))]
+        s2[b, : ns[b]] = other
+    s1[0, : min(3, ms[0])] = np.frombuffer(b"acd", np.uint8)[: min(3, ms[0])]
+    return torch.from_numpy(s1), torch.from_numpy(s2), np.array(ms), np.array(ns)
+
+
+def _matrix(kind):
+    rng = np.random.default_rng(40)
+    if kind == "blosum62":
+        return subst.blosum62()
+    if kind == "asymmetric":
+        return subst.SubstMatrix("ARNDCQEGHILKMFPSTWYV", rng.integers(-6, 9, (20, 20)))
+    if kind == "near200":
+        return subst.SubstMatrix("ARNDCQEGHILKMFPSTWYV", rng.integers(-200, 201, (20, 20)))
+    return subst.dna_matrix(Scores(2, -3, -2, -4))  # no X
+
+
+MATRIX_CASES = [
+    ([300, 0, 17, 250], [280, 40, 0, 260], 384, 384),  # zero lengths
+    ([383], [383], 384, 384),  # B = 1
+    ([1000, 990], [1000, 1000], 1024, 1024),  # 1,000 aa: one strip of 1,024 threads
+    ([1500, 700], [1400, 1500], 1536, 1536),  # two strips (scratch rows)
+]
+
+
+def test_matrix_profile_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(41)
+    for kind in ("blosum62", "asymmetric", "near200", "dna"):
+        mx = _matrix(kind)
+        letters = np.frombuffer(b"ACGT", np.uint8) if kind == "dna" else PROT
+        _, s2, _, ns = _prot_batch(rng, [300, 0, 20], [380, 30, 0], 384, 384, letters)
+        got = gm.matrix_profile(s2.to(cuda), ns, mx)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), gm.matrix_profile_plain(s2, ns, mx))
+    big = subst.SubstMatrix(bytes(range(33, 33 + 150)).decode("latin-1"),
+                            rng.integers(-9, 9, (150, 150)))  # 151 rows: > 48 KB of staging
+    _, s2, _, ns = _prot_batch(rng, [100, 50], [300, 333], 384, 384)
+    assert torch.equal(gm.matrix_profile(s2.to(cuda), ns, big).cpu(),
+                       gm.matrix_profile_plain(s2, ns, big))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("kind", ["blosum62", "asymmetric", "near200", "dna"])
+def test_matrix_fill_kernel_matches_plain(cuda, kind, is_local):
+    """Scores, start cells and codes at every true cell."""
+    rng = np.random.default_rng(42)
+    mx = _matrix(kind)
+    letters = np.frombuffer(b"ACGT", np.uint8) if kind == "dna" else PROT
+    for ms, ns, Lm, Ln in MATRIX_CASES:
+        s1, s2, ms, ns = _prot_batch(rng, ms, ns, Lm, Ln, letters)
+        code1 = gm.row_codes(s1, mx)
+        prof = gm.matrix_profile_plain(s2, ns, mx)
+        want = gm.matrix_fill_plain(code1, prof, ms, ns, -1, -11, is_local, emit_dirs=True)
+        got = gm.matrix_fill(code1.to(cuda), prof.to(cuda), ms, ns, -1, -11, is_local,
+                             emit_dirs=True)
+        torch.cuda.synchronize()
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g.cpu(), w)
+        gd, wd = got.dirs.cpu().numpy(), want.dirs.numpy()
+        for p in range(len(ms)):
+            assert np.array_equal(_codes_at(gd[p], ms[p], ns[p]), _codes_at(wd[p], ms[p], ns[p]))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+def test_matrix_dna_bridge_equals_k3(cuda, is_local, st):
+    rng = np.random.default_rng(43)
+    s1, s2, ms, ns = _stream_batch(rng, [700, 0, 650], [600, 500, 0], 768, 768)
+    sc = Scores(2, -3, -2, -4, st)
+    want = gs.gotoh_stream_fill(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, emit_dirs=True)
+    got = gm.gotoh_matrix_fill(s1.to(cuda), s2.to(cuda), ms, ns, subst.dna_matrix(sc), sc.g,
+                               sc.h, is_local, emit_dirs=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    for p in range(len(ms)):
+        assert np.array_equal(_codes_at(got.dirs[p].cpu().numpy(), ms[p], ns[p]),
+                              _codes_at(want.dirs[p].cpu().numpy(), ms[p], ns[p]))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_matrix_aligners_cuda_match_cpu(cuda, is_local):
+    rng = np.random.default_rng(44)
+    mx = subst.blosum62()
+    base = "".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), 420))
+    pairs = [(Sequence(f"a{k}", base[k : 300 + 5 * k]), Sequence(f"b{k}", base[k + 9 : 330]))
+             for k in range(18)]
+    want = matrix_align_batch(pairs, mx, -1, -11, is_local, device="cpu")
+    got = matrix_align_batch(pairs, mx, -1, -11, is_local, device="cuda")
+    assert [(g.score, g.alignment) for g in got] == [(w.score, w.alignment) for w in want]
+    one = PairwiseAligner(Scores(0, 0, -1, -11), is_local, device="cuda", matrix=mx)
+    assert (one.align(*pairs[3]).alignment, one.score_only(*pairs[3])) == (
+        want[3].alignment, want[3].score)
