@@ -109,14 +109,44 @@ Phases, one line each:
  22  profile, fill and K4 times (median of 3, CUDA events), the one
      PyTorch call that computes the profile (a (256, A) byte table indexed
      by the batch), plain times, bounds, and the walls of phase 21's calls
+ 23  the warp-strip kernel (K7 and K8 routes) and the strip pipeline (K9)
+     == their plain versions on small batches (empty and one-base pairs,
+     global/local, classic/kimura; K9 also at 32-row strips on a 3-block
+     grid, so tickets and ring slots cycle, and on a ring of five slots,
+     which splits the batch into launches of two or more slots a pair),
+     then a sweep of B in {1, 8, 32, 132, 528} x L in {512, 2048, 8192},
+     global and local: K3, the warp-strip kernel and the pipeline on every
+     bucket, all equal, each one's time (median of 3, CUDA events), cells/s
+     and bound
+ 24  the main path of this slice from here to phase 26 (launch counters
+     reset just before it; each call of the path must launch exactly the
+     routes its buckets take, and the kernels' launches are the sum of
+     those calls'): ``align-matrix`` (auto) on 128 seeded random genomes of
+     300-8,000 bp (8,256 pairs, every bucket on K7 or K8): its TSV ==
+     ``allpairs_scores(engine="stream")`` (K3); ``allpairs_scores`` local
+     (auto: K7) == K3's; 64 sampled scores == the C++ oracle; auto against
+     K3 end to end (``allpairs_scores`` walls)
+ 25  K9 at size: phase 4's 29,903 x 29,892 bp pair through ``score_pairs``
+     (auto at B = 1: "pallas") == the C++ oracle and K1;
+     ``align-matrix --engine pallas`` on the 10 x 29.9 kb corpus == phase
+     8's TSV; phase 17's 1,078,175 bp planted pair == its closed form;
+     then, off the path, K9 == K3 on the 29.9 kb pair (global/local) and
+     both timed at B = 1
+ 26  ``reads -a global|local --engine segmented|stream8|pallas`` on phase
+     10's 16,384 x 152 bp batch == ``--engine auto``'s TSV (K6); the path's
+     launches by route, no plain version; then each route (K7, K8, K9) ==
+     the plain version (strips of 256 rows) at the path's shapes: the
+     16,384 x 152 bp batch, phase 24's largest bucket and the 29.9 kb pair,
+     both cut to their first 300 rows (two strips, every column); kernel
+     and plain times there, and K7/K8/K3 on the whole bucket
 
 Bounds count interior DP cells (m x n per pair), band cells (rows x
 lanes), for a walk the code words its path must read, and for the
 profile the bytes it reads and writes.
 
 The second-to-last line is a JSON summary of the kernels (K1–K4, K6,
-``walk_rows16``, K10–K12 and K13–K15, with each one's launches on its own
-path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
+``walk_rows16``, K10–K12, K13–K15 and K7–K9, with each one's launches on
+its own path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -331,9 +361,9 @@ def write_fasta_dir(path: str, genomes) -> None:
             f.write(f">{name}\n{s}\n")
 
 
-def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[dict]:
+def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
     """Phases 6-9: the ``align-matrix`` path (K3 and K4). Returns the two
-    kernels' rows of the summary line."""
+    kernels' rows of the summary line and phase 8's TSV text."""
     from genomics_rs_tpu_torch import cli, native
     from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
     from genomics_rs_tpu_torch.models.aligner import (
@@ -520,6 +550,8 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
             rows_tsv = [ln.split("\t") for ln in f.read().splitlines()[1:]]
         check(all(int(rows_tsv[j][1 + i]) == ap_g.matrix[j, i] for i, j in all_pairs),
               "align-matrix TSV != allpairs_scores")
+        with open(tsv) as f:
+            corpus_tsv = f.read()  # phase 25 holds K9's align-matrix to it
 
         # One group of the run, replayed: K3 dirs == plain, K4 == plain.
         max_steps = round_up(2 * Lc + 1, 8192)
@@ -660,7 +692,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate) -> list[d
          "launches": main_launches["walk_many"], "max_abs_err": float(k4_err),
          "ms": med(k4), "plain_ms": float(k4_plain_ms),
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
-    ]
+    ], corpus_tsv
 
 
 def revcomp(s: str) -> str:
@@ -2103,6 +2135,442 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     ]
 
 
+#: Phase 23's sweep: batch sizes (1 pair up to 4 waves of the 132 SMs) by
+#: padded lengths across the segmented tier, lengths drawn from 0.9 L..L.
+SWEEP_B, SWEEP_L = (1, 8, 32, 132, 528), (512, 2048, 8192)
+#: phase 24's corpus: MID_N seeded random genomes of MID_MIN..MID_MAX bp
+#: (MID_N (MID_N + 1) / 2 pairs i <= j), every bucket on K7 or K8; the
+#: C++ oracle checks MID_ORACLE sampled pairs.
+MID_N, MID_MIN, MID_MAX, MID_ORACLE = 128, 300, 8_000, 64
+#: rows kept of a long input where a kernel is held against its plain
+#: version at the path's shape (two strips of 256 rows, every column).
+SLICE_ROWS = 300
+
+
+def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
+    """Phases 23-26: the segmented, stream8 and pallas tiers of
+    ``score_pairs`` (the warp-strip kernel for K7 and K8, the strip
+    pipeline for K9). ``main`` carries phase 4's 29.9 kb pair, its oracle
+    score and K1's, and phase 8's TSV. Returns the three kernels' rows of
+    the summary line."""
+    from collections import Counter
+
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
+    from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+    from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
+    from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
+    from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import gotoh_stream8 as gs8
+    from genomics_rs_tpu_torch.parallel.allpairs import allpairs_scores, bucketize_pairs
+    from genomics_rs_tpu_torch.parallel.batch import route_engine, score_pairs
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, SequenceContainer, round_up
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    routes = {"K7": gseg, "K8": gs8, "K9": gp, "K3": gs, "K6": gsr}
+    of_engine = {"segmented": "K7", "stream8": "K8", "pallas": "K9", "stream": "K3",
+                 "shortread": "K6"}
+    launches = dict.fromkeys(routes, 0)  # the main path's, summed over its calls
+
+    def counts() -> dict[str, int]:
+        out = {k: mod.COUNTS["kernel"] for k, mod in routes.items()}
+        out["plain"] = sum(n for mod in routes.values() for k, n in mod.COUNTS.items()
+                           if "plain" in k)
+        return out
+
+    def path_call(what, fn, want):
+        """One call of the main path: its launches by route must be
+        ``want`` exactly (no plain call, no other route); they add to
+        ``launches``."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in counts().items()}
+        check(got == {k: want.get(k, 0) for k in got}, f"{what}: launches {got} != {want}")
+        for k in routes:
+            launches[k] += got[k]
+        return out
+
+    def err_of(got, want) -> int:
+        return max(int((g.long().cpu() - w.long().cpu()).abs().max()) if g.numel() else 0
+                   for g, w in zip(got, want))
+
+    def random_bucket(rng, B, Lm, Ln, lo):
+        """(B, Lm) x (B, Ln) random DNA on the card, lengths lo..L (the
+        first pair fills the bucket)."""
+        ms, ns = rng.integers(lo, Lm + 1, B), rng.integers(lo, Ln + 1, B)
+        ms[0], ns[0] = Lm, Ln
+        s1 = np.where(np.arange(Lm)[None, :] < ms[:, None],
+                      acgt[rng.integers(0, 4, (B, Lm))], PAD_S1).astype(np.uint8)
+        s2 = np.where(np.arange(Ln)[None, :] < ns[:, None],
+                      acgt[rng.integers(0, 4, (B, Ln))], PAD_S2).astype(np.uint8)
+        return torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev), ms, ns
+
+    def cells(ms, ns) -> float:
+        return float(np.sum(np.asarray(ms, np.float64) * np.asarray(ns, np.float64)))
+
+    def bound_of(ms, ns, is_local):
+        """Inputs once (one byte a character), 12 bytes out a pair; 12 or 19
+        integer ops an interior cell."""
+        nbytes = float(np.sum(ms) + np.sum(ns)) + 12.0 * len(ms)
+        return bound(nbytes, cells(ms, ns) * OPS_PER_CELL["local" if is_local else "global"], rate)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def k9_launches(ms, Lm, Ln) -> int:
+        return len(gp.pipeline_groups(ms, Ln, gp.pipe_rows(Lm)))
+
+    def write_cfg(tmp) -> str:
+        cfg = os.path.join(tmp, "config.toml")
+        with open(cfg, "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        return cfg
+
+    H = 32 * gseg.ROWS_PER_LANE
+    err = {"seg": 0, "s8": 0, "pipe": 0}
+
+    # ---- phase 23: each kernel vs its plain version, then the B x L sweep ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2323)
+    n_small = 0
+    for is_local in (False, True):
+        for st in (None, -1):
+            sck = Scores(2, -3, -2, -4, st)
+            args = random_bucket(rng, 8, 512, 512, 0)
+            args[2][1], args[3][2], args[2][3], args[3][3] = 0, 0, 1, 1
+            want = gp.gotoh_strips_plain(*args, sck, is_local, H)
+            for key, fn in (("seg", gseg.gotoh_scores_segmented), ("s8", gs8.gotoh_scores_stream8)):
+                e = err_of(fn(*args, sck, is_local), want)
+                err[key] = max(err[key], e)
+                check(e == 0, f"{key} kernel != plain (8 x 512, local={is_local}, st={st}): {e}")
+            want9 = gp.gotoh_strips_plain(*args, sck, is_local, gp.pipe_rows(512))
+            e = err_of(gp.gotoh_scores_pallas_batch(*args, sck, is_local), want9)
+            err["pipe"] = max(err["pipe"], e)
+            check(e == 0, f"K9 kernel != plain (8 x 512, local={is_local}, st={st}): {e}")
+            # 32-row strips on a grid of 3 blocks: 33 strips a pair cycle the
+            # tickets and the ring (the plain version as one strip).
+            ring = random_bucket(rng, 4, 1024, 1024, 1000)
+            e = err_of(gp._pallas_cuda(*ring, sck, is_local, 32, 3),
+                       gp.gotoh_strips_plain(*ring, sck, is_local, 1025))
+            err["pipe"] = max(err["pipe"], e)
+            check(e == 0, f"K9 (32-row strips, 3 blocks) != plain (local={is_local}, st={st}): {e}")
+            # A ring of five slots for seven pairs of up to 17 strips: three
+            # launches, two or more slots a pair.
+            tight = random_bucket(rng, 7, 1024, 768, 0)
+            ring_bytes, gp.RING_BYTES = gp.RING_BYTES, 5 * 8 * 769
+            try:
+                groups = len(gp.pipeline_groups(tight[2], 768, 64))
+                before = gp.COUNTS["kernel"]
+                got = gp._pallas_cuda(*tight, sck, is_local, 64, 3)
+                check(gp.COUNTS["kernel"] - before == groups > 1,
+                      f"K9 on a tight ring: {gp.COUNTS['kernel'] - before} launches, {groups} groups")
+            finally:
+                gp.RING_BYTES = ring_bytes
+            e = err_of(got, gp.gotoh_strips_plain(*tight, sck, is_local, 64))
+            err["pipe"] = max(err["pipe"], e)
+            check(e == 0, f"K9 (tight ring, 3 blocks) != plain (local={is_local}, st={st}): {e}")
+            n_small += 1
+    sweep = []
+    for L in SWEEP_L:
+        for B in SWEEP_B:
+            args = random_bucket(rng, B, L, L, int(0.9 * L))
+            for is_local in (False, True):
+                ref = gs.gotoh_scores_stream(*args, sc, is_local)
+                kernels = (("K3", gs.gotoh_scores_stream), ("K7", gseg.gotoh_scores_segmented),
+                           ("K9", gp.gotoh_scores_pallas_batch))
+                for name, fn in kernels[1:]:
+                    key = "pipe" if name == "K9" else "seg"
+                    e = err_of(fn(*args, sc, is_local), ref)
+                    err[key] = max(err[key], e)
+                    check(e == 0, f"{name} != K3 on the {B} x {L} bucket (local={is_local}): {e}")
+                ts = {k: med(cuda_ms(lambda f=f: f(*args, sc, is_local), 3)) for k, f in kernels}
+                c = cells(args[2], args[3])
+                b = bound_of(args[2], args[3], is_local)
+                sweep.append((L, B, is_local, c, ts, b))
+    print(f"[phase 23] card {card} | warp strips (R = {gseg.ROWS_PER_LANE}) and strip pipeline "
+          f"(T = {gp.PIPE_ROWS}) == plain on {n_small} small batches (8 x 512 with empty and "
+          f"one-base pairs, global/local, classic/kimura; K9 also at 32-row strips on 3 "
+          f"blocks, 4 x 1,024, and on a five-slot ring, 7 x 1,024) and == K3 on every sweep "
+          f"bucket; max |err| K7 {err['seg']}, K8 {err['s8']}, K9 {err['pipe']} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    for L, B, is_local, c, ts, b in sweep:
+        print(f"[phase 23] {'local ' if is_local else 'global'} B {B:>3} x L {L:>4} "
+              f"({c:.4g} cells, bound {b[0]:.4f} ms by {b[1]}): "
+              + "; ".join(f"{k} {t:.3f} ms = {c / t * 1e3:.4g} cells/s ({b[0] / t:.2%} of bound)"
+                          for k, t in ts.items()), flush=True)
+
+    # ---- phase 24: align-matrix (auto) over a mid-length corpus ----
+    # The main path of this slice runs from here to the end of phase 26,
+    # each call through path_call; comparisons and timings in between are
+    # outside its counts.
+    t_phase = time.perf_counter()
+    os.environ["LOG_LEVEL"] = "WARNING"
+    rng = np.random.default_rng(2424)
+    lens = rng.integers(MID_MIN, MID_MAX + 1, MID_N)
+    mid = [(f"mid{k} len={L}", random_dna(rng, int(L))) for k, L in enumerate(lens)]
+    walls = {}
+    for mod in routes.values():
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_cfg(tmp)
+        mdir, tsv = os.path.join(tmp, "mid"), os.path.join(tmp, "mid.tsv")
+        write_fasta_dir(mdir, mid)
+        seqs = load_fasta_dir(mdir).sequences  # the CLI's order
+        N = len(seqs)
+        pairs = [(i, j) for j in range(N) for i in range(N) if i <= j]
+        buckets = bucketize_pairs(pairs, [len(s) for s in seqs])
+        by_route = {False: Counter(), True: Counter()}
+        for idxs in buckets.values():
+            bms = np.array([len(seqs[pairs[k][0]]) for k in idxs])
+            bns = np.array([len(seqs[pairs[k][1]]) for k in idxs])
+            Lm_b, Ln_b = max(round_up(int(bms.max()), 128), 128), max(round_up(int(bns.max()), 128), 128)
+            for is_local in (False, True):
+                by_route[is_local][of_engine[route_engine(len(idxs), Lm_b, Ln_b, is_local, bms, bns)]] += 1
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = path_call("align-matrix (auto), mid corpus",
+                           lambda: cli.main(["-c", cfg, "align-matrix", "-f", mdir, "-o", tsv]),
+                           by_route[False])
+        walls["align-matrix mid"] = time.perf_counter() - t0
+        check(rc == 0, f"align-matrix on the mid-length corpus exited {rc}")
+        container = SequenceContainer(list(seqs))
+        with open(tsv) as f:
+            mrows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+        t0 = time.perf_counter()
+        loc = path_call("allpairs_scores local (auto), mid corpus",
+                        lambda: allpairs_scores(container, sc, is_local=True, device="cuda"),
+                        by_route[True])
+        walls["allpairs_scores mid local"] = time.perf_counter() - t0
+        # K3 on the same corpus: the reference, and auto's end-to-end yardstick.
+        timings = {}
+        for engine in ("auto", "stream", "auto", "stream"):
+            t0 = time.perf_counter()
+            out = allpairs_scores(container, sc, engine=engine, device="cuda")
+            timings.setdefault(engine, []).append(time.perf_counter() - t0)
+            if engine == "stream":
+                ref_g = out
+        ref_l = allpairs_scores(container, sc, is_local=True, engine="stream", device="cuda")
+    e = max(abs(int(mrows[j][1 + i]) - int(ref_g.matrix[j, i])) for i, j in pairs)
+    err["s8"] = max(err["s8"], e)
+    check(e == 0, f"align-matrix (auto) TSV != K3's allpairs_scores: max |err| {e}")
+    e = int(np.abs(loc.matrix - ref_l.matrix).max())
+    err["seg"] = max(err["seg"], e)
+    check(e == 0, f"allpairs_scores local (auto) != K3's: max |err| {e}")
+    pick = rng.choice(len(pairs), MID_ORACLE, replace=False)
+    sample = [(pairs[k], k % 4 == 0) for k in pick]
+    with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(lambda c: native.gotoh_score_cpu(
+            seqs[c[0][0]].sequence, seqs[c[0][1]].sequence, sc, c[1])[0], sample))
+    for ((i, j), is_local), o in zip(sample, oracle):
+        got = (loc if is_local else ref_g).matrix[j, i]
+        check(int(got) == o, f"mid corpus pair ({i}, {j}) local={is_local}: {got} != oracle {o}")
+    # The largest bucket, for the K7 (local) and K8 (global) times.
+    key = max(buckets, key=lambda k: (k, len(buckets[k])))
+    bp = [pairs[k] for k in buckets[key]]
+    Lm = round_up(max(len(seqs[i]) for i, _ in bp), 128)
+    Ln = round_up(max(len(seqs[j]) for _, j in bp), 128)
+    big = (torch.from_numpy(np.stack([seqs[i].encoded(Lm, PAD_S1) for i, _ in bp])).to(dev),
+           torch.from_numpy(np.stack([seqs[j].encoded(Ln, PAD_S2) for _, j in bp])).to(dev),
+           np.array([len(seqs[i]) for i, _ in bp]), np.array([len(seqs[j]) for _, j in bp]))
+    print(f"[phase 24] align-matrix (auto) on {N} random genomes of {MID_MIN}-{MID_MAX} bp "
+          f"({len(pairs)} pairs, {len(buckets)} buckets): {walls['align-matrix mid']:.3f} s wall, "
+          f"launches K7 {by_route[False]['K7']}, K8 {by_route[False]['K8']}; TSV == K3's "
+          f"allpairs_scores; allpairs_scores local (auto: K7 {by_route[True]['K7']}) "
+          f"{walls['allpairs_scores mid local']:.3f} s == K3's; {MID_ORACLE} sampled scores == "
+          f"C++ oracle | allpairs_scores global, auto [{fmt(timings['auto'])}] s vs engine="
+          f"stream (K3) [{fmt(timings['stream'])}] s ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # ---- phase 25: K9 at size ----
+    t_phase = time.perf_counter()
+    a, b = main["base"], main["var"]
+    one = (np.stack([Sequence("a", a).encoded(round_up(len(a), 128), PAD_S1)]),
+           np.stack([Sequence("b", b).encoded(round_up(len(b), 128), PAD_S2)]),
+           np.array([len(a)]), np.array([len(b)]))
+    got, walls["score_pairs 29.9 kb"] = timed(lambda: path_call(
+        "score_pairs, the 29.9 kb pair", lambda: score_pairs(*one, sc, device="cuda"), {"K9": 1}))
+    check((int(got[0][0]), int(got[1][0]), int(got[2][0])) == tuple(main["oracle"])
+          and int(got[0][0]) == main["k1_score"],
+          f"29.9 kb pair on K9: {[int(x[0]) for x in got]} != oracle {main['oracle']} "
+          f"(K1 {main['k1_score']})")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_cfg(tmp)
+        cdir, tsv = os.path.join(tmp, "corpus"), os.path.join(tmp, "scores.tsv")
+        corpus = corpus_genomes()
+        write_fasta_dir(cdir, corpus)
+        clen = [len(x) for _, x in corpus]
+        cpairs = [(i, j) for j in range(len(corpus)) for i in range(j + 1)]
+        want = sum(k9_launches([clen[cpairs[k][0]] for k in idxs],
+                               round_up(max(clen[cpairs[k][0]] for k in idxs), 128),
+                               round_up(max(clen[cpairs[k][1]] for k in idxs), 128))
+                   for idxs in bucketize_pairs(cpairs, clen).values())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = path_call("align-matrix --engine pallas, the corpus", lambda: cli.main(
+                ["-c", cfg, "align-matrix", "-f", cdir, "-o", tsv, "--engine", "pallas"]),
+                {"K9": want})
+        walls["align-matrix --engine pallas"] = time.perf_counter() - t0
+        check(rc == 0, f"align-matrix --engine pallas exited {rc}")
+        with open(tsv) as f:
+            check(f.read() == main["corpus_tsv"], "align-matrix --engine pallas TSV != phase 8's")
+    # The banded phase's 1 Mb planted pair (phase 17's seed and draws).
+    rng = np.random.default_rng(12_2048)
+    genome = acgt[rng.integers(0, 4, GENOME_BP)].tobytes().decode()
+    while True:
+        planted, planted_score = planted_copy(rng, genome, sc)
+        if len(planted) <= len(genome):
+            break
+    mb = (np.stack([Sequence("g", genome).encoded(round_up(GENOME_BP, 128), PAD_S1)]),
+          np.stack([Sequence("p", planted).encoded(round_up(len(planted), 128), PAD_S2)]),
+          np.array([GENOME_BP]), np.array([len(planted)]))
+    got, walls["score_pairs 1 Mb"] = timed(lambda: path_call(
+        "score_pairs, the 1 Mb planted pair", lambda: score_pairs(*mb, sc, device="cuda"),
+        {"K9": k9_launches(mb[2], mb[0].shape[1], mb[1].shape[1])}))
+    check(int(got[0][0]) == planted_score,
+          f"1 Mb planted pair on K9: {int(got[0][0])} != planted {planted_score}")
+    # Outside the path: K9 == K3 on the 29.9 kb pair, and the times.
+    one_d = tuple(torch.from_numpy(x).to(dev) for x in one[:2]) + one[2:]
+    for is_local in (False, True):
+        e = err_of(gp.gotoh_scores_pallas_batch(*one_d, sc, is_local),
+                   gs.gotoh_scores_stream(*one_d, sc, is_local))
+        err["pipe"] = max(err["pipe"], e)
+        check(e == 0, f"K9 != K3 on the 29.9 kb pair (local={is_local}): {e}")
+    k9_one = cuda_ms(lambda: gp.gotoh_scores_pallas_batch(*one_d, sc, False), 3)
+    k3_one = cuda_ms(lambda: gs.gotoh_scores_stream(*one_d, sc, False), 3)
+    rows_mb = gp.pipe_rows(mb[0].shape[1])
+    strips_mb = (GENOME_BP + rows_mb) // rows_mb
+    c_one, c_mb = cells(one[2], one[3]), float(GENOME_BP) * len(planted)
+    b_one = bound_of(one[2], one[3], False)
+    print(f"[phase 25] card {card} | K9 on the {len(a)} x {len(b)} bp pair (auto at B = 1: "
+          f"score_pairs {walls['score_pairs 29.9 kb']:.1f} ms wall) == C++ oracle and K1 "
+          f"({main['k1_score']}), global/local == K3: K9 [{fmt(k9_one)}] ms = "
+          f"{c_one / med(k9_one) * 1e3:.4g} cells/s vs K3 at B = 1 [{fmt(k3_one)}] ms (bound "
+          f"{b_one[0]:.4f} ms by {b_one[1]}) | align-matrix --engine pallas on {N_GENOMES} x "
+          f"{GENOME_LEN} bp: TSV == phase 8's, {walls['align-matrix --engine pallas']:.3f} s "
+          f"wall, {want} launch(es) | 1 Mb planted pair {GENOME_BP} x {len(planted)} "
+          f"({strips_mb} strips of {rows_mb} rows): score {int(got[0][0])} == planted, "
+          f"{walls['score_pairs 1 Mb'] / 1e3:.3f} s wall = "
+          f"{c_mb / walls['score_pairs 1 Mb'] * 1e3:.4g} cells/s "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 26: reads --engine segmented|stream8|pallas on phase 10's batch ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)  # phase 10's draws of bench.py's short-read batch
+    s1r = acgt[rng.integers(0, 4, (SR_B, SR_LEN))]
+    s2r = acgt[rng.integers(0, 4, (SR_B, SR_LEN))]
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_cfg(tmp)
+        for name, rows in (("q.fasta", s1r), ("r.fasta", s2r)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.writelines(f">{name[0]}{i}\n{row.tobytes().decode()}\n" for i, row in enumerate(rows))
+        for kind in ("global", "local"):
+            for engine in ("auto", "segmented", "stream8", "pallas"):
+                out = os.path.join(tmp, f"{kind}_{engine}.tsv")
+                argv = ["-c", cfg, "reads", "-q", os.path.join(tmp, "q.fasta"), "-r",
+                        os.path.join(tmp, "r.fasta"), "-a", kind, "--engine", engine, "-o", out]
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = path_call(f"reads -a {kind} --engine {engine}", lambda: cli.main(argv),
+                                   {"K6" if engine == "auto" else of_engine[engine]: 1})
+                walls[f"reads {kind} {engine}"] = time.perf_counter() - t0
+                check(rc == 0, f"reads -a {kind} --engine {engine} exited {rc}")
+                with open(out) as f:
+                    outs[kind, engine] = f.read()
+                check(outs[kind, engine] == outs[kind, "auto"],
+                      f"reads -a {kind} --engine {engine} TSV != --engine auto's (K6)")
+    path_launches = dict(launches)
+    check(all(path_launches[k] > 0 for k in ("K7", "K8", "K9")) and counts()["plain"] == 0,
+          f"phases 24-26: launches {path_launches}, plain calls {counts()['plain']}")
+    print(f"[phase 26] reads -a global|local --engine segmented|stream8|pallas on {SR_B} x "
+          f"{SR_LEN} bp: every TSV == --engine auto's (K6); walls "
+          + ", ".join(f"{k[6:]} {v:.3f} s" for k, v in walls.items() if k.startswith("reads "))
+          + f" | the main path's launches (phases 24-26, each call's exact) {path_launches}, "
+          f"no plain call ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- each route vs its plain version at the path's shapes ----
+    t_phase = time.perf_counter()
+    sr_batch = (torch.from_numpy(np.full((SR_B, SR_PAD), PAD_S1, np.uint8)),
+                torch.from_numpy(np.full((SR_B, SR_PAD), PAD_S2, np.uint8)))
+    sr_batch[0][:, :SR_LEN] = torch.from_numpy(s1r)
+    sr_batch[1][:, :SR_LEN] = torch.from_numpy(s2r)
+    sr_batch = (sr_batch[0].to(dev), sr_batch[1].to(dev), np.full(SR_B, SR_LEN), np.full(SR_B, SR_LEN))
+    # Phase 24's largest bucket and the 29.9 kb pair cut to SLICE_ROWS rows
+    # (two strips of the kernels' 256 rows), every column kept.
+    Lc = round_up(SLICE_ROWS, 128)
+    big_cut = (big[0][:, :Lc].contiguous(), big[1], np.minimum(big[2], SLICE_ROWS), big[3])
+    one_cut = (one_d[0][:, :Lc].contiguous(), one_d[1], np.minimum(one_d[2], SLICE_ROWS), one_d[3])
+    check(gp.pipe_rows(Lc) == H and (SLICE_ROWS + H) // H == 2, "the slices are two strips")
+    held, plain_ms = [], {}
+    for name, batch, modes, on_cpu in (
+            (f"reads {SR_B} x {SR_LEN}", sr_batch, (False, True), False),
+            (f"phase 24's largest bucket {len(bp)} x ({SLICE_ROWS} of {Lm}, {Ln})", big_cut,
+             (False, True), False),
+            (f"the 29.9 kb pair ({SLICE_ROWS} of {len(a)} rows, {len(b)})", one_cut, (False,), True)):
+        for is_local in modes:
+            # The plain version of all three routes: strips of 256 rows (the
+            # 29.9 kb slice's long single-pair loop runs it on the host).
+            src = tuple(x.cpu() for x in batch[:2]) + batch[2:] if on_cpu else batch
+            want, plain_ms[name, is_local] = timed(
+                lambda: gp.gotoh_strips_plain(*src, sc, is_local, H))
+            for key, fn in (("seg", gseg.gotoh_scores_segmented), ("s8", gs8.gotoh_scores_stream8),
+                            ("pipe", gp.gotoh_scores_pallas_batch)):
+                e = err_of(fn(*batch, sc, is_local), want)
+                err[key] = max(err[key], e)
+                check(e == 0, f"{key} != plain on {name} (local={is_local}): {e}")
+            held.append(f"{name} {'local' if is_local else 'global'} (plain {plain_ms[name, is_local]:.0f} ms"
+                        f"{' on the host' if on_cpu else ''})")
+    big_name = f"phase 24's largest bucket {len(bp)} x ({SLICE_ROWS} of {Lm}, {Ln})"
+    one_name = f"the 29.9 kb pair ({SLICE_ROWS} of {len(a)} rows, {len(b)})"
+    k7 = cuda_ms(lambda: gseg.gotoh_scores_segmented(*big_cut, sc, True), 3)
+    k8 = cuda_ms(lambda: gs8.gotoh_scores_stream8(*big_cut, sc, False), 3)
+    k9 = cuda_ms(lambda: gp.gotoh_scores_pallas_batch(*one_cut, sc, False), 3)
+    b7, b8 = bound_of(big_cut[2], big_cut[3], True), bound_of(big_cut[2], big_cut[3], False)
+    b9 = bound_of(one_cut[2], one_cut[3], False)
+    k7_full = cuda_ms(lambda: gseg.gotoh_scores_segmented(*big, sc, True), 3)
+    k8_full = cuda_ms(lambda: gs8.gotoh_scores_stream8(*big, sc, False), 3)
+    k3_full = cuda_ms(lambda: gs.gotoh_scores_stream(*big, sc, False), 3)
+    bf7, bf8 = bound_of(big[2], big[3], True), bound_of(big[2], big[3], False)
+    print(f"[phase 26] card {card} | K7, K8 and K9 each == the plain version (strips of {H} "
+          f"rows) on " + "; ".join(held) + f" | kernel times there: K7 local [{fmt(k7)}] ms "
+          f"(bound {b7[0]:.4f} by {b7[1]}), K8 global [{fmt(k8)}] ms (bound {b8[0]:.4f} by "
+          f"{b8[1]}), K9 global on {one_name} [{fmt(k9)}] ms (bound {b9[0]:.4f} by {b9[1]}) | the "
+          f"whole bucket {len(bp)} x ({Lm}, {Ln}) ({cells(big[2], big[3]):.4g} cells): K7 local "
+          f"[{fmt(k7_full)}] ms (bound {bf7[0]:.4f}), K8 global [{fmt(k8_full)}] ms (bound "
+          f"{bf8[0]:.4f}), K3 global [{fmt(k3_full)}] ms ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    return [
+        {"name": "gotoh_segmented", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_segmented.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_segmented.py:227",
+         "launches": path_launches["K7"], "max_abs_err": float(err["seg"]),
+         "ms": med(k7), "plain_ms": float(plain_ms[big_name, True]),
+         "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None},
+        {"name": "gotoh_stream8", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_segmented.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_stream8.py:372",
+         "launches": path_launches["K8"], "max_abs_err": float(err["s8"]),
+         "ms": med(k8), "plain_ms": float(plain_ms[big_name, False]),
+         "bound_ms": b8[0], "bound_by": b8[1], "library_ms": None},
+        {"name": "gotoh_pallas", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_pallas.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_pallas.py:1213",
+         "launches": path_launches["K9"], "max_abs_err": float(err["pipe"]),
+         "ms": med(k9), "plain_ms": float(plain_ms[one_name, False]),
+         "bound_ms": b9[0], "bound_by": b9[1], "library_ms": None},
+    ]
+
+
 def main() -> None:
     # ---- phase 0: the card ----
     card = card_line()
@@ -2487,10 +2955,14 @@ def main() -> None:
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
     ]
     del kern, plain, want, got
-    rows += align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
+    am_rows, corpus_tsv = align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate)
+    rows += am_rows
     rows += read_phases(torch, dev, card, sc, cuda_ms, rate)
     rows += banded_phases(torch, dev, card, sc, cuda_ms, rate)
     rows += protein_phases(torch, dev, card, cuda_ms, codes_at, rate)
+    rows += strip_phases(torch, dev, card, sc, cuda_ms, rate,
+                         dict(base=base, var=var, oracle=o30, k1_score=glob.score,
+                              corpus_tsv=corpus_tsv))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ each with ``--device {cuda,cpu}``, plus the global ``--config-path``
 written are those of the JAX package's subcommands (timing lines aside);
 ``--device`` picks the CUDA kernels (default) or their plain CPU
 versions. ``is_local`` is true iff the type is exactly "local" or "1".
-Options whose engines are not ported yet exit 2 with "not yet ported".
+The two options whose engines are not ported yet, ``--engine scan`` and
+``--seed-engine device``, exit 2 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def _build_parser() -> argparse.ArgumentParser:
         "--engine",
         default="auto",
         choices=["auto", "scan", "pallas"],
-        help="auto and pallas run the batched fill; scan is " + NOT_PORTED,
+        help="auto tiers each length bucket (K6, K7/K8, K3 or K9), pallas runs "
+        "K9 on every bucket; scan is " + NOT_PORTED,
     )
     am.add_argument("-o", "--output", default="alignment_scores.tsv")
     am.add_argument(
@@ -122,7 +124,8 @@ def _build_parser() -> argparse.ArgumentParser:
         "--engine",
         default="auto",
         choices=["auto", "scan", "pallas"],
-        help="auto and pallas run the batched kernels; scan is " + NOT_PORTED,
+        help="auto and pallas run the batched kernels (pallas: the DNA score pass "
+        "on K9); scan is " + NOT_PORTED,
     )
     ms.add_argument(
         "--matrix",
@@ -156,8 +159,8 @@ def _reads_parsers(sub) -> None:
         "--engine",
         default="auto",
         choices=["auto", "shortread", "segmented", "stream", "stream8", "pallas", "scan"],
-        help="auto, shortread (K6) and stream (K3) run; segmented, stream8, "
-        "pallas and scan are " + NOT_PORTED,
+        help="auto tiers by padded length; shortread (K6), segmented (K7), stream8 "
+        "(K8), stream (K3) and pallas (K9) run that kernel; scan is " + NOT_PORTED,
     )
     rd.add_argument(
         "--align",
@@ -377,12 +380,8 @@ def main(argv: list[str] | None = None) -> int:
 
 def _unported_flags(args) -> list[str]:
     """The flags of this run whose engines are not ported yet."""
-    if args.mode in ("align", "align-matrix", "msa"):
+    if args.mode in ("align", "align-matrix", "msa", "reads"):
         used = (("--engine scan", args.engine == "scan"),)
-    elif args.mode == "reads":
-        # --align runs align_reads, which takes any engine but scan as auto.
-        unported = ("scan",) if args.align else ("segmented", "stream8", "pallas", "scan")
-        used = ((f"--engine {args.engine}", args.engine in unported),)
     else:
         used = (("--engine scan", args.engine == "scan"),
                 ("--seed-engine device", getattr(args, "seed_engine", "host") == "device"))
@@ -407,7 +406,8 @@ def _align_matrix(args, config, device, log) -> int:
         result = allpairs_matrix_scores(container, mx, g=config.scores.g, h=config.scores.h,
                                         is_local=is_local, device=device)
     else:
-        result = allpairs_scores(container, config.scores, is_local=is_local, device=device)
+        result = allpairs_scores(container, config.scores, is_local=is_local,
+                                 engine=args.engine, device=device)
     print(
         f"{len(result.names)} sequences, {result.cells:.3g} DP cells "
         f"in {result.elapsed_s:.2f}s ({result.cells_per_s:.3g} cells/s)"

@@ -18,9 +18,10 @@
 //                    code(i, j) = (dirs[(p*KW + (i+j)/16) * V + i]
 //                                  >> 2*((i+j)%16)) & 3
 //
-// The body (recurrence, codes, argmax) is gotoh_stream_body.cuh, shared
-// with the matrix fill (gotoh_matrix.cu); this file is its character
-// substitution.
+// The body (recurrence, codes, argmax) and its character substitution
+// (CharSub) are gotoh_stream_body.cuh, shared with the matrix fill
+// (gotoh_matrix.cu), K9's strip pipeline (gotoh_pallas.cu) and the
+// warp-strip kernel (gotoh_segmented.cu); this file is K3's launcher.
 //
 // Design. The TPU kernel lays every pair end to end along one V-lane
 // vector and re-injects column 0 at each seam, so its lanes do not idle
@@ -40,40 +41,6 @@
 // cell, 2 bits of dirs per cell).
 
 #include "gotoh_stream_body.cuh"
-
-namespace {
-
-// K3's substitution: compare the two characters (kimura: class by XOR).
-struct CharSub {
-  const int* s1c;
-  const int* s2c;
-  int Lm, Ln, sm, sx, st, kimura;
-
-  struct Row {
-    int c1;       // s1[i-1]
-    const int* b;  // the pair's s2 characters
-    int c2;       // s2[j-1] of the next column, prefetched
-  };
-
-  __device__ __forceinline__ Row row(int p, int i, int m, int n) const {
-    Row r;
-    r.c1 = (i <= m && i >= 1) ? s1c[(size_t)p * Lm + i - 1] : 0;
-    r.b = s2c + (size_t)p * Ln;
-    r.c2 = n > 0 ? r.b[0] : 0;
-    return r;
-  }
-
-  __device__ __forceinline__ int next(Row& r, int j, int n) const {
-    int v;
-    if (r.c1 == r.c2) v = sm;
-    else if (kimura && (r.c1 ^ r.c2) == 2) v = st;
-    else v = sx;
-    r.c2 = j < n ? r.b[j] : 0;
-    return v;
-  }
-};
-
-}  // namespace
 
 extern "C" int gotoh_stream_launch(
     const void* s1c, const void* s2c, const void* ms, const void* ns,

@@ -1,9 +1,11 @@
-// The batched Gotoh fill's body, one thread block per pair, shared by K3
-// (gotoh_stream.cu: the substitution compares two characters, classic or
-// kimura) and the matrix fill (gotoh_matrix.cu: the substitution is read
-// from a query profile). A substitution policy `Sub` supplies s(i, j); the
-// recurrence, the boundaries, the direction codes and the local argmax are
-// this file's, once.
+// The batched Gotoh fill's body, shared by K3 (gotoh_stream.cu: the
+// substitution compares two characters, classic or kimura), the matrix
+// fill (gotoh_matrix.cu: the substitution is read from a query profile),
+// K9's strip pipeline (gotoh_pallas.cu) and the warp-strip kernel K7/K8
+// (gotoh_segmented.cu, which takes the cell recurrence and CharSub). A
+// substitution policy `Sub` supplies s(i, j); the recurrence, the
+// boundaries, the direction codes and the local argmax are this file's,
+// once.
 //
 // Contract, for every pair p of a padded batch (true lengths m_p, n_p): the
 // affine-gap (Gotoh) table over rows 0..m_p and columns 0..n_p with the
@@ -19,12 +21,17 @@
 //                    code(i, j) = (dirs[(p*KW + (i+j)/16) * V + i]
 //                                  >> 2*((i+j)%16)) & 3
 //
-// Design: block p runs K1's skewed row-strip wavefront (gotoh_rowblock.cu)
-// over pair p alone: thread t owns row s*T + t of strip s and steps one
-// column a barrier; the last thread of a strip hands its row's A and M to
-// the next strip through the pair's global scratch rows. No padded cell is
-// computed, so the local argmax needs no padding mask and no pair needs a
-// seam, probe or drift guard.
+// Design: a strip of T rows is swept by T threads, thread t owning row
+// s*T + t and stepping one column a barrier (K1's skewed wavefront,
+// gotoh_rowblock.cu); the strip's last thread hands its row's A and M to
+// the next strip through global scratch rows. No padded cell is computed,
+// so the local argmax needs no padding mask and no pair needs a seam,
+// probe or drift guard. Two modes:
+//   stream_kernel  one block a pair sweeps its strips in order (K3, the
+//                  matrix fill);
+//   pipe_kernel    every strip of every pair is a block's work, taken from
+//                  a ticket counter in dependency order, so one pair's
+//                  strips run on many SMs at once (K9, below).
 //
 // A policy is a struct with a nested `Row` and two device methods:
 //   Row row(int p, int i, int m, int n) const    state for row i of pair p
@@ -47,6 +54,271 @@ constexpr int MAX_T = 1024;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
+// The character substitution of K3, K7/K8 and K9: equal codes score sm;
+// kimura (codes classed so that a transition differs by XOR 2) scores st
+// for a transition; anything else sx.
+struct CharSub {
+  const int* s1c;
+  const int* s2c;
+  int Lm, Ln, sm, sx, st, kimura;
+
+  struct Row {
+    int c1;        // s1[i-1]
+    const int* b;  // the pair's s2 characters
+    int c2;        // s2[j-1] of the next column, prefetched
+  };
+
+  __device__ __forceinline__ int score(int c1, int c2) const {
+    if (c1 == c2) return sm;
+    if (kimura && (c1 ^ c2) == 2) return st;
+    return sx;
+  }
+
+  __device__ __forceinline__ Row row(int p, int i, int m, int n) const {
+    Row r;
+    r.c1 = (i <= m && i >= 1) ? s1c[(size_t)p * Lm + i - 1] : 0;
+    r.b = s2c + (size_t)p * Ln;
+    r.c2 = n > 0 ? r.b[0] : 0;
+    return r;
+  }
+
+  __device__ __forceinline__ int next(Row& r, int j, int n) const {
+    const int v = score(r.c1, r.c2);
+    r.c2 = j < n ? r.b[j] : 0;
+    return v;
+  }
+};
+
+// The recurrence at one true cell (i, j). The row's state: Il = I and
+// Pl = max(S, D) of (i, j-1), diagM = M of (i-1, j-1); `up(a, m)` gives A
+// and M of the cell above, (i-1, j), and is called only off row 0 (the
+// fetch stays inside the cell's one branch on i). Row 0 and column 0 are
+// the global boundary. `sub()` gives s(i, j) and is called only for i, j
+// >= 1, once a column. Sets I, S, D, M (floored in local mode) and A,
+// moves the row state on, and returns M0, the cell max before the local
+// floor. INTERIOR: the caller knows i, j >= 1, and the boundary branches
+// go (the warp-strip kernel's straight-line steps).
+template <bool LOCAL, bool INTERIOR = false, class UpF, class SubF>
+__device__ __forceinline__ int gotoh_cell(int i, int j, int g, int h, UpF up, SubF sub,
+                                          int& Il, int& Pl, int& diagM, int& I,
+                                          int& S, int& D, int& M, int& A) {
+  const int hg = h + g;
+  if (!INTERIOR && i == 0) {
+    I = j == 0 ? 0 : h + j * g;
+    S = j == 0 ? 0 : NEG_INF;
+    D = S;
+  } else {
+    int upA, upM;
+    up(upA, upM);
+    if (!INTERIOR && j == 0) {
+      I = NEG_INF;
+      S = NEG_INF;
+      D = h + i * g;
+    } else {
+      I = imax(Il + g, Pl + hg);
+      if (LOCAL) I = imax(I, 0);
+      D = upA;
+      S = sub() + diagM;
+    }
+    diagM = upM;
+  }
+  const int Q = imax(I, S);
+  const int M0 = imax(Q, D);  // the cell max before the local floor
+  M = M0;
+  A = imax(Q + hg, D + g);
+  if (LOCAL) {
+    M = imax(M, 0);
+    A = imax(A, 0);
+  }
+  Il = I;
+  Pl = imax(S, D);
+  return M0;
+}
+
+// Keep-last order of local bests: larger v, then larger i, then larger j.
+__device__ __forceinline__ bool better(int v, int i, int j, int bv, int bi, int bj) {
+  return v > bv || (v == bv && (i > bi || (i == bi && j > bj)));
+}
+
+// Merge the block's per-thread bests into (v, i, j) on thread 0 (every
+// thread calls it; the result is thread 0's).
+__device__ __forceinline__ void block_best(int* rv, int* ri, int* rj, int bv,
+                                           int bi, int bj, int& v, int& ii,
+                                           int& jj) {
+  const int t = threadIdx.x;
+  rv[t] = bv;
+  ri[t] = bi;
+  rj[t] = bj;
+  __syncthreads();
+  v = INT_MIN_V;
+  ii = -1;
+  jj = 0;
+  if (t == 0) {
+    for (int u = 0; u < (int)blockDim.x; ++u)
+      if (better(rv[u], ri[u], rj[u], v, ii, jj)) {
+        v = rv[u];
+        ii = ri[u];
+        jj = rj[u];
+      }
+  }
+}
+
+// ---- K9's pipeline hand-off --------------------------------------------------
+
+//: columns a producer publishes at once (a consumer waits once a chunk).
+constexpr int PIPE_CHUNK = 64;
+//: a wait on another block that passes this many ns is a fault.
+constexpr unsigned long long SPIN_NS = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" : : "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spin until *flag >= target (acquire). False when the launch's error
+// word is set, or when this wait passes SPIN_NS (it then sets the word).
+__device__ __noinline__ bool wait_geq(const int* flag, int target, int* err) {
+  if (ld_acquire(flag) >= target) return true;
+  const unsigned long long t0 = globaltimer();
+  for (;;) {
+    __nanosleep(64);
+    if (ld_acquire(flag) >= target) return true;
+    if (*(volatile int*)err) return false;
+    if (globaltimer() - t0 > SPIN_NS) {
+      atomicExch(err, 1);
+      return false;
+    }
+  }
+}
+
+// One pipelined strip's links to its neighbours (pipe_kernel only).
+struct StripLinks {
+  const int* progress_in;  // columns of the top row published by strip s-1
+  int* progress_out;       // this strip's published bottom-row columns
+  int* released;           // set once this strip has read its whole top row
+  int* err;                // the launch's error word
+  int* abort;              // shared: set by warp 0 when a wait failed
+  int* upA;                // shared: the staged chunk of the top row
+  int* upM;
+};
+
+// Sweep strip s of pair p: rows s*T .. s*T + T - 1 (those <= m), columns
+// 0..n. Thread 0 reads the row above from `up` (A at [j], M at [W + j]);
+// the last thread writes its row to `down` when `writes_down`. PIPE: the
+// top row arrives in published chunks (warp 0 stages each chunk in
+// shared memory) and the bottom row is published chunk by chunk. Returns
+// false when a pipeline wait failed (every thread of the block returns).
+template <bool LOCAL, bool PIPE, class Sub>
+__device__ __forceinline__ bool strip_sweep(
+    const Sub& sub, int p, int s, int m, int n, int g, int h, int (*sA)[MAX_T],
+    int (*sM)[MAX_T], int& cur, const int* up, int* down, bool writes_down,
+    unsigned* dp, int V, int* res, int& bv, int& bi, int& bj,
+    const StripLinks& ln) {
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int W = n + 1;
+  const int i = s * T + t;
+  const bool has_row = i <= m;
+  const int in_strip = min(T, m + 1 - s * T);
+  const int nsteps = n + in_strip;
+
+  typename Sub::Row row = sub.row(p, i, m, n);
+  int Il = 0, Pl = 0, diagM = 0;
+  unsigned acc = 0;
+
+  for (int q = 0; q < nsteps; ++q) {
+    if (PIPE && t < 32 && s > 0 && q <= n && (q % PIPE_CHUNK) == 0) {
+      // Warp 0 stages top-row columns q .. q + PIPE_CHUNK - 1 once strip
+      // s-1 has published them (L2 loads: L1 is not coherent across SMs).
+      const int hi = min(q + PIPE_CHUNK, W);
+      if (t == 0 && !wait_geq(ln.progress_in, hi, ln.err)) *ln.abort = 1;
+      __syncwarp();
+      for (int c = q + t; c < hi; c += 32) {
+        ln.upA[c - q] = __ldcg(up + c);
+        ln.upM[c - q] = __ldcg(up + W + c);
+      }
+      __syncwarp();
+      if (t == 0 && hi == W) {  // the whole top row is read: its slot is free
+        __threadfence();
+        st_release(ln.released, 1);
+      }
+    }
+    const int j = q - t;
+    if (has_row && j >= 0 && j <= n) {
+      int I, S, D, M, A;
+      const int M0 = gotoh_cell<LOCAL>(
+          i, j, g, h,
+          [&](int& upA, int& upM) {
+            if (t == 0) {
+              if (PIPE) {
+                upA = ln.upA[j % PIPE_CHUNK];
+                upM = ln.upM[j % PIPE_CHUNK];
+              } else {
+                upA = up[j];
+                upM = up[W + j];
+              }
+            } else {
+              upA = sA[cur ^ 1][t - 1];
+              upM = sM[cur ^ 1][t - 1];
+            }
+          },
+          [&] { return sub.next(row, j, n); }, Il, Pl, diagM, I, S, D, M, A);
+      sA[cur][t] = A;
+      sM[cur][t] = M;
+      if (writes_down) {
+        down[j] = A;
+        down[W + j] = M;
+        if (PIPE && ((j + 1) % PIPE_CHUNK == 0 || j == n))
+          st_release(ln.progress_out, j + 1);  // orders this thread's row stores
+      }
+      if (dp != nullptr) {
+        // Tested against the pre-floor max M0, as in K1: ptxas (CUDA
+        // 12.9, -O1 and up) miscompiles `M == D` after the fused
+        // max-with-zero in local mode (see gotoh_rowblock.cu).
+        const unsigned code = (LOCAL && M0 < 0) ? 3u
+                              : (M0 == S)         ? 0u
+                              : (M0 == I)         ? 1u
+                              : (M0 == D)         ? 2u
+                                                  : 3u;
+        const int k = i + j;
+        const int sp = k & 15;
+        if (j == 0 || sp == 0) acc = 0;
+        acc |= code << (2 * sp);
+        if (sp == 15 || j == n) dp[(size_t)(k >> 4) * V + i] = acc;
+      }
+      if (LOCAL) {
+        // A thread's cells come in row-major order, so >= keeps the last.
+        if (M >= bv) {
+          bv = M;
+          bi = i;
+          bj = j;
+        }
+      } else if (i == m && j == n) {
+        res[3 * p] = M;
+        if (PIPE) {
+          res[3 * p + 1] = m;
+          res[3 * p + 2] = n;
+        }
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+    if (PIPE && (q % PIPE_CHUNK) == 0 && *(volatile int*)ln.abort) return false;
+  }
+  return true;
+}
+
 template <bool LOCAL, class Sub>
 __global__ void __launch_bounds__(MAX_T, 1)
 stream_kernel(Sub sub, const int* __restrict__ ms, const int* __restrict__ ns,
@@ -61,130 +333,35 @@ stream_kernel(Sub sub, const int* __restrict__ ms, const int* __restrict__ ns,
   const int T = blockDim.x;
   const int m = ms[p];
   const int n = ns[p];
-  const int hg = h + g;
   const int W = n + 1;  // scratch row width
   unsigned* dp = dirs == nullptr ? nullptr : dirs + (size_t)p * KW * V;
   int* scr = scratch + (size_t)p * 4 * (Ln + 1);
-  const int rows = m + 1;
-  const int nstrips = (rows + T - 1) / T;
+  const int nstrips = (m + 1 + T - 1) / T;
+  const StripLinks none{};
 
   int bv = INT_MIN_V, bi = -1, bj = 0;  // this thread's keep-last best
   int cur = 0;
-
   for (int s = 0; s < nstrips; ++s) {
-    const int i = s * T + t;
-    const bool has_row = i <= m;
-    const int in_strip = min(T, rows - s * T);
-    const int nsteps = n + in_strip;
     const int* up = scr + ((s + 1) & 1) * 2 * W;  // written by strip s-1
     int* down = scr + (s & 1) * 2 * W;
     const bool writes_down = (t == T - 1) && (s + 1 < nstrips);
-
-    typename Sub::Row row = sub.row(p, i, m, n);
-    int Il = 0, Pl = 0, diagM = 0;
-    unsigned acc = 0;
-
-    for (int q = 0; q < nsteps; ++q) {
-      const int j = q - t;
-      if (has_row && j >= 0 && j <= n) {
-        int I, S, D;
-        if (i == 0) {
-          I = j == 0 ? 0 : h + j * g;
-          S = j == 0 ? 0 : NEG_INF;
-          D = S;
-        } else {
-          int upA, upM;
-          if (t == 0) {
-            upA = up[j];
-            upM = up[W + j];
-          } else {
-            upA = sA[cur ^ 1][t - 1];
-            upM = sM[cur ^ 1][t - 1];
-          }
-          if (j == 0) {
-            I = NEG_INF;
-            S = NEG_INF;
-            D = h + i * g;
-          } else {
-            I = imax(Il + g, Pl + hg);
-            if (LOCAL) I = imax(I, 0);
-            D = upA;
-            S = sub.next(row, j, n) + diagM;
-          }
-          diagM = upM;
-        }
-        const int Q = imax(I, S);
-        const int M0 = imax(Q, D);  // the cell max before the local floor
-        int M = M0;
-        int A = imax(Q + hg, D + g);
-        if (LOCAL) {
-          M = imax(M, 0);
-          A = imax(A, 0);
-        }
-        Il = I;
-        Pl = imax(S, D);
-        sA[cur][t] = A;
-        sM[cur][t] = M;
-        if (writes_down) {
-          down[j] = A;
-          down[W + j] = M;
-        }
-        if (dp != nullptr) {
-          // Tested against the pre-floor max M0, as in K1: ptxas (CUDA
-          // 12.9, -O1 and up) miscompiles `M == D` after the fused
-          // max-with-zero in local mode (see gotoh_rowblock.cu).
-          const unsigned code = (LOCAL && M0 < 0) ? 3u
-                                : (M0 == S)         ? 0u
-                                : (M0 == I)         ? 1u
-                                : (M0 == D)         ? 2u
-                                                    : 3u;
-          const int k = i + j;
-          const int sp = k & 15;
-          if (j == 0 || sp == 0) acc = 0;
-          acc |= code << (2 * sp);
-          if (sp == 15 || j == n) dp[(size_t)(k >> 4) * V + i] = acc;
-        }
-        if (LOCAL) {
-          if (M >= bv) {
-            bv = M;
-            bi = i;
-            bj = j;
-          }
-        } else if (i == m && j == n) {
-          res[3 * p] = M;
-        }
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
+    strip_sweep<LOCAL, false>(sub, p, s, m, n, g, h, sA, sM, cur, up, down,
+                              writes_down, dp, V, res, bv, bi, bj, none);
   }
 
-  // Merge the per-thread bests: max v, then max i (then that row's j).
   // Thread 0 owns row 0, whose cells are all >= 0, so the merge always
   // finds a true cell.
   if (LOCAL) {
-    rv[t] = bv;
-    ri[t] = bi;
-    rj[t] = bj;
-  }
-  __syncthreads();
-  if (t == 0) {
-    if (LOCAL) {
-      int v = INT_MIN_V, ii = -1, jj = 0;
-      for (int u = 0; u < T; ++u) {
-        if (rv[u] > v || (rv[u] == v && ri[u] > ii)) {
-          v = rv[u];
-          ii = ri[u];
-          jj = rj[u];
-        }
-      }
+    int v, ii, jj;
+    block_best(rv, ri, rj, bv, bi, bj, v, ii, jj);
+    if (t == 0) {
       res[3 * p] = v;
       res[3 * p + 1] = ii;
       res[3 * p + 2] = jj;
-    } else {
-      res[3 * p + 1] = m;
-      res[3 * p + 2] = n;
     }
+  } else if (t == 0) {
+    res[3 * p + 1] = m;
+    res[3 * p + 2] = n;
   }
 }
 
@@ -200,6 +377,153 @@ int launch_stream(const Sub& sub, const int* ms, const int* ns, unsigned* dirs,
   } else {
     stream_kernel<false, Sub><<<B, threads, 0, s>>>(sub, ms, ns, dirs, res, scratch,
                                                     Ln, V, KW, g, h);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- the strip pipeline (K9) -------------------------------------------------
+
+// The host's plan of one pipelined launch (int32 arrays on the device).
+struct PipePlan {
+  const int* ms;           // [B] true lengths
+  const int* ns;           // [B]
+  const int* strip0;       // [B+1] pair p's strips are ids strip0[p] ..
+  const int* level_start;  // [nlevels+1] first ticket of strip level s
+  const int* by_strips;    // [B] pairs by strip count, descending
+  const int* slot0;        // [B] pair p's first ring slot
+  const int* slots;        // [B] its ring slots (0 for a one-strip pair)
+  int B, nlevels, total;
+};
+
+// The launch's zeroed workspace, in this order: ticket, error word,
+// progress[total], released[total], finished[B], best[3 * total].
+struct PipeWork {
+  int* ticket;
+  int* err;
+  int* progress;
+  int* released;
+  int* finished;
+  int* best;
+};
+
+// Persistent blocks: each takes a ticket, sweeps that strip and takes the
+// next. Tickets go level by level (strip 0 of every pair, then strip 1
+// of every pair that has one, ...), so a strip's predecessor always holds
+// an earlier ticket: it has started on a running block, and no wait can
+// deadlock whatever the occupancy. Strip s of pair p reads its top row
+// from ring slot (s-1) % slots[p] and writes its bottom row to slot
+// s % slots[p] once the strip that last read that slot has released it.
+template <bool LOCAL, class Sub>
+__global__ void __launch_bounds__(MAX_T)
+pipe_kernel(Sub sub, PipePlan plan, PipeWork work, int* __restrict__ ring,
+            int* __restrict__ res, int Ln, int g, int h) {
+  __shared__ int sA[2][MAX_T];
+  __shared__ int sM[2][MAX_T];
+  __shared__ int rv[MAX_T], ri[MAX_T], rj[MAX_T];
+  __shared__ int sUpA[PIPE_CHUNK], sUpM[PIPE_CHUNK];
+  __shared__ int s_p, s_s, s_abort;
+
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const size_t slot_ints = 2 * (size_t)(Ln + 1);
+  int cur = 0;
+  for (;;) {
+    if (t == 0) {
+      const int tk = *(volatile int*)work.err ? plan.total : atomicAdd(work.ticket, 1);
+      int lv = 0;
+      if (tk < plan.total) {  // the level holding ticket tk
+        int hi = plan.nlevels;
+        while (hi - lv > 1) {
+          const int mid = (lv + hi) >> 1;
+          if (plan.level_start[mid] <= tk) lv = mid;
+          else hi = mid;
+        }
+        s_p = plan.by_strips[tk - plan.level_start[lv]];
+      } else {
+        s_p = -1;
+      }
+      s_s = lv;
+      s_abort = 0;
+    }
+    __syncthreads();
+    const int p = s_p, s = s_s;
+    if (p < 0) return;
+    const int m = plan.ms[p], n = plan.ns[p];
+    const int gid = plan.strip0[p] + s;
+    const int nst = plan.strip0[p + 1] - plan.strip0[p];
+    const int nslots = plan.slots[p];
+    int* ring_p = ring + (size_t)plan.slot0[p] * slot_ints;
+    const int* up = s > 0 ? ring_p + (size_t)((s - 1) % nslots) * slot_ints : nullptr;
+    int* down = s + 1 < nst ? ring_p + (size_t)(s % nslots) * slot_ints : nullptr;
+    // The slot this strip writes was last read by strip s - nslots + 1.
+    if (t == 0 && down != nullptr && s >= nslots &&
+        !wait_geq(work.released + gid - nslots + 1, 1, work.err))
+      s_abort = 1;
+    __syncthreads();
+    if (s_abort) return;
+
+    const StripLinks ln{s > 0 ? work.progress + gid - 1 : nullptr,
+                        work.progress + gid, work.released + gid, work.err,
+                        &s_abort, sUpA, sUpM};
+    int bv = INT_MIN_V, bi = -1, bj = 0;
+    const bool writes_down = down != nullptr && t == T - 1;
+    if (!strip_sweep<LOCAL, true>(sub, p, s, m, n, g, h, sA, sM, cur, up, down,
+                                  writes_down, nullptr, 0, res, bv, bi, bj, ln))
+      return;
+
+    if (LOCAL) {
+      // The strip's best, then the pair's once its last strip is done.
+      // Thread 0's row (s*T) is a true row, so the strip has a cell >= 0.
+      int v, ii, jj;
+      block_best(rv, ri, rj, bv, bi, bj, v, ii, jj);
+      if (t == 0) {
+        work.best[3 * gid] = v;
+        work.best[3 * gid + 1] = ii;
+        work.best[3 * gid + 2] = jj;
+        __threadfence();
+        if (atomicAdd(work.finished + p, 1) == nst - 1) {
+          __threadfence();
+          int V = INT_MIN_V, I = -1, J = 0;
+          for (int u = plan.strip0[p]; u < plan.strip0[p + 1]; ++u) {
+            const int uv = __ldcg(work.best + 3 * u), ui = __ldcg(work.best + 3 * u + 1),
+                      uj = __ldcg(work.best + 3 * u + 2);
+            if (better(uv, ui, uj, V, I, J)) {
+              V = uv;
+              I = ui;
+              J = uj;
+            }
+          }
+          res[3 * p] = V;
+          res[3 * p + 1] = I;
+          res[3 * p + 2] = J;
+        }
+      }
+      __syncthreads();  // rv/ri/rj are read before the next strip rewrites them
+    }
+  }
+}
+
+// Blocks of `threads` one SM holds for the pipeline (the launch sizes its
+// persistent grid and ring from it).
+template <class Sub>
+int pipe_blocks_per_sm(int threads, int is_local) {
+  int n = 0;
+  cudaError_t e = is_local
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pipe_kernel<true, Sub>, threads, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pipe_kernel<false, Sub>, threads, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <class Sub>
+int launch_pipe(const Sub& sub, const PipePlan& plan, const PipeWork& work, int* ring,
+                int* res, int Ln, int g, int h, int is_local, int threads, int blocks,
+                cudaStream_t s) {
+  if (threads < 32 || threads > MAX_T || (threads & 31) || blocks < 1 || plan.total < 1)
+    return (int)cudaErrorInvalidValue;
+  if (is_local) {
+    pipe_kernel<true, Sub><<<blocks, threads, 0, s>>>(sub, plan, work, ring, res, Ln, g, h);
+  } else {
+    pipe_kernel<false, Sub><<<blocks, threads, 0, s>>>(sub, plan, work, ring, res, Ln, g, h);
   }
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 ``genomics_rs_tpu/models/msa.py``).
 
 1. **Center selection**: the all-pairs global score matrix
-   (``parallel/allpairs``: K6/K3 for DNA, the matrix fill under
-   ``matrix=``); the center is the sequence with the largest summed score
+   (``parallel/allpairs``: the router's tier for each DNA bucket, the
+   matrix fill under ``matrix=``); the center is the sequence with the largest summed score
    against the rest (ties: the smallest index).
 2. **Star alignments**: every other sequence aligned globally to the
    center. DNA: one batched dirs fill and one batched walk per group
@@ -254,8 +254,9 @@ def center_star_msa(container: SequenceContainer, scores: Scores, engine: str = 
     ``device`` (``"cuda"`` runs the kernels, ``"cpu"`` their plain
     versions).
 
-    ``engine``: ``"auto"`` and ``"pallas"`` take the batched route
-    (``"scan"`` is not ported). ``matrix`` (a ``SubstMatrix``) switches
+    ``engine``: ``"auto"`` and ``"pallas"`` take the batched route, the
+    DNA score pass on that engine (``"pallas"``: K9 on every bucket);
+    ``"scan"`` is not ported. ``matrix`` (a ``SubstMatrix``) switches
     to full-matrix scoring, protein MSA: ``allpairs_matrix_scores`` and
     ``matrix_align_batch``; gap costs still come from
     ``scores.g``/``scores.h``.
@@ -280,7 +281,7 @@ def center_star_msa(container: SequenceContainer, scores: Scores, engine: str = 
             ap = allpairs_matrix_scores(container, matrix, g=scores.g, h=scores.h,
                                         is_local=False, device=dev)
         else:
-            ap = allpairs_scores(container, scores, is_local=False, device=dev)
+            ap = allpairs_scores(container, scores, is_local=False, engine=engine, device=dev)
     # Symmetrize the lower triangle; the diagonal (self scores) stays out
     # of the center sum.
     mat = ap.matrix

@@ -138,6 +138,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.matrix_profile_launch.restype = i
     lib.gotoh_matrix_launch.argtypes = [vp] * 7 + [i] * 10 + [vp]
     lib.gotoh_matrix_launch.restype = i
+    lib.gotoh_segmented_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
+    lib.gotoh_segmented_launch.restype = i
+    lib.gotoh_pallas_blocks_per_sm.argtypes = [i, i]
+    lib.gotoh_pallas_blocks_per_sm.restype = i
+    lib.gotoh_pallas_launch.argtypes = [vp] * 6 + [i] * 14 + [vp]
+    lib.gotoh_pallas_launch.restype = i
 
 
 def uses_kernel(t: torch.Tensor) -> bool:

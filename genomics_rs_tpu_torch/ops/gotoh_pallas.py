@@ -1,0 +1,254 @@
+"""Batch scores by a strip pipeline (kernel K9; counterpart of
+``genomics_rs_tpu/ops/gotoh_pallas.py``'s ``gotoh_scores_pallas_batch``,
+and of the helpers its sibling modules import from it: ``ROWS``,
+``drift_rate_or_none``, ``concrete_lengths_or_none``).
+
+:func:`gotoh_scores_pallas_batch` keeps its JAX namesake's contract: for a
+padded batch ``s1eb`` (B, Lm), ``s2eb`` (B, Ln) of uint8 byte codes with
+true lengths ``ms``/``ns``, each pair's global score at ``(m, n)`` or its
+local keep-last row-major argmax ``(v, i, j)``, as ``(score, start_i,
+start_j)`` int32 tensors of shape (B,).
+
+On a CUDA tensor it launches ``csrc/gotoh_pallas.cu``: every row strip of
+``rows_per_strip`` rows is one block's work, the strips of a pair running
+on many SMs at once, each fed the bottom row of the strip above through a
+ring of boundary rows (see the source's note). On a CPU tensor it runs
+:func:`gotoh_strips_plain`, the same decomposition: strips one after
+another, each strip's bottom A/M row carried to the next, the local bests
+merged across strips by (larger v, larger i, larger j).
+
+The kernel computes only true cells, so it needs none of the JAX
+wrappers' int32 drift guard (``drift_rate_or_none``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN
+from genomics_rs_tpu_torch.ops.gotoh_stream import _lengths, wavefront_plain
+from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
+from genomics_rs_tpu_torch.sequence import round_up
+
+#: sublane count of the JAX flat layout (kept for the modules that import
+#: it there; the port's kernels have no panes).
+ROWS = 8
+#: rows of a pipeline strip (threads of a block): phase 23 of
+#: ``chip_smoke.py`` measures the pipeline at this height.
+PIPE_ROWS = 256
+#: bytes the pipeline's ring of boundary rows may take on the card.
+RING_BYTES = 2 << 30
+
+#: launches of the CUDA kernel / calls of the plain version.
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+def drift_rate_or_none(scores) -> int | None:
+    """The JAX kernels' worst-case per-diagonal drift of an unclamped
+    padded lane (their int32 headroom guard raises past ``2**30``), or
+    None when the scores cannot be read as integers. The port's kernels
+    compute only true cells and do not need it."""
+    try:
+        st = getattr(scores, "s_transition", None)
+        return (abs(int(scores.g)) + abs(int(scores.h)) + abs(int(scores.s_mismatch))
+                + abs(int(scores.s_match)) + (abs(int(st)) if st is not None else 0) + 1)
+    except (AttributeError, TypeError, ValueError):
+        return None
+
+
+def concrete_lengths_or_none(ms, ns):
+    """``(ms, ns)`` as int64 numpy, or None when they cannot be read
+    (a meta tensor, say)."""
+    try:
+        return tuple(np.asarray(x.cpu() if torch.is_tensor(x) else x, np.int64).reshape(-1)
+                     for x in (ms, ns))
+    except (TypeError, ValueError, NotImplementedError, RuntimeError):
+        return None
+
+
+def pipe_rows(Lm: int, rows_per_strip: int = PIPE_ROWS) -> int:
+    """The strip height (block threads) for a bucket of padded ``Lm``
+    rows: ``rows_per_strip``, or fewer for a shorter bucket (a multiple
+    of 32)."""
+    return min(rows_per_strip, round_up(Lm + 1, 32))
+
+
+def gotoh_scores_pallas_batch(s1eb, s2eb, ms, ns, scores, is_local: bool = False):
+    """``(score, start_i, start_j)``, int32 tensors of shape (B,) on the
+    batch's device. The device of ``s1eb`` picks the route: CUDA launches
+    the strip pipeline, CPU runs :func:`gotoh_strips_plain` at the same
+    strip height."""
+    if _build.uses_kernel(s1eb):
+        return _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local)
+    COUNTS["plain"] += 1
+    return gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local, pipe_rows(s1eb.shape[1]))
+
+
+def gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local: bool = False,
+                       rows_per_strip: int = PIPE_ROWS):
+    """The plain PyTorch version of the strip kernels (K9's pipeline, and
+    K7/K8's warp strips at ``32 * R`` rows): each pair is filled in strips
+    of ``rows_per_strip`` rows, one after another, by the batched
+    anti-diagonal step of :func:`wavefront_plain` over the strip's rows;
+    the strip's bottom A/M row is carried to the next strip (lane 0 there
+    replays it), and the local bests are merged across strips by larger v,
+    then larger i, then larger j. Runs on the tensors' device; returns
+    ``(score, start_i, start_j)`` int32 tensors of shape (B,)."""
+    H = int(rows_per_strip)
+    if H < 1:
+        raise ValueError(f"rows_per_strip = {H}: at least one row a strip")
+    dev = s1eb.device
+    B, Lm = s1eb.shape
+    Ln = s2eb.shape[1]
+    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = scores.s_transition if kimura_active(scores) else None
+    s1c = encode_chars(s1eb, scores)
+    s2c = encode_chars(s2eb, scores)
+    s2pad = torch.full((B, 1), sentinel(0xFF, scores), **i32)
+
+    best = [torch.full((B,), INT_MIN, **i32), torch.full((B,), -1, **i32),
+            torch.zeros((B,), **i32)]
+    fin = torch.full((B,), INT_MIN, **i32)
+    top = None
+    nstrips = (int(ms_h.max(initial=0)) + H) // H if B else 0
+    for s in range(nstrips):
+        # Lane 0 is row 0 in the first strip, the carried row s*H - 1 after.
+        i0 = 0 if s == 0 else s * H - 1
+        V = H if s == 0 else H + 1
+        rows = torch.arange(i0, i0 + V, device=dev)
+        s1m = torch.full((B, V), sentinel(0xFD, scores), **i32)
+        real = (rows >= 1) & (rows <= Lm)
+        s1m[:, real] = s1c[:, rows[real] - 1]
+        s2j = torch.full((B, V), 0xFF, **i32)
+
+        def sub_at(k: int) -> torch.Tensor:
+            # The s2 character of lane iv's column j = k - iv shifts in at lane 0.
+            nonlocal s2j
+            inj = s2c[:, max(k - 1, 0) : max(k - 1, 0) + 1] if k - 1 < Ln else s2pad
+            s2j = torch.cat([inj, s2j[:, :-1]], 1)
+            return sub_score(s1m, s2j, scores.s_match, scores.s_mismatch, st)
+
+        last = s == nstrips - 1
+        out = wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, scores.g, scores.h, is_local,
+                              False, dev, i0=i0, V=V, top=top, emit_bottom=not last)
+        fill, top = (out, None) if last else out
+        if is_local:
+            v, i, j = fill.score, fill.start_i, fill.start_j
+            take = (v > best[0]) | ((v == best[0]) & ((i > best[1]) | ((i == best[1]) & (j > best[2]))))
+            best = [torch.where(take, x, y) for x, y in zip((v, i, j), best)]
+        else:
+            fin = torch.where(fill.score != INT_MIN, fill.score, fin)
+    if is_local:
+        return tuple(best)
+    return (fin, torch.as_tensor(ms_h, dtype=torch.int32).to(dev),
+            torch.as_tensor(ns_h, dtype=torch.int32).to(dev))
+
+
+def ring_budget(Ln: int) -> int:
+    """Ring slots (2 x (Ln + 1) int32 each) that ``RING_BYTES`` holds."""
+    return RING_BYTES // (8 * (Ln + 1))
+
+
+def pipeline_groups(ms_h, Ln: int, rows: int) -> list[tuple[int, int]]:
+    """Split a bucket into launches whose rings fit ``RING_BYTES``:
+    contiguous pair ranges ``[lo, hi)``. A pair of s strips needs
+    ``min(s - 1, 2)`` slots (strip s - 1 writes the slot strip s - 2 read),
+    so a launch takes pairs while their needs fit the budget."""
+    need = np.minimum((np.asarray(ms_h, np.int64) + rows) // rows - 1, 2)
+    budget = ring_budget(Ln)
+    if budget < int(need.max(initial=0)):
+        raise ValueError(f"gotoh_pallas: two ring slots of {Ln + 1} columns pass RING_BYTES")
+    groups, lo, used = [], 0, 0
+    for p, k in enumerate(need.tolist()):
+        if used + k > budget:
+            groups.append((lo, p))
+            lo, used = p, 0
+        used += k
+    groups.append((lo, len(need)))
+    return groups
+
+
+def pipeline_plan(ms_h, ns_h, Ln: int, rows: int, resident: int):
+    """The host's plan of one pipelined launch: ``(plan int32 array,
+    nlevels, total strips, persistent blocks, ring slots)``. Tickets go
+    level by level (strip s of every pair that has one), pairs ordered by
+    strip count; each pair gets ``min(strips - 1, k)`` ring slots, ``k``
+    from 2 (a strip never writes the slot it reads) up to ``ceil(blocks /
+    B) + 1``, as large as ``RING_BYTES`` allows. The pairs must fit at
+    ``k = 2`` (:func:`pipeline_groups`)."""
+    B = len(ms_h)
+    strips = (np.asarray(ms_h, np.int64) + rows) // rows
+    strip0 = np.concatenate([[0], np.cumsum(strips)])
+    total = int(strip0[-1])
+    nlevels = int(strips.max())
+    by_strips = np.argsort(-strips, kind="stable")
+    level_start = np.concatenate([[0], np.cumsum([(strips > s).sum() for s in range(nlevels)])])
+    blocks = max(1, min(total, resident))
+    budget = ring_budget(Ln)
+    lo, hi = 2, max(2, -(-blocks // B) + 1)  # the most slots a pair that fit the budget
+    if np.minimum(strips - 1, lo).sum() > budget:
+        raise ValueError("gotoh_pallas: the pairs' two ring slots each pass RING_BYTES")
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if np.minimum(strips - 1, mid).sum() <= budget else (lo, mid - 1)
+    slots = np.minimum(strips - 1, lo)
+    slot0 = np.concatenate([[0], np.cumsum(slots)[:-1]])
+    plan = np.concatenate([ms_h, ns_h, strip0, level_start, by_strips, slot0, slots])
+    return plan.astype(np.int32), nlevels, total, blocks, int(slots.sum())
+
+
+def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
+                 max_blocks=None):
+    """Launch the pipeline at strips of ``pipe_rows(Lm, rows_per_strip)``
+    rows, once for each of :func:`pipeline_groups`' pair ranges (one
+    launch unless the bucket's ring passes ``RING_BYTES``); ``max_blocks``
+    caps the persistent grid below what the card holds (the card tests
+    cycle tickets and ring slots with it)."""
+    dev = s1eb.device
+    if dev.type != "cuda":
+        raise ValueError(f"the K9 kernel takes CUDA tensors, not {dev}")
+    B, Lm = s1eb.shape
+    Ln = s2eb.shape[1]
+    _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
+    _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
+    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if B == 0:
+        return tuple(torch.empty((0,), **i32) for _ in range(3))
+    lib = _build.library()
+    rows = pipe_rows(Lm, rows_per_strip)
+    with torch.cuda.device(dev):
+        per_sm = lib.gotoh_pallas_blocks_per_sm(rows, int(is_local))
+    if per_sm < 1:
+        raise RuntimeError(f"gotoh_pallas: no block of {rows} threads fits an SM ({per_sm})")
+    resident = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    if max_blocks is not None:
+        resident = min(resident, int(max_blocks))
+    kim = kimura_active(scores)
+    s1c = encode_chars(s1eb, scores).contiguous()
+    s2c = encode_chars(s2eb, scores).contiguous()
+    res = torch.empty((B, 3), **i32)
+    errs = []
+    for lo, hi in pipeline_groups(ms_h, Ln, rows):
+        plan_h, nlevels, total, blocks, nslots = pipeline_plan(
+            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident)
+        plan = torch.from_numpy(plan_h).to(dev)
+        work = torch.zeros(2 + 5 * total + (hi - lo), **i32)
+        ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
+        with torch.cuda.device(dev):
+            err = lib.gotoh_pallas_launch(
+                _build.ptr(s1c[lo:hi]), _build.ptr(s2c[lo:hi]), _build.ptr(plan),
+                _build.ptr(work), _build.ptr(ring), _build.ptr(res[lo:hi]), hi - lo, Lm, Ln,
+                nlevels, total, scores.s_match, scores.s_mismatch,
+                scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
+                int(is_local), rows, blocks, _build.stream_handle(dev),
+            )
+        _build.check(err, "gotoh_pallas")
+        COUNTS["kernel"] += 1
+        errs.append(work[1])
+    if int(torch.stack(errs).max()) != 0:  # the launches' error words (synchronises)
+        raise RuntimeError("gotoh_pallas: a strip pipeline wait passed its bound")
+    return res[:, 0], res[:, 1], res[:, 2]

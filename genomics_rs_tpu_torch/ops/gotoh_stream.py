@@ -201,32 +201,51 @@ def gotoh_stream_plain(
 
 
 def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int,
-                    is_local: bool, emit_dirs: bool, dev) -> StreamFill:
+                    is_local: bool, emit_dirs: bool, dev, i0: int = 0, V: int | None = None,
+                    top=None, emit_bottom: bool = False):
     """The batched fill's plain body, shared by K3's and the matrix
     fill's plain versions: ``sub_at(k)`` gives the (B, V) int32
     substitution scores of anti-diagonal ``k`` (lane ``iv`` holds cell
-    ``(iv, k - iv)``; any bounded value off the true cells). Lanes ahead
-    of the wavefront and cells past a pair's (m, n) carry bounded
+    ``(i0 + iv, k - iv)``; any bounded value off the true cells). Lanes
+    ahead of the wavefront and cells past a pair's (m, n) carry bounded
     garbage that no true cell reads, and the local argmax masks them
-    out."""
-    KW, V = dirs_shape(Lm, Ln)
+    out.
+
+    A row strip (``gotoh_strips_plain``) runs the same step over ``V``
+    lanes from row ``i0``: with ``top`` = (A, M) int32 (B, Ln + 1) of
+    row ``i0`` (the strip above's bottom), lane 0 replays that row and
+    lanes 1.. are the strip's rows; without it, lane 0 is row 0, the
+    global top boundary. Results (the local best in global rows, the
+    global score) cover the strip's own rows only; ``emit_bottom``
+    returns ``(fill, (A, M))`` with lane ``V - 1``'s row."""
+    if emit_dirs and top is not None:
+        raise ValueError("dirs are emitted for whole tables only (no carried top row)")
+    KW, V0 = dirs_shape(Lm, Ln)
+    V = V0 if V is None else V
+    lo = 0 if top is None else 1  # the first lane that is the strip's own row
     i32 = dict(dtype=torch.int32, device=dev)
     hg = g + h
     iv = torch.arange(V, **i32)[None, :]
-    m_col = torch.as_tensor(ms_h, dtype=torch.int32).to(dev)[:, None]
+    ms_loc = np.asarray(ms_h, np.int64) - i0
+    m_col = torch.as_tensor(ms_loc, dtype=torch.int32).to(dev)[:, None]
     n_col = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)[:, None]
     neg1 = torch.full((B, 1), NEG_INF, **i32)
     I = torch.full((B, V), NEG_INF, **i32)
     P, A, M, SM = I.clone(), I.clone(), I.clone(), I.clone()
-    K = int((ms_h + ns_h).max()) + 1 if B else 0
+    K = int((np.clip(ms_loc, 0, V - 1) + ns_h).max()) + 1 if B else 0
+    if emit_bottom and B:
+        K = max(K, V + int(np.max(ns_h)))
     probes: dict[int, list[int]] = {}
     for p in range(B):
-        probes.setdefault(int(ms_h[p] + ns_h[p]), []).append(p)
+        if lo <= ms_loc[p] < V:
+            probes.setdefault(int(ms_loc[p] + ns_h[p]), []).append(p)
     fin = torch.full((B,), INT_MIN, **i32)
     bv = torch.full((B, V), INT_MIN, **i32)
     bk = torch.zeros((B, V), **i32)
     acc = torch.zeros((B, V), dtype=torch.int64, device=dev)
     dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
+    bottom = (torch.full((B, Ln + 1), NEG_INF, **i32),
+              torch.full((B, Ln + 1), NEG_INF, **i32)) if emit_bottom else None
 
     for k in range(K):
         Dn = torch.cat([neg1, A[:, :-1]], 1)
@@ -240,12 +259,13 @@ def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int
         if k < V:  # column 0 of lane k
             In[:, k] = NEG_INF
             Sn[:, k] = NEG_INF
-            Dn[:, k] = h + k * g
+            Dn[:, k] = h + (i0 + k) * g
         Qn = torch.maximum(In, Sn)
-        # Row 0 is the global top boundary (corner 0).
-        tI, tS = (0, 0) if k == 0 else (h + k * g, NEG_INF)
-        Qn[:, 0] = max(tI, tS)
-        Dn[:, 0] = tS
+        if top is None:
+            # Row 0 is the global top boundary (corner 0).
+            tI, tS = (0, 0) if k == 0 else (h + k * g, NEG_INF)
+            Qn[:, 0] = max(tI, tS)
+            Dn[:, 0] = tS
         Mn = torch.maximum(Qn, Dn)
         if is_local:
             Mn = torch.clamp_min(Mn, 0)
@@ -266,7 +286,7 @@ def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int
 
         if is_local:
             j = k - iv
-            val = torch.where((iv <= m_col) & (j >= 0) & (j <= n_col), Mn, INT_MIN)
+            val = torch.where((iv >= lo) & (iv <= m_col) & (j >= 0) & (j <= n_col), Mn, INT_MIN)
             upd = val >= bv
             bv = torch.where(upd, val, bv)
             bk = torch.where(upd, j, bk)
@@ -277,12 +297,19 @@ def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int
         An = torch.maximum(Qn + hg, Dn + g)
         if is_local:
             An = torch.clamp_min(An, 0)
+        if top is not None:  # lane 0 replays the carried row
+            An[:, 0], Mn[:, 0] = (top[0][:, k], top[1][:, k]) if k <= Ln else (NEG_INF,) * 2
+        if emit_bottom and 0 <= k - (V - 1) <= Ln:
+            bottom[0][:, k - (V - 1)] = An[:, V - 1]
+            bottom[1][:, k - (V - 1)] = Mn[:, V - 1]
         I, P, A, M, SM = In, torch.maximum(Sn, Dn), An, Mn, SMn
 
     if not is_local:
-        return StreamFill(fin, m_col[:, 0].clone(), n_col[:, 0].clone(), dirs)
-    vmax = bv.max(1).values
-    tied = bv == vmax[:, None]
-    i_best = torch.where(tied, iv, -1).max(1).values
-    j_best = torch.where(tied & (iv == i_best[:, None]), bk, -1).max(1).values
-    return StreamFill(vmax, i_best.to(torch.int32), j_best.to(torch.int32), dirs)
+        fill = StreamFill(fin, m_col[:, 0] + i0, n_col[:, 0].clone(), dirs)
+    else:
+        vmax = bv.max(1).values
+        tied = bv == vmax[:, None]
+        i_best = torch.where(tied, iv, -1).max(1).values
+        j_best = torch.where(tied & (iv == i_best[:, None]), bk, -1).max(1).values
+        fill = StreamFill(vmax, (i_best + i0).to(torch.int32), j_best.to(torch.int32), dirs)
+    return (fill, bottom) if emit_bottom else fill

@@ -7,7 +7,9 @@ Every pair (i <= j) of a container is globally or locally scored and
 the matrix is kept as a lower triangle, like the reference's similarity
 matrix. Pairs are grouped by power-of-two length class, each group
 padded to its own longest lengths (round 128) and scored in one
-``score_pairs`` call: one K3 launch per bucket on a CUDA device.
+``score_pairs`` call on the given engine: under ``"auto"`` the router's
+tier for the bucket's shape (K6, K7/K8, K3 or K9), one launch a bucket on
+a CUDA device.
 ``allpairs_matrix_scores`` (protein) scores each bucket under a
 substitution matrix with one profile and one matrix fill
 (``ops/gotoh_matrix``; buckets over 1,024 pairs in groups of 1,024).
@@ -97,7 +99,8 @@ def _score_pairs_bucketed(container, pairs, lens, scores, is_local: bool,
 def allpairs_scores(container: SequenceContainer, scores, is_local: bool = False,
                     engine: str = "auto", device="cuda") -> AllPairsResult:
     """Score matrix over all pairs (i <= j), lower-triangle layout, on
-    ``device`` (``"cuda"`` runs K3, ``"cpu"`` its plain version)."""
+    ``device`` (``"cuda"`` runs the kernels, ``"cpu"`` their plain
+    versions); ``engine`` is any of ``score_pairs``'."""
     dev = resolve_device(device)
     names = [s.name for s in container.sequences]
     num = len(names)

@@ -98,9 +98,22 @@ def test_pad_batch_matches_jax(pad_values):
 
 @pytest.mark.parametrize("engine", ["segmented", "stream8", "pallas", "scan"])
 def test_unported_engines_raise(engine):
-    s = np.zeros((1, 128), np.uint8)
-    with pytest.raises(NotImplementedError, match="K7–K9"):
-        batch.score_pairs(s, s, [1], [1], Scores(), engine=engine, device="cpu")
+    """Only ``"scan"`` is left unported; the K7–K9 tiers give the scan
+    oracle's scores and start cells."""
+    from genomics_rs_tpu.parallel.batch import batch_scores
+
+    rng = np.random.default_rng(6)
+    s1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), (3, 384))
+    s2 = rng.choice(np.frombuffer(b"ACGT", np.uint8), (3, 128))
+    ms, ns = np.array([384, 300, 0], np.int32), np.array([128, 99, 5], np.int32)
+    if engine == "scan":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            batch.score_pairs(s1, s2, ms, ns, Scores(), engine=engine, device="cpu")
+        return
+    got = batch.score_pairs(s1, s2, ms, ns, Scores(), True, engine=engine, device="cpu")
+    want = batch_scores(s1, s2, ms, ns, JaxScores(), True)
+    for g, w in zip(got, (want.score, want.start_i, want.start_j)):
+        assert np.array_equal(g, np.asarray(w))
 
 
 def test_score_pairs_stream_equals_auto():
@@ -289,7 +302,9 @@ def test_port_modules_do_not_import_jax():
         "genomics_rs_tpu_torch.ops.gotoh_shortread, genomics_rs_tpu_torch.ops.traceback_batch, "
         "genomics_rs_tpu_torch.models.reads, genomics_rs_tpu_torch.models.mapper, "
         "genomics_rs_tpu_torch.models.caller, genomics_rs_tpu_torch.ops.gotoh_matrix, "
-        "genomics_rs_tpu_torch.ops.gotoh_matrix_stream, genomics_rs_tpu_torch.ops.subst; "
+        "genomics_rs_tpu_torch.ops.gotoh_matrix_stream, genomics_rs_tpu_torch.ops.subst, "
+        "genomics_rs_tpu_torch.ops.gotoh_segmented, genomics_rs_tpu_torch.ops.gotoh_stream8, "
+        "genomics_rs_tpu_torch.ops.gotoh_pallas; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

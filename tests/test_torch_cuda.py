@@ -4,8 +4,8 @@ Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
 hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12, the query profile
-and the matrix fill of K13–K15) equal to the plain versions, bit for
-bit.
+and the matrix fill of K13–K15, the warp-strip kernel of K7/K8 and the
+strip pipeline of K9) equal to the plain versions, bit for bit.
 """
 
 import numpy as np
@@ -18,9 +18,12 @@ from genomics_rs_tpu_torch.models.banded import align_banded
 from genomics_rs_tpu_torch.ops import gotoh_banded as gb
 from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
 from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
 from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+from genomics_rs_tpu_torch.ops import gotoh_stream8 as gs8
 from genomics_rs_tpu_torch.ops import traceback_batch as tb
 from genomics_rs_tpu_torch.ops import traceback_device as td
 from genomics_rs_tpu_torch.ops import traceback_walker as tw
@@ -446,3 +449,110 @@ def test_matrix_aligners_cuda_match_cpu(cuda, is_local):
     one = PairwiseAligner(Scores(0, 0, -1, -11), is_local, device="cuda", matrix=mx)
     assert (one.align(*pairs[3]).alignment, one.score_only(*pairs[3])) == (
         want[3].alignment, want[3].score)
+
+
+#: a ragged batch for the strip kernels: empty sequences, one-base pairs,
+#: lengths that are multiples of nothing, rows past one strip of 256.
+STRIP_MS, STRIP_NS = [700, 0, 130, 1, 257, 700, 513], [650, 33, 0, 1, 700, 64, 511]
+
+
+def _mismatch_batch(ms, ns, L):
+    """All-mismatch pairs (A against T): every local cell is 0, so the
+    keep-last best is (0, m, n)."""
+    s1 = np.full((len(ms), L), 0xFE, np.uint8)
+    s2 = np.full((len(ms), L), PAD_S2, np.uint8)
+    for b, (m, n) in enumerate(zip(ms, ns)):
+        s1[b, :m], s2[b, :n] = ord("A"), ord("T")
+    return torch.from_numpy(s1), torch.from_numpy(s2), np.array(ms), np.array(ns)
+
+
+def _same_scores(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+def test_warp_strip_kernel_matches_plain(cuda, is_local, st):
+    """The warp-strip kernel at its strip height; K7 and K8 each count
+    their launches, and B = 1 on the stream8 route is K7's launch."""
+    rng = np.random.default_rng(48)
+    s1, s2, ms, ns = _stream_batch(rng, STRIP_MS, STRIP_NS, 768, 768)
+    sc = Scores(2, -3, -2, -4, st)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, 32 * gseg.ROWS_PER_LANE)
+    c1, c2 = s1.to(cuda), s2.to(cuda)
+    counts = {"kernel": 0}
+    _same_scores(gseg.warp_strip_cuda(c1, c2, ms, ns, sc, is_local, counts), want)
+    assert counts == {"kernel": 1}
+    before = gseg.COUNTS["kernel"], gs8.COUNTS["kernel"]
+    _same_scores(gseg.gotoh_scores_segmented(c1, c2, ms, ns, sc, is_local), want)
+    _same_scores(gs8.gotoh_scores_stream8(c1, c2, ms, ns, sc, is_local), want)
+    one = gs8.gotoh_scores_stream8(c1[:1], c2[:1], ms[:1], ns[:1], sc, is_local)
+    torch.cuda.synchronize()
+    _same_scores(one, [w[:1] for w in want])
+    assert (gseg.COUNTS["kernel"] - before[0], gs8.COUNTS["kernel"] - before[1]) == (2, 1)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+@pytest.mark.parametrize("rows,max_blocks", [(256, None), (32, 3), (64, 1)])
+def test_strip_pipeline_kernel_matches_plain(cuda, is_local, st, rows, max_blocks):
+    """K9 at the default strip height, and at small heights with a capped
+    grid, so strips outnumber the persistent blocks: tickets cycle and
+    ring slots are reused (two slots a pair at one block)."""
+    rng = np.random.default_rng(50 + rows)
+    s1, s2, ms, ns = _stream_batch(rng, STRIP_MS, STRIP_NS, 768, 768)
+    sc = Scores(2, -3, -2, -4, st)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, rows)
+    before = gp.COUNTS["kernel"]
+    got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, rows, max_blocks)
+    torch.cuda.synchronize()
+    _same_scores(got, want)
+    assert gp.COUNTS["kernel"] == before + 1
+    plan = gp.pipeline_plan(ms, ns, 768, rows, 1 << 20 if max_blocks is None else max_blocks)
+    assert plan[2] == int(np.sum((ms + rows) // rows))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_strip_pipeline_splits_a_tight_ring(cuda, monkeypatch, is_local):
+    """A ring of five slots for seven pairs of up to 11 strips on a 3-block
+    grid: the bucket runs as three launches, every pair of three or more
+    strips on two or more slots, and equals the plain version."""
+    rng = np.random.default_rng(58)
+    s1, s2, ms, ns = _stream_batch(rng, STRIP_MS, STRIP_NS, 768, 768)
+    monkeypatch.setattr(gp, "RING_BYTES", 5 * 8 * 769)
+    sc = Scores(2, -3, -2, -4, -1)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, 64)
+    before = gp.COUNTS["kernel"]
+    got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, 64, 3)
+    torch.cuda.synchronize()
+    _same_scores(got, want)
+    assert gp.COUNTS["kernel"] == before + len(gp.pipeline_groups(ms, 768, 64)) == before + 3
+
+
+@pytest.mark.parametrize("route", ["segmented", "stream8", "pallas", "stream"])
+def test_strip_kernels_all_mismatch_local(cuda, route):
+    """Every cell 0: each route gives (0, m, n), as the plain version does."""
+    from genomics_rs_tpu_torch.parallel.batch import score_pairs
+
+    s1, s2, ms, ns = _mismatch_batch([120, 600, 1, 333], [100, 590, 637, 1], 640)
+    got = score_pairs(s1.numpy(), s2.numpy(), ms, ns, Scores(), True, engine=route)
+    assert [list(x) for x in got] == [[0] * 4, list(ms), list(ns)]
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, Scores(), True, 64)
+    assert [list(x.numpy()) for x in want] == [list(x) for x in got]
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_score_pairs_engines_agree_on_cuda(cuda, is_local):
+    """Every engine through ``score_pairs`` on the card equals K3, and the
+    CPU route's plain version."""
+    from genomics_rs_tpu_torch.parallel.batch import score_pairs
+
+    rng = np.random.default_rng(8)
+    s1, s2, ms, ns = _stream_batch(rng, [250, 3, 200, 256], [240, 256, 0, 97], 256, 256)
+    a = (s1.numpy(), s2.numpy(), ms, ns, Scores(), is_local)
+    want = score_pairs(*a, engine="stream")
+    for e in ("auto", "segmented", "stream8", "pallas"):
+        for dev in ("cuda", "cpu"):
+            got = score_pairs(*a, engine=e, device=dev)
+            assert all(np.array_equal(g, w) for g, w in zip(got, want)), (e, dev)

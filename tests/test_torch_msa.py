@@ -15,6 +15,7 @@ from genomics_rs_tpu.sequence import SequenceContainer as JaxContainer
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.models import aligner as port_aligner
 from genomics_rs_tpu_torch.models import msa
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
 from genomics_rs_tpu_torch.ops import subst
@@ -86,10 +87,12 @@ def test_star_routes_and_groups_agree(monkeypatch):
     whole = msa.center_star_msa(pc, sc, device="cpu").rows
     KW, V = gs.dirs_shape(128, 128)
     monkeypatch.setattr(port_aligner, "GROUP_BYTE_BUDGET", 2 * (KW * V * 4 + 8192 // 16 * 4))
-    before = gs.COUNTS["plain"], gsr.COUNTS["plain"]
+    before = gs.COUNTS["plain"], gsr.COUNTS["plain"], gp.COUNTS["plain"]
     assert msa.center_star_msa(pc, sc, engine="pallas", device="cpu").rows == whole
-    # The score pass (buckets of <= 256 bytes: K6), then two star groups (K3).
-    assert (gs.COUNTS["plain"] - before[0], gsr.COUNTS["plain"] - before[1]) == (2, 1)
+    # The score pass on the pallas engine (one bucket: K9), as JAX passes
+    # the engine through; then two star groups (K3).
+    assert (gs.COUNTS["plain"] - before[0], gsr.COUNTS["plain"] - before[1],
+            gp.COUNTS["plain"] - before[2]) == (2, 0, 1)
     monkeypatch.setattr(msa, "STAR_PAIR_DIRS_BUDGET", 0)
     assert msa.center_star_msa(pc, sc, device="cpu").rows == whole
     with pytest.raises(NotImplementedError, match="Queue A item 3"):

@@ -227,7 +227,8 @@ def test_cli_reads_align_matches_jax(tmp_path, capsys, monkeypatch, fmt, extra, 
 
 
 @pytest.mark.parametrize(
-    "extra", [["--engine", "pallas"], ["--engine", "segmented"], ["--align", "--engine", "scan"]])
+    "extra", [["--engine", "scan"], ["--both-strands", "--engine", "scan"],
+              ["--align", "--engine", "scan"]])
 def test_cli_reads_unported_engines_exit_2(tmp_path, capsys, extra):
     from genomics_rs_tpu_torch import cli
 

@@ -16,6 +16,7 @@ from genomics_rs_tpu.ops import traceback_batch as jax_tb
 from genomics_rs_tpu.ops.gotoh_shortread import gotoh_scores_shortread as jax_shortread
 from genomics_rs_tpu.sequence import Sequence as JaxSequence
 from genomics_rs_tpu_torch.config import Scores
+from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
 from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
 from genomics_rs_tpu_torch.ops import traceback_batch as tb
@@ -189,7 +190,7 @@ def test_batch_cigars_matches_jax():
 
 def test_score_pairs_routes_short_buckets_to_k6():
     s1, s2, ms, ns = _batch(24, 6, 128, 128)
-    before = dict(gsr.COUNTS), dict(gs.COUNTS)
+    before = dict(gsr.COUNTS), dict(gs.COUNTS), dict(gseg.COUNTS)
     auto = batch.score_pairs(s1, s2, ms, ns, Scores(), True, device="cpu")
     assert gsr.COUNTS["plain"] == before[0]["plain"] + 1
     short = batch.score_pairs(s1, s2, ms, ns, Scores(), True, engine="shortread", device="cpu")
@@ -197,12 +198,14 @@ def test_score_pairs_routes_short_buckets_to_k6():
     assert gs.COUNTS["plain"] == before[1]["plain"] + 1
     for a, b, c in zip(auto, short, stream):
         assert np.array_equal(a, b) and np.array_equal(a, c)
-    # An empty sequence or a wide bucket goes to K3.
+    # An empty sequence or a wide bucket goes to the segmented tier (K7),
+    # as the JAX router tiers a local bucket of Lm <= 8192.
     ns0 = ns.copy()
     ns0[2] = 0
     batch.score_pairs(s1, s2, ms, ns0, Scores(), True, device="cpu")
     wide = np.full((6, 384), PAD_S2, np.uint8)
     wide[:, :128] = s2
     batch.score_pairs(s1, wide, ms, ns, Scores(), True, device="cpu")
-    assert gs.COUNTS["plain"] == before[1]["plain"] + 3
+    assert gseg.COUNTS["plain"] == before[2]["plain"] + 2
+    assert gs.COUNTS["plain"] == before[1]["plain"] + 1
     assert gsr.COUNTS["plain"] == before[0]["plain"] + 2
