@@ -139,14 +139,39 @@ Phases, one line each:
      16,384 x 152 bp batch, phase 24's largest bucket and the 29.9 kb pair,
      both cut to their first 300 rows (two strips, every column); kernel
      and plain times there, and K7/K8/K3 on the whole bucket
+ 27  K5 (the tile fill: K1's kernel at a column offset, with the right
+     column out) == its plain version ``tile_fill`` on the card, global and
+     local: bottom, right, best and the (m, n) value of an interior tile
+     and of the tile holding (m, n) of the P = 4 pipeline over phase 4's
+     29,903 x 29,892 bp pair (boundaries captured by
+     ``sharded_fill_checkpoints``), and of a tile wholly past n
+ 28  the main path of this slice from here to phase 30 (launch counters
+     reset just before it): ``sharded_gotoh_score`` on that pair at P in
+     {1, 2, 4, 8} shards of the one card, C = P column blocks, global and
+     local: == the C++ oracle (global also == K1's score), P * C K5
+     launches a call, walls (median of 3 after a first call)
+ 29  ``align_sharded`` at P = 4 == ``PairwiseAligner.align`` (moves, stats,
+     rendered bytes), global and local; ``batched_sharded_scores`` on a
+     (data 2 x seq 2) mesh of the card over 4 pairs of bench.py's 29.9 kb
+     corpus == K3; ``allpairs_hybrid`` over three of those genomes cut to
+     5,000 bp and one whole, with the long self-pair split, ==
+     ``allpairs_scores``
+ 30  ``gotoh_scores_blocked`` (K16: K9's pipeline at R = 4096, strips of
+     1,024 rows) on 4 planted copies of a random 155,000 bp genome: global
+     == the planted optima, local == K9 at its own strips; the path
+     launched K5, K16, K1 and K2 and no plain version
+ 31  K16 == its plain version (strips of 4,096 rows, on the host) on the
+     batch's first 300 rows, global and local; K16 there and on the whole
+     batch, K5 on the interior tile, and one tile alone at each P against
+     the phase 28 walls (times: CUDA events, median of 3)
 
 Bounds count interior DP cells (m x n per pair), band cells (rows x
 lanes), for a walk the code words its path must read, and for the
 profile the bytes it reads and writes.
 
 The second-to-last line is a JSON summary of the kernels (K1–K4, K6,
-``walk_rows16``, K10–K12, K13–K15 and K7–K9, with each one's launches on
-its own path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
+``walk_rows16``, K10–K12, K13–K15, K7–K9, K5 and K16, with each one's
+launches on its own path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2571,6 +2596,328 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     ]
 
 
+#: The sequence-parallel sweep: P shards and C = P column blocks on one
+#: card over phase 4's 29,903 x 29,892 bp pair.
+SEQPAR_P = (1, 2, 4, 8)
+#: K16's batch: BLOCKED_B planted copies of a random BLOCKED_LEN bp genome
+#: at the JAX entry's default block height.
+BLOCKED_B, BLOCKED_LEN, BLOCKED_R = 4, 155_000, 4096
+#: phase 29's hybrid corpus: three of the corpus genomes cut to this many
+#: bp and one whole, so that only the long self-pair outgrows a share.
+HYBRID_SHORT = 5_000
+#: columns of phase 31's local K16-vs-plain slice (the global one keeps
+#: all of them).
+BLOCKED_LOCAL_COLS = 38_912
+
+
+def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
+    """Phases 27-31: the sequence-parallel pipeline (K5), the multi-device
+    paths on one card, and K16. ``main`` carries phase 4's 29.9 kb pair,
+    its oracle tuple, K1's score and K1's global alignment. Returns the
+    rows of K5 and K16."""
+    from genomics_rs_tpu_torch import native
+    from genomics_rs_tpu_torch.display.alignment import (
+        format_aligned_sequences,
+        format_alignment_table,
+    )
+    from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
+    from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+    from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+    from genomics_rs_tpu_torch.ops import traceback_device as td
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.ops.gotoh_tile import (
+        global_boundary_left,
+        global_boundary_top,
+        tile_fill,
+    )
+    from genomics_rs_tpu_torch.parallel import longseq
+    from genomics_rs_tpu_torch.parallel.allpairs import allpairs_scores
+    from genomics_rs_tpu_torch.parallel.batch import score_pairs
+    from genomics_rs_tpu_torch.parallel.distributed import allpairs_hybrid
+    from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh, make_mesh_2d
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, SequenceContainer, round_up
+
+    med = lambda ts: float(np.median(ts))  # noqa: E731
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+    base, var = main["base"], main["var"]
+    m, n = len(base), len(var)
+    a_seq, b_seq = Sequence("a", base), Sequence("b", var)
+
+    def mesh_of(P):
+        return make_mesh(P, SEQ_AXIS, devices=[dev] * P)
+
+    def padded(P, C):
+        """(s1e, s2e, R, B) of the pair for P shards x C blocks, as
+        ``align_sharded`` pads it."""
+        R = max(round_up(m, 128 * P), 128 * P) // P
+        Ln = max(round_up(n, 128 * C), 128 * C)
+        return (torch.from_numpy(a_seq.encoded(pad_to=R * P, pad_value=PAD_S1).copy()),
+                torch.from_numpy(b_seq.encoded(pad_to=Ln, pad_value=PAD_S2).copy()), R, Ln // C)
+
+    def tile_err(got, want) -> int:
+        errs = [int((got.bottom.long() - want.bottom.long()).abs().max()),
+                int((got.right.long() - want.right.long()).abs().max()),
+                abs(int(got.score_at_mn) - int(want.at_mn))]
+        errs += [abs(int(x) - int(y)) for x, y in zip(got.best, want.best)]
+        return max(errs)
+
+    def tile_bound(R, B, cells, is_local):
+        """top, left, bottom and right once (int32 I/S/D), the characters
+        once; 12 or 19 integer ops a true cell."""
+        nbytes = 12.0 * (2 * (B + 1) + 2 * R) + R + B
+        return bound(nbytes, cells * OPS_PER_CELL["local" if is_local else "global"], rate)
+
+    # ---- phase 27: K5 vs its plain version on the P = 4 pipeline's tiles ----
+    t_phase = time.perf_counter()
+    s1e4, s2e4, R4, B4 = padded(4, 4)
+    check(3 * R4 < m <= 4 * R4 and 3 * B4 < n <= 4 * B4, "tile (3, 3) must hold (m, n)")
+    s1d, s2d = s1e4.to(dev), s2e4.to(dev)
+    threads = torch.get_num_threads()
+    k5_err, held, k5_plain_ms, interior = 0, [], {}, {}
+    for is_local in (False, True):
+        fill = longseq.sharded_fill_checkpoints(mesh_of(4), s1e4, s2e4, m, n, sc, is_local)
+        torch.cuda.synchronize()
+
+        def tile(p, c):
+            return (s1d[p * R4 : (p + 1) * R4], s2d[c * B4 : (c + 1) * B4],
+                    fill.tops[p * 4 + c].contiguous(), fill.lefts[p * 4 + c].contiguous(),
+                    m, n, p * R4, c * B4)
+
+        # A tile wholly past n: 256 padding columns at j0 = 4 B, its
+        # boundaries carried from tile (1, 3).
+        past = (s1d[R4 : 2 * R4], torch.full((256,), PAD_S2, dtype=torch.uint8, device=dev),
+                fill.tops[7][:, :257].contiguous(), fill.lefts[7].contiguous(), m, n, R4, 4 * B4)
+        for name, args in (("interior (1, 2)", tile(1, 2)), ("(m, n) (3, 3)", tile(3, 3)),
+                           ("past n", past)):
+            got = gp.gotoh_tile_pallas(*args, sc, is_local, emit_dirs=False, emit_bottom=True,
+                                       emit_right=True)
+            torch.cuda.synchronize()
+            # The plain loop's ops are small: it runs on the host, one thread.
+            s1, s2, top, left, mm, nn, i0, j0 = args
+            host = [x.cpu() for x in (s1, s2, top, left)]
+            torch.set_num_threads(1)
+            t0 = time.perf_counter()
+            want = tile_fill(*host, sc, is_local, i0, j0, mm, nn)
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.set_num_threads(threads)
+            got = got._replace(bottom=got.bottom.cpu(), right=got.right.cpu())
+            err = tile_err(got, want)
+            k5_err = max(k5_err, err)
+            check(err == 0, f"K5 != tile_fill on tile {name} (local={is_local}): max |err| {err}")
+            if name.startswith("interior"):
+                k5_plain_ms[is_local] = ms
+                interior[is_local] = args
+                # The tile's outputs are the pipeline's next entries.
+                check(torch.equal(got.bottom, fill.tops[2 * 4 + 2].cpu())
+                      and torch.equal(got.right, fill.lefts[1 * 4 + 3].cpu()),
+                      f"K5's bottom/right != the captured tops/lefts (local={is_local})")
+            held.append(f"{name} {'local' if is_local else 'global'} (best "
+                        f"{tuple(int(x) for x in got.best)}, plain {ms:.0f} ms)")
+    print(f"[phase 27] card {card} | K5 == tile_fill (bottom, right, best, (m, n)) on the P = 4 "
+          f"pipeline's {R4} x {B4} tiles of the {m} x {n} bp pair: " + "; ".join(held)
+          + f"; max |err| {k5_err} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # References for the path's checks, made before its counters are reset.
+    t_phase = time.perf_counter()
+    o_loc = native.gotoh_score_cpu(base, var, sc, True)
+    ref_aln = {False: main["glob"],
+               True: PairwiseAligner(sc, is_local=True, device="cuda").align(a_seq, b_seq)}
+    genomes = corpus_genomes()
+    Lb = round_up(GENOME_LEN, 256)
+    s1b = np.stack([Sequence("a", genomes[2 * k][1]).encoded(pad_to=Lb, pad_value=PAD_S1)
+                    for k in range(4)])
+    s2b = np.stack([Sequence("b", genomes[2 * k + 1][1]).encoded(pad_to=Lb, pad_value=PAD_S2)
+                    for k in range(4)])
+    lens4 = np.full(4, GENOME_LEN)
+    k3_4 = {loc: score_pairs(s1b, s2b, lens4, lens4, sc, loc, engine="stream") for loc in (0, 1)}
+    hyb = SequenceContainer([Sequence(f"h{k}", g[:HYBRID_SHORT])
+                             for k, (_, g) in enumerate(genomes[:3])]
+                            + [Sequence("h3", genomes[3][1])])
+    hyb_want = allpairs_scores(hyb, sc, device="cuda").matrix
+    brng = np.random.default_rng(30)
+    genome = random_dna(brng, BLOCKED_LEN)
+    copies = [planted_copy(brng, genome, sc) for _ in range(BLOCKED_B)]
+    Lm_k, Ln_k = round_up(BLOCKED_LEN, 128), round_up(max(len(c) for c, _ in copies), 128)
+    kb1 = torch.from_numpy(np.stack([Sequence("g", genome).encoded(pad_to=Lm_k, pad_value=PAD_S1)]
+                                    * BLOCKED_B)).to(dev)
+    kb2 = torch.from_numpy(np.stack([Sequence("c", c).encoded(pad_to=Ln_k, pad_value=PAD_S2)
+                                     for c, _ in copies])).to(dev)
+    kms, kns = np.full(BLOCKED_B, BLOCKED_LEN), np.array([len(c) for c, _ in copies])
+    k9_loc = [x.cpu() for x in gp.gotoh_scores_pallas_batch(kb1, kb2, kms, kns, sc, True)]
+    torch.cuda.synchronize()
+    t_refs = time.perf_counter() - t_phase
+
+    # ---- phase 28: the main path of this slice from here to phase 30 ----
+    counted = {"K5": gp.TILE_COUNTS, "K16": gp.BLOCKED_COUNTS, "K1": rb.COUNTS, "K2": tw.COUNTS}
+    for c in (*counted.values(), td.COUNTS):
+        for key in c:
+            c[key] = 0
+    t_phase = time.perf_counter()
+    walls = {}
+    for P in SEQPAR_P:
+        s1e, s2e, R, B = padded(P, P)
+        mesh = mesh_of(P)
+        for is_local in (False, True):
+            ts = []
+            for rep in range(4):  # the first call, then three timed
+                before = gp.TILE_COUNTS["kernel"]
+                t0 = time.perf_counter()
+                out = longseq.sharded_gotoh_score(mesh, s1e, s2e, m, n, sc, is_local)
+                got = (int(out.score), tuple(out.best.tolist()))
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+                check(gp.TILE_COUNTS["kernel"] - before == P * P,
+                      f"P = {P}: {gp.TILE_COUNTS['kernel'] - before} K5 launches, not {P * P}")
+                if is_local:
+                    check(got[1] == tuple(o_loc), f"P = {P} local {got[1]} != oracle {o_loc}")
+                else:
+                    check(got[0] == main["oracle"][0] == main["k1_score"],
+                          f"P = {P} global {got[0]} != oracle {main['oracle'][0]} / K1")
+            walls[P, is_local] = ts[1:]
+    print(f"[phase 28] card {card} | sharded_gotoh_score on the {m} x {n} bp pair, P shards "
+          f"of one card (C = P), == the C++ oracle (global == K1's whole-table score "
+          f"{main['k1_score']}, local {tuple(o_loc)}), P * C K5 launches a call; walls "
+          "(s, median of 3 after a first call): " + "; ".join(
+              f"P = {P} global [{fmt(walls[P, False])}] local [{fmt(walls[P, True])}]"
+              for P in SEQPAR_P) + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 29: align_sharded, batched_sharded_scores, allpairs_hybrid ----
+    t_phase = time.perf_counter()
+    aln_walls = {}
+    for is_local in (False, True):
+        t0 = time.perf_counter()
+        got = longseq.align_sharded(mesh_of(4), a_seq, b_seq, sc, is_local=is_local)
+        aln_walls[is_local] = time.perf_counter() - t0
+        ref = ref_aln[is_local]
+        check(got.alignment == ref.alignment and got.score == ref.score
+              and (got.matches, got.mismatches, got.opening_gaps, got.gap_extensions)
+              == (ref.matches, ref.mismatches, ref.opening_gaps, ref.gap_extensions),
+              f"align_sharded (local={is_local}) != PairwiseAligner.align")
+        check(format_aligned_sequences(got) == format_aligned_sequences(ref)
+              and format_alignment_table(got, color=False)
+              == format_alignment_table(ref, color=False),
+              f"align_sharded (local={is_local}) renders other bytes")
+    mesh22 = make_mesh_2d(2, 2, devices=[dev] * 4)
+    for is_local in (False, True):
+        got = longseq.batched_sharded_scores(mesh22, s1b, s2b, lens4, lens4, sc, is_local)
+        want = k3_4[is_local]
+        if is_local:
+            check(np.array_equal(got.best.cpu().numpy(), np.stack(want, 1)),
+                  "batched_sharded_scores local != K3")
+        else:
+            check(np.array_equal(got.score.cpu().numpy(), want[0]),
+                  "batched_sharded_scores global != K3")
+    before = gp.TILE_COUNTS["kernel"]
+    t0 = time.perf_counter()
+    hres = allpairs_hybrid(hyb, sc, n_shares=8, devices=[dev])
+    t_hyb = time.perf_counter() - t0
+    hyb_tiles = gp.TILE_COUNTS["kernel"] - before
+    check(hyb_tiles > 0, "allpairs_hybrid split no pair")
+    check(np.array_equal(hres.matrix, hyb_want), "allpairs_hybrid != allpairs_scores")
+    print(f"[phase 29] card {card} | align_sharded at P = 4 == PairwiseAligner.align (moves, "
+          f"stats, rendered bytes): global {aln_walls[False]:.3f} s, local {aln_walls[True]:.3f} "
+          f"s | batched_sharded_scores on a (data 2 x seq 2) mesh of one card, 4 pairs of "
+          f"{GENOME_LEN} bp == K3, global and local | allpairs_hybrid (3 x {HYBRID_SHORT} + 1 x "
+          f"{GENOME_LEN} bp, 8 shares; the long self-pair split, {hyb_tiles} K5 tiles) == "
+          f"allpairs_scores, {t_hyb:.3f} s ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 30: K16 on planted copies of a 155 kb genome ----
+    t_phase = time.perf_counter()
+    k16_walls = {}
+    for is_local in (False, True):
+        t0 = time.perf_counter()
+        got = [x.cpu() for x in gp.gotoh_scores_blocked(kb1, kb2, kms, kns, sc, is_local,
+                                                         R=BLOCKED_R)]
+        k16_walls[is_local] = time.perf_counter() - t0
+        if is_local:
+            check(all(torch.equal(g, w) for g, w in zip(got, k9_loc)),
+                  f"K16 local {[g.tolist() for g in got]} != K9 {[w.tolist() for w in k9_loc]}")
+        else:
+            check(got[0].tolist() == [s for _, s in copies],
+                  f"K16 global {got[0].tolist()} != planted {[s for _, s in copies]}")
+    path = {k: c["kernel"] for k, c in counted.items()}
+    plain = sum(c.get("plain", 0) for c in counted.values()) + td.COUNTS["plain"]
+    check(all(v > 0 for v in path.values()), f"the path missed a kernel: {path}")
+    check(plain == 0, f"the path ran a plain version {plain} times")
+    print(f"[phase 30] card {card} | gotoh_scores_blocked (K16, R = {BLOCKED_R}: strips of "
+          f"{gp.blocked_rows(BLOCKED_R)} rows) on {BLOCKED_B} planted copies of a {BLOCKED_LEN} "
+          f"bp genome: global == the planted optima {[s for _, s in copies]} "
+          f"({k16_walls[False]:.3f} s), local == K9 at its own strips "
+          f"{[tuple(int(x[b]) for x in k9_loc) for b in range(BLOCKED_B)]} "
+          f"({k16_walls[True]:.3f} s) | the path's launches {path}, plain calls {plain} "
+          f"({t_refs:.1f} s of references before phase 28; {time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # ---- phase 31: K16 vs plain at the path's shape, and times ----
+    t_phase = time.perf_counter()
+    Lc = round_up(SLICE_ROWS, 128)
+    cut = (kb1[:, :Lc].contiguous(), kb2, np.minimum(kms, SLICE_ROWS), kns)
+    # Local mode's plain loop costs twice global's a step: it holds the
+    # first BLOCKED_LOCAL_COLS columns of the slice.
+    Lw = BLOCKED_LOCAL_COLS
+    cut_loc = (cut[0], kb2[:, :Lw].contiguous(), cut[2], np.minimum(kns, Lw))
+    k16_err, k16_plain_ms, held16 = 0, {}, []
+    for is_local, c in ((False, cut), (True, cut_loc)):
+        got = gp.gotoh_scores_blocked(*c, sc, is_local, R=BLOCKED_R)
+        torch.set_num_threads(1)  # the plain loop's ops are small: one host thread
+        t0 = time.perf_counter()
+        want = gp.gotoh_strips_plain(c[0].cpu(), c[1].cpu(), c[2], c[3], sc, is_local,
+                                     BLOCKED_R)
+        k16_plain_ms[is_local] = (time.perf_counter() - t0) * 1e3
+        torch.set_num_threads(threads)
+        err = max(int((g.long().cpu() - w.long()).abs().max()) for g, w in zip(got, want))
+        k16_err = max(k16_err, err)
+        check(err == 0, f"K16 != plain on the first {SLICE_ROWS} rows (local={is_local}): {err}")
+        held16.append(f"{'local' if is_local else 'global'} on {SLICE_ROWS} x {c[1].shape[1]} "
+                      f"({k16_plain_ms[is_local]:.0f} ms plain)")
+    k16_ms = cuda_ms(lambda: gp.gotoh_scores_blocked(*cut, sc, False, R=BLOCKED_R), 3)
+    k16_full = cuda_ms(lambda: gp.gotoh_scores_blocked(kb1, kb2, kms, kns, sc, False,
+                                                        R=BLOCKED_R), 1)
+    cells_cut = float(np.sum(cut[2].astype(np.float64) * kns))
+    cells_full = float(np.sum(kms.astype(np.float64) * kns))
+    b16 = bound(float(np.sum(cut[2]) + np.sum(kns)) + 12.0 * BLOCKED_B,
+                cells_cut * OPS_PER_CELL["global"], rate)
+    b16_full = bound(float(np.sum(kms) + np.sum(kns)) + 12.0 * BLOCKED_B,
+                     cells_full * OPS_PER_CELL["global"], rate)
+    # K5 at the interior tile, global, and one tile alone at each P (the
+    # serial sum a wave could overlap).
+    k5_ms = cuda_ms(lambda: gp.gotoh_tile_pallas(*interior[False], sc, False, emit_dirs=False,
+                                                 emit_bottom=True, emit_right=True), 3)
+    b5 = tile_bound(R4, B4, float(R4) * B4, False)
+    tile_alone = {}
+    for P in SEQPAR_P:
+        s1e, s2e, R, B = padded(P, P)
+        args = (s1e[:R].to(dev), s2e[:B].to(dev), global_boundary_top(0, B, sc, device=dev),
+                global_boundary_left(0, R, sc, device=dev), m, n, 0, 0)
+        tile_alone[P] = med(cuda_ms(lambda: gp.gotoh_tile_pallas(
+            *args, sc, False, emit_dirs=False, emit_bottom=True, emit_right=True), 2))
+    overlap = "; ".join(
+        f"P = {P}: {P * P} tiles x {tile_alone[P]:.2f} ms = {P * P * tile_alone[P]:.1f} ms "
+        f"serial, {(2 * P - 1) * tile_alone[P]:.1f} ms if a wave's tiles overlap, wall "
+        f"{1e3 * med(walls[P, False]):.1f} ms" for P in SEQPAR_P)
+    print(f"[phase 31] card {card} | K16 == plain (strips of {BLOCKED_R} rows, on the host) on the "
+          f"batch's first rows: " + "; ".join(held16) + f"; max |err| {k16_err} | K16 on "
+          f"{SLICE_ROWS} x {Ln_k} [{fmt(k16_ms)}] ms (bound {b16[0]:.4f} by {b16[1]}), the whole "
+          f"batch global [{fmt(k16_full)}] ms ({cells_full:.4g} cells, bound {b16_full[0]:.3f}) "
+          f"| K5 on the {R4} x {B4} interior tile global [{fmt(k5_ms)}] ms (bound {b5[0]:.4f} "
+          f"by {b5[1]}), plain {k5_plain_ms[False]:.0f} ms | one tile alone against the "
+          f"walls (global): {overlap} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return [
+        {"name": "gotoh_tile", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_rowblock.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_pallas.py:441",
+         "launches": path["K5"], "max_abs_err": float(k5_err),
+         "ms": med(k5_ms), "plain_ms": float(k5_plain_ms[False]),
+         "bound_ms": b5[0], "bound_by": b5[1], "library_ms": None},
+        {"name": "gotoh_scores_blocked", "route": "cuda",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_pallas.cu",
+         "replaces": "genomics_rs_tpu/ops/gotoh_pallas.py:826",
+         "launches": path["K16"], "max_abs_err": float(k16_err),
+         "ms": med(k16_ms), "plain_ms": float(k16_plain_ms[False]),
+         "bound_ms": b16[0], "bound_by": b16[1], "library_ms": None},
+    ]
+
+
 def main() -> None:
     # ---- phase 0: the card ----
     card = card_line()
@@ -2963,6 +3310,8 @@ def main() -> None:
     rows += strip_phases(torch, dev, card, sc, cuda_ms, rate,
                          dict(base=base, var=var, oracle=o30, k1_score=glob.score,
                               corpus_tsv=corpus_tsv))
+    rows += seqpar_phases(torch, dev, card, sc, cuda_ms, rate,
+                          dict(base=base, var=var, oracle=o30, k1_score=glob.score, glob=glob))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,26 @@
 // Row-block Gotoh fill for Hopper (sm_90a), bound by ctypes.
 //
 // Replaces: genomics_rs_tpu/ops/gotoh_rowblock.py, gotoh_rowblock_pallas
-// (body _kernel_rows). Same contract: fill rows i0+1..i0+R of an
-// affine-gap (Gotoh) table over columns 0..B, given the row-i0 boundary
-// `top` (3, B+1) and either the computed col-0 boundary or a streamed
-// `left` (3, R); global or local (reference zero floor inside every
-// predecessor max), classic or kimura scoring. Outputs:
-//   res[0]      score at (m, n) when row m is in the block, else left as
-//               the caller set it (the wrapper sets INT_MIN)
-//   res[1..3]   local keep-last row-major argmax (v, i, j), global coords
+// (body _kernel_rows; K1), and genomics_rs_tpu/ops/gotoh_pallas.py,
+// gotoh_tile_pallas (body _kernel_tile at :157, pallas_call at :599; K5).
+// Same contract: fill rows i0+1..i0+R of an affine-gap (Gotoh) table over
+// block columns 0..B, given the row-i0 boundary `top` (3, B+1) and either
+// the computed col-0 boundary or a streamed `left` (3, R); global or local
+// (reference zero floor inside every predecessor max), classic or kimura
+// scoring. K5 is the same fill at a global column offset j0 (block column
+// j is table column j0 + j): the (m, n) probe and the argmax are taken at
+// j0 + j, the argmax over columns up to n, and the argmax is tracked in
+// both modes, as the tile oracle (ops/gotoh_tile.tile_fill) does. K5 is
+// the TILE instantiation; K1's (tile = 0 at launch) compiles to the
+// row-block fill alone, so K1 pays nothing for K5. Outputs:
+//   res[0]      score at (m, n) when that cell is in the block, else left
+//               as the caller set it (the wrapper sets INT_MIN)
+//   res[1..3]   keep-last row-major argmax (v, i, j), global coords: local
+//               mode, or both modes for K5
 //   dirs        2-bit codes packed 16 per int32 along the anti-diagonal:
 //               code(li, j) = (dirs[(li+j)/16 * V + li] >> 2*((li+j)%16)) & 3
 //   bottom      I/S/D of row i0+R over columns 0..B, as (3, B+1)
+//   right       I/S/D of column B over rows i0+1..i0+R, as (3, R) (K5)
 //   cols        I/S/D at (i0+v, c*V) in cols[(c*3 + x) * V + v]
 //
 // Design. One thread block runs the whole fill. Thread t owns row
@@ -47,14 +56,15 @@ constexpr int MAX_T = 1024;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
-template <bool LOCAL>
+template <bool LOCAL, bool TILE>
 __global__ void __launch_bounds__(MAX_T, 1)
 rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
                 const int* __restrict__ top, const int* __restrict__ left,
                 unsigned* __restrict__ dirs, int* __restrict__ bottom,
-                int* __restrict__ cols, int* __restrict__ res,
-                int* __restrict__ scratch, int R, int B, int V, int m, int n,
-                int i0, int sm, int sx, int st, int kimura, int g, int h) {
+                int* __restrict__ cols, int* __restrict__ right,
+                int* __restrict__ res, int* __restrict__ scratch, int R,
+                int B, int V, int m, int n, int i0, int j0, int sm,
+                int sx, int st, int kimura, int g, int h) {
   __shared__ int sA[2][MAX_T];
   __shared__ int sM[2][MAX_T];
   __shared__ int rv[MAX_T], ri[MAX_T], rj[MAX_T];
@@ -63,6 +73,8 @@ rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
   const int T = blockDim.x;
   const int hg = h + g;
   const int mi0 = m - i0;  // block-local row of the probe (may be outside)
+  const int nj0 = TILE ? n - j0 : n;  // block-local column of the probe
+  constexpr bool track = LOCAL || TILE;
   const int rows = R + 1;
   const int nstrips = (rows + T - 1) / T;
   const int W = B + 1;  // boundary row width
@@ -79,7 +91,7 @@ rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
     int* down = scratch + (s & 1) * 2 * W;
     const bool writes_down = (t == T - 1) && (s + 1 < nstrips);
     const bool probe_row = has_row && li == mi0;
-    const bool best_row = LOCAL && has_row && li <= mi0;
+    const bool best_row = track && has_row && li <= mi0;
 
     const int c1 = (has_row && li >= 1) ? s1c[li - 1] : 0;
     int c2 = B > 0 ? s2c[0] : 0;  // char of column j+1, prefetched
@@ -166,17 +178,22 @@ rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
           bottom[W + j] = S;
           bottom[2 * W + j] = D;
         }
+        if (TILE && right != nullptr && j == B && li >= 1) {
+          right[li - 1] = I;
+          right[R + li - 1] = S;
+          right[2 * R + li - 1] = D;
+        }
         if (cols != nullptr && j % V == 0) {
           int* cp = cols + (size_t)(j / V) * 3 * V + li;
           cp[0] = I;
           cp[V] = S;
           cp[2 * V] = D;
         }
-        if (probe_row && j == n) res[0] = M;
-        if (best_row && j <= n && M >= bv) {
+        if (probe_row && j == nj0) res[0] = M;
+        if (best_row && j <= nj0 && M >= bv) {
           bv = M;
           bi = i0 + li;
-          bj = j;
+          bj = TILE ? j0 + j : j;
         }
       }
       __syncthreads();
@@ -186,14 +203,15 @@ rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
 
   // Merge the per-thread bests: max v, then max i (then that row's j).
   // Rows with no true cell keep INT_MIN; if every row is empty the result
-  // is (INT_MIN, i0+V-1, 0), as the TPU kernel's lane merge gives.
+  // is (INT_MIN, i0+V-1, 0), as the TPU row-block kernel's lane merge
+  // gives, or for K5 (INT_MIN, i0+R, j0+B), as tile_fill's does.
   rv[t] = bv;
   ri[t] = bi;
   rj[t] = bj;
   __syncthreads();
   if (t == 0) {
-    if (LOCAL) {
-      int v = INT_MIN_V, i = i0 + V - 1, jj = 0;
+    if (track) {
+      int v = INT_MIN_V, i = TILE ? i0 + R : i0 + V - 1, jj = TILE ? j0 + B : 0;
       for (int u = 0; u < T; ++u) {
         if (rv[u] > v || (rv[u] == v && ri[u] > i)) {
           v = rv[u];
@@ -216,21 +234,18 @@ rowblock_kernel(const int* __restrict__ s1c, const int* __restrict__ s2c,
 
 extern "C" int gotoh_rowblock_launch(
     const void* s1c, const void* s2c, const void* top, const void* left,
-    void* dirs, void* bottom, void* cols, void* res, void* scratch, int R,
-    int B, int V, int m, int n, int i0, int sm, int sx, int st, int kimura,
-    int g, int h, int is_local, int threads, void* stream) {
+    void* dirs, void* bottom, void* cols, void* right, void* res,
+    void* scratch, int R, int B, int V, int m, int n, int i0, int j0,
+    int tile, int sm, int sx, int st, int kimura, int g, int h, int is_local,
+    int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (threads < 1 || threads > MAX_T) return (int)cudaErrorInvalidValue;
-  if (is_local) {
-    rowblock_kernel<true><<<1, threads, 0, s>>>(
-        (const int*)s1c, (const int*)s2c, (const int*)top, (const int*)left,
-        (unsigned*)dirs, (int*)bottom, (int*)cols, (int*)res, (int*)scratch,
-        R, B, V, m, n, i0, sm, sx, st, kimura, g, h);
-  } else {
-    rowblock_kernel<false><<<1, threads, 0, s>>>(
-        (const int*)s1c, (const int*)s2c, (const int*)top, (const int*)left,
-        (unsigned*)dirs, (int*)bottom, (int*)cols, (int*)res, (int*)scratch,
-        R, B, V, m, n, i0, sm, sx, st, kimura, g, h);
-  }
+  auto kernel = is_local
+                    ? (tile ? &rowblock_kernel<true, true> : &rowblock_kernel<true, false>)
+                    : (tile ? &rowblock_kernel<false, true> : &rowblock_kernel<false, false>);
+  kernel<<<1, threads, 0, s>>>(
+      (const int*)s1c, (const int*)s2c, (const int*)top, (const int*)left,
+      (unsigned*)dirs, (int*)bottom, (int*)cols, (int*)right, (int*)res,
+      (int*)scratch, R, B, V, m, n, i0, j0, sm, sx, st, kimura, g, h);
   return (int)cudaGetLastError();
 }

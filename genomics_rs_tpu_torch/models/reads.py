@@ -20,9 +20,10 @@ CIGAR convention (query = s1 vs reference = s2): ``M`` consumes both,
 ``I`` only the query (the DP's DELETE move, a gap in s2), ``D`` only the
 reference (the DP's INSERT move, a gap in s1).
 
-Not ported: the JAX package's multi-device split of a round and its
-one-deep asynchronous pipeline (ROADMAP Queue A item 14); rounds run one
-after another.
+Given a list of devices, a round of at least two reads a device is cut
+into equal slices, one a device (the JAX package's split over its local
+devices). Not ported: the JAX package's one-deep asynchronous pipeline
+(ROADMAP Queue A item 8); rounds run one after another.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from genomics_rs_tpu_torch.models.aligner import _stream_group_pairs, stream_wal
 from genomics_rs_tpu_torch.ops.gotoh_shortread import gotoh_scores_shortread
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, AlignmentChoice
 from genomics_rs_tpu_torch.ops.traceback_batch import classify_batch, walk_batch
-from genomics_rs_tpu_torch.parallel.batch import shortread_fits
+from genomics_rs_tpu_torch.parallel.batch import pad_batch, shortread_fits
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
 
 log = logging.getLogger(__name__)
@@ -190,6 +191,22 @@ def encode_batch(seqs: list[Sequence], pad_to: int, pad_value: int) -> np.ndarra
     return out
 
 
+def _split_round(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs):
+    """One round on ``devs``: equal slices when there are several devices
+    and at least two reads a device, else the whole round on ``devs[0]``.
+    Returns :func:`_fill_and_walk`'s arrays for the round's reads."""
+    Bq = len(ms)
+    if len(devs) < 2 or Bq < 2 * len(devs):
+        return _fill_and_walk(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs[0])
+    (s1p, s2p, mp, np_), Bp = pad_batch((s1b, s2b, ms, ns), Bq, len(devs))
+    per = Bp // len(devs)
+    parts = [_fill_and_walk(s1p[k * per : (k + 1) * per], s2p[k * per : (k + 1) * per],
+                            mp[k * per : (k + 1) * per], np_[k * per : (k + 1) * per],
+                            scores, is_local, use_k6, max_steps, d)
+             for k, d in enumerate(devs)]
+    return tuple(np.concatenate([p[f] for p in parts])[:Bq] for f in range(8))
+
+
 def _fill_and_walk(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, dev):
     """One round on the device: the fill with direction codes and every
     walk. Returns numpy (moves, counts, i_f, j_f, done, score, si, sj)."""
@@ -218,6 +235,10 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
     cigars)`` with the batch-vectorized CIGARs. Output order matches
     input.
 
+    ``device`` is one device or a list of them: with more than one, each
+    round of at least two reads a device is split into equal slices
+    (padded by replicating read 0), one fill and walk a device.
+
     ``both_strands=True`` also aligns each query's reverse complement in
     the same launches (the round size is halved) and keeps the better
     orientation, forward winning ties; a ``strands`` list of ``"+"`` /
@@ -235,7 +256,8 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "scan":
         raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
-    dev = resolve_device(device)
+    devs = [resolve_device(d) for d in (device if isinstance(device, (list, tuple))
+                                        else [device])]
     L1 = max(round_up(max((len(s) for s in queries), default=1), 128), 128)
     L2 = max(round_up(max((len(s) for s in refs), default=1), 128), 128)
     max_steps = L1 + L2 + 1
@@ -263,8 +285,8 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
         s2b = encode_batch(rs, L2, PAD_S2)
         ms = np.array([len(s) for s in qs], dtype=np.int32)
         ns = np.array([len(s) for s in rs], dtype=np.int32)
-        moves, counts, i_f, j_f, done, sc_h, si_h, sj_h = _fill_and_walk(
-            s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, dev)
+        moves, counts, i_f, j_f, done, sc_h, si_h, sj_h = _split_round(
+            s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs)
         # A global retrace is complete only at (0, 0): a mid-table stop
         # there means a corrupt fill.
         complete = done if is_local else done & (i_f == 0) & (j_f == 0)

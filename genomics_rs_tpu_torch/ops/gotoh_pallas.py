@@ -1,7 +1,9 @@
-"""Batch scores by a strip pipeline (kernel K9; counterpart of
+"""Batch scores by a strip pipeline (kernel K9), the tile fill (K5) and
+the row-blocked batch scores (K16): counterpart of
 ``genomics_rs_tpu/ops/gotoh_pallas.py``'s ``gotoh_scores_pallas_batch``,
-and of the helpers its sibling modules import from it: ``ROWS``,
-``drift_rate_or_none``, ``concrete_lengths_or_none``).
+``gotoh_tile_pallas``, ``gotoh_fill_pallas``, ``gotoh_scores_blocked``
+and ``unpack_dirs``, and of the helpers its sibling modules import from
+it: ``ROWS``, ``drift_rate_or_none``, ``concrete_lengths_or_none``.
 
 :func:`gotoh_scores_pallas_batch` keeps its JAX namesake's contract: for a
 padded batch ``s1eb`` (B, Lm), ``s2eb`` (B, Ln) of uint8 byte codes with
@@ -19,6 +21,13 @@ merged across strips by (larger v, larger i, larger j).
 
 The kernel computes only true cells, so it needs none of the JAX
 wrappers' int32 drift guard (``drift_rate_or_none``).
+
+:func:`gotoh_tile_pallas` (K5) fills one tile of the table from a
+streamed top row and left column at global offsets ``(i0, j0)``: on a
+CUDA tensor it launches K1's kernel (``csrc/gotoh_rowblock.cu``) with the
+column offset and the right-column output, on a CPU tensor it runs
+``ops/gotoh_tile.tile_fill``. :func:`gotoh_scores_blocked` (K16) is the
+strip pipeline above at a strip height taken from its block height.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.ops import _build
-from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN
+from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN, FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import _lengths, wavefront_plain
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
 from genomics_rs_tpu_torch.sequence import round_up
@@ -43,6 +53,13 @@ RING_BYTES = 2 << 30
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
+#: the same for the tile entry (K5) and the row-blocked entry (K16).
+TILE_COUNTS = {"kernel": 0, "plain": 0}
+BLOCKED_COUNTS = {"kernel": 0, "plain": 0}
+#: threads a pipeline block holds (a strip row a thread).
+PIPE_MAX_ROWS = 1024
+#: codes per packed int32 word.
+PACK = rb.PACK
 
 
 def drift_rate_or_none(scores) -> int | None:
@@ -201,10 +218,11 @@ def pipeline_plan(ms_h, ns_h, Ln: int, rows: int, resident: int):
 
 
 def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
-                 max_blocks=None):
+                 max_blocks=None, counts=COUNTS):
     """Launch the pipeline at strips of ``pipe_rows(Lm, rows_per_strip)``
     rows, once for each of :func:`pipeline_groups`' pair ranges (one
-    launch unless the bucket's ring passes ``RING_BYTES``); ``max_blocks``
+    launch unless the bucket's ring passes ``RING_BYTES``), adding one to
+    ``counts["kernel"]`` a launch (K9's count, or K16's); ``max_blocks``
     caps the persistent grid below what the card holds (the card tests
     cycle tickets and ring slots with it)."""
     dev = s1eb.device
@@ -247,8 +265,107 @@ def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
                 int(is_local), rows, blocks, _build.stream_handle(dev),
             )
         _build.check(err, "gotoh_pallas")
-        COUNTS["kernel"] += 1
+        counts["kernel"] += 1
         errs.append(work[1])
     if int(torch.stack(errs).max()) != 0:  # the launches' error words (synchronises)
         raise RuntimeError("gotoh_pallas: a strip pipeline wait passed its bound")
     return res[:, 0], res[:, 1], res[:, 2]
+
+
+def blocked_rows(R: int) -> int:
+    """The pipeline's strip height for K16's block height ``R``: ``R``
+    rounded up to a warp and capped at :data:`PIPE_MAX_ROWS` (a thread
+    holds a row)."""
+    return min(round_up(max(int(R), 1), 32), PIPE_MAX_ROWS)
+
+
+def gotoh_scores_blocked(s1eb, s2eb, ms, ns, scores, is_local: bool = False, R: int = 4096):
+    """Batch scores filled in row blocks of ``R`` rows, each block's
+    bottom row carried to the next and the local argmax merged across
+    blocks (K16's contract): ``(score, ms, ns)`` in global mode, the
+    keep-last row-major ``(v, i, j)`` in local mode, int32 tensors of
+    shape (B,) on the batch's device.
+
+    A CUDA batch runs K9's strip pipeline at strips of
+    :func:`blocked_rows` ``(R)`` rows, a CPU batch
+    ``gotoh_strips_plain`` at strips of ``R`` rows. The answer does not
+    depend on ``R``: every block height fills the same table.
+    """
+    if _build.uses_kernel(s1eb):
+        return _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local,
+                            rows_per_strip=blocked_rows(R), counts=BLOCKED_COUNTS)
+    BLOCKED_COUNTS["plain"] += 1
+    return gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local, R)
+
+
+def gotoh_tile_pallas(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local: bool,
+                      emit_dirs: bool = True, emit_bottom: bool = False,
+                      emit_right: bool = False) -> rb.TileFillResult:
+    """Fill tile rows ``i0+1..i0+R`` x columns ``j0+1..j0+B`` (K5).
+
+    ``s1_block`` uint8 (R,), ``s2e`` uint8 (B,), ``top`` int32 (3, B+1)
+    (I/S/D at row ``i0``, columns ``j0..j0+B``), ``left`` int32 (3, R) (at
+    column ``j0``, rows ``i0+1..i0+R``), ``m``/``n`` the table's true
+    lengths. Returns ``gotoh_rowblock.TileFillResult`` in the JAX
+    layouts: packed ``dirs`` (Kp/16, V) (the code at tile cell (li, j) is
+    ``(dirs[(li+j)//16, li] >> 2*((li+j)%16)) & 3``), ``score_at_mn``,
+    ``best`` (v, i, j) in global coordinates, ``bottom`` (3, B+1) and
+    ``right`` (3, R). ``best`` is ``tile_fill``'s argmax in both modes
+    (the JAX tile kernel tracks it in local mode only).
+
+    A CUDA tile launches K5 (K1's kernel at column offset ``j0``); a CPU
+    tile runs ``ops/gotoh_tile.tile_fill`` (and, for ``dirs``, the
+    row-block fill's plain version, whose codes do not depend on ``j0``).
+    """
+    if _build.uses_kernel(s1_block):
+        return rb.launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local,
+                         emit_dirs, emit_bottom, False, emit_right, True, TILE_COUNTS)
+    from genomics_rs_tpu_torch.ops.gotoh_tile import tile_fill
+
+    TILE_COUNTS["plain"] += 1
+    res = tile_fill(s1_block, s2e, top, left, scores, is_local, i0, j0, m, n)
+    dirs = None
+    if emit_dirs:
+        dirs = rb.gotoh_rowblock_plain(s1_block, s2e, top, m, int(n) - int(j0), i0, scores,
+                                       is_local, emit_dirs=True, emit_bottom=False,
+                                       left=left).dirs
+    return rb.TileFillResult(
+        dirs=dirs, score_at_mn=res.at_mn, best=res.best,
+        bottom=res.bottom if emit_bottom else None, cols=None,
+        right=res.right if emit_right else None)
+
+
+def unpack_dirs(packed: torch.Tensor, Kp: int) -> torch.Tensor:
+    """(Kp/16, V) packed words -> (Kp, V) uint8 per-cell codes."""
+    shifts = 2 * torch.arange(PACK, dtype=torch.int32, device=packed.device)[None, :, None]
+    codes = (packed[:, None, :] >> shifts) & 3
+    return codes.reshape(Kp, packed.shape[1]).to(torch.uint8)
+
+
+def gotoh_fill_pallas(s1e, s2e, m, n, scores, is_local: bool, emit_dirs: bool = True,
+                      packed_dirs: bool = False) -> FillResult:
+    """The whole (m+1) x (n+1) table as one tile, with the reference's
+    boundary (``gotoh_fill_pallas``'s contract): score-only, K5 with the
+    global boundary streams; with dirs, the row-block fill K1 and, unless
+    ``packed_dirs``, the unpack to per-cell codes ``dirs[i + j, i]``.
+    Returns ``FillResult`` with 0-d int32 tensors: the score at (m, n)
+    and (m, n) in global mode, the keep-last argmax in local mode."""
+    from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_left, global_boundary_top
+
+    dev = s1e.device
+    Lm, Ln = s1e.shape[0], s2e.shape[0]
+    top = global_boundary_top(0, Ln, scores, device=dev)
+    if emit_dirs:
+        res = rb.gotoh_rowblock(s1e, s2e, top, m, n, 0, scores, is_local,
+                                emit_dirs=True, emit_bottom=False)
+        dirs = res.dirs if packed_dirs else unpack_dirs(res.dirs, res.dirs.shape[0] * PACK)
+    else:
+        res = gotoh_tile_pallas(s1e, s2e, top, global_boundary_left(0, Lm, scores, device=dev),
+                                m, n, 0, 0, scores, is_local, emit_dirs=False)
+        dirs = torch.zeros((0, 0), dtype=torch.uint8, device=dev)
+    if is_local:
+        v, bi, bj = res.best
+        return FillResult(dirs=dirs, score=v, start_i=bi, start_j=bj)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return FillResult(dirs=dirs, score=res.score_at_mn, start_i=torch.tensor(int(m), **i32),
+                      start_j=torch.tensor(int(n), **i32))

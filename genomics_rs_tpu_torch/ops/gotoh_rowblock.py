@@ -74,6 +74,9 @@ class TileFillResult(NamedTuple):
     best: tuple
     bottom: torch.Tensor | None
     cols: torch.Tensor | None
+    #: I/S/D of the block's last column (rows 1..R), the tile kernel's
+    #: ``emit_right`` (K5; ``ops/gotoh_pallas.gotoh_tile_pallas``).
+    right: torch.Tensor | None = None
 
 
 def lane_count(R: int) -> int:
@@ -111,20 +114,27 @@ def gotoh_rowblock(
     ``s1_block`` picks the route: CUDA launches the kernel, CPU runs
     the plain version.
     """
-    fn = _rowblock_cuda if _build.uses_kernel(s1_block) else gotoh_rowblock_plain
-    return fn(
+    if _build.uses_kernel(s1_block):
+        return launch(s1_block, s2e, top, left, m, n, i0, 0, scores, is_local,
+                      emit_dirs, emit_bottom, emit_cols, False, False, COUNTS)
+    return gotoh_rowblock_plain(
         s1_block, s2e, top, m, n, i0, scores, is_local,
         emit_dirs=emit_dirs, emit_bottom=emit_bottom,
         emit_cols=emit_cols, left=left,
     )
 
 
-def _rowblock_cuda(
-    s1_block, s2e, top, m, n, i0, scores, is_local,
-    emit_dirs=False, emit_bottom=True, emit_cols=False, left=None,
-) -> TileFillResult:
+def launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local, emit_dirs,
+           emit_bottom, emit_cols, emit_right, tile, counts) -> TileFillResult:
+    """Launch ``csrc/gotoh_rowblock.cu`` on the tensors' CUDA device and
+    add one to ``counts["kernel"]`` (K1's count, or K5's for
+    ``ops/gotoh_pallas.gotoh_tile_pallas``). ``j0`` is the block's global
+    column offset; ``tile`` tracks the argmax in global mode too;
+    ``emit_right`` returns column B's I/S/D as ``right`` (3, R)."""
     lib = _build.library()
     dev = s1_block.device
+    if dev.type != "cuda":
+        raise ValueError(f"the row-block kernel takes CUDA tensors, not {dev}")
     R, B = s1_block.shape[0], s2e.shape[0]
     V, K, Kp, NC = _shapes(R, B)
     _build.require(s1_block, "s1_block", torch.uint8, dev, (R,))
@@ -138,7 +148,8 @@ def _rowblock_cuda(
     dirs = torch.empty((Kp // PACK, V), **i32) if emit_dirs else None
     bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
     cols = torch.empty((NC, 3, V), **i32) if emit_cols else None
-    res = torch.full((4,), INT_MIN, **i32)  # res[0] stays INT_MIN unless row m is here
+    right = torch.empty((3, R), **i32) if emit_right else None
+    res = torch.full((4,), INT_MIN, **i32)  # res[0] stays INT_MIN unless (m, n) is here
     scratch = torch.empty(4 * (B + 1), **i32)
     threads = min(1024, round_up(R + 1, 32))
     kim = kimura_active(scores)
@@ -146,21 +157,22 @@ def _rowblock_cuda(
         err = lib.gotoh_rowblock_launch(
             _build.ptr(s1c), _build.ptr(s2c), _build.ptr(top),
             _build.ptr(left), _build.ptr(dirs), _build.ptr(bottom),
-            _build.ptr(cols), _build.ptr(res), _build.ptr(scratch),
-            R, B, V, int(m), int(n), int(i0),
+            _build.ptr(cols), _build.ptr(right), _build.ptr(res), _build.ptr(scratch),
+            R, B, V, int(m), int(n), int(i0), int(j0), int(tile),
             scores.s_match, scores.s_mismatch,
             scores.s_transition if kim else 0, int(kim),
             scores.g, scores.h, int(is_local), threads,
             _build.stream_handle(dev),
         )
     _build.check(err, "gotoh_rowblock")
-    COUNTS["kernel"] += 1
+    counts["kernel"] += 1
     return TileFillResult(
         dirs=dirs,
         score_at_mn=res[0],
         best=(res[1], res[2], res[3]),
         bottom=bottom,
         cols=cols,
+        right=right,
     )
 
 

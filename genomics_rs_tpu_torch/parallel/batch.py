@@ -10,11 +10,18 @@ warp a pair at any length, each route with its own launch count),
 pair's row strips pipelined over many blocks). ``"auto"`` tiers a bucket
 by padded length as the JAX router does on its device
 (:func:`route_engine`). ``"scan"`` is not ported (ROADMAP Queue A item
-3). The mesh paths (``batch_scores_sharded``, ``device_loop_scores``) wait
-for ROADMAP Queue A item 14.
+3).
+
+The mesh paths: :func:`batch_scores_sharded` gives each device of a mesh
+axis an equal slice of the batch, scored on that device by the engine
+:func:`mesh_bucket_engine` picks (the JAX package's picks for a sharded
+bucket), and merges the batch statistics as JAX's ``pmax``/``psum`` do;
+:func:`device_loop_scores` places equal slices on a list of devices.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +32,7 @@ from genomics_rs_tpu_torch.ops.gotoh_segmented import gotoh_scores_segmented
 from genomics_rs_tpu_torch.ops.gotoh_shortread import SHORTREAD_MAX_LEN, gotoh_scores_shortread
 from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream
 from genomics_rs_tpu_torch.ops.gotoh_stream8 import gotoh_scores_stream8
+from genomics_rs_tpu_torch.parallel.mesh import DATA_AXIS, axis_devices
 
 #: The JAX router's tier bounds (padded lengths): past the short-read
 #: tier (K6, up to ``SHORTREAD_MAX_LEN``), the segmented tier up to this
@@ -109,3 +117,93 @@ def pad_batch(arrs, batch: int, multiple: int, pad_values=None):
             pad = np.full((pb - batch,) + a.shape[1:], pv, dtype=a.dtype)
         out.append(np.concatenate([a, pad], axis=0))
     return out, pb
+
+
+class BatchScores(NamedTuple):
+    """Per-pair results plus the merged batch statistics.
+
+    score, start_i, start_j: int32 numpy (B,): per pair (start = (m, n)
+        global, the local argmax local).
+    max_score: int: the batch's largest score.
+    total_cells: float32: true DP cells, sum of (m + 1)(n + 1), summed in
+        float32 per shard and then over the shards, as JAX's ``psum``.
+    """
+
+    score: np.ndarray
+    start_i: np.ndarray
+    start_j: np.ndarray
+    max_score: int
+    total_cells: np.float32
+
+
+def mesh_bucket_engine(engine: str, L1: int, L2: int, is_local: bool) -> str:
+    """Per-shard engine for a sharded bucket of padded length L1 x L2 (the
+    JAX package's picks): ``"scan"`` and explicit ``"shortread"`` /
+    ``"segmented"`` stay; otherwise short-read up to ``SHORTREAD_MAX_LEN``,
+    segmented up to ``SEGMENTED_MAX_LEN`` rows, else ``"pallas"`` (which
+    ``parallel/allpairs`` runs as K3 slices by ``device_loop_scores``)."""
+    if engine == "scan":
+        return "scan"
+    if engine in ("shortread", "segmented"):
+        return engine
+    if max(L1, L2) <= SHORTREAD_MAX_LEN:
+        return "shortread"
+    if L1 <= SEGMENTED_MAX_LEN:
+        return "segmented"
+    return "pallas"
+
+
+def batch_scores_sharded(mesh, s1eb, s2eb, ms, ns, scores, is_local: bool,
+                         axis_name: str = DATA_AXIS, engine: str = "auto") -> BatchScores:
+    """Shard the batch over ``axis_name`` and merge the statistics.
+
+    The batch must divide by the axis size (:func:`pad_batch`). Each
+    device scores its slice with ``engine`` (``"auto"``:
+    :func:`mesh_bucket_engine`'s pick for the padded shape); a short slice
+    K6 does not take (an empty sequence, ``L2 % 16 != 0``) runs on the
+    segmented kernel, as :func:`route_engine` sends it. Per-pair results
+    come back as numpy; ``max_score``/``total_cells`` are merged over the
+    slices."""
+    devs = axis_devices(mesh, axis_name)
+    ms = np.asarray(ms, np.int32).reshape(-1)
+    ns = np.asarray(ns, np.int32).reshape(-1)
+    B, L1, L2 = len(ms), s1eb.shape[1], s2eb.shape[1]
+    if B % len(devs):
+        raise ValueError(f"batch {B} must divide into {len(devs)} shards (use pad_batch)")
+    eng = mesh_bucket_engine(engine, L1, L2, is_local) if engine == "auto" else engine
+    per = B // len(devs)
+    outs, cells = [], []
+    for k, d in enumerate(devs):
+        sl = slice(k * per, (k + 1) * per)
+        e = eng
+        if e == "shortread" and not shortread_fits(L1, L2, ms[sl], ns[sl]):
+            e = "segmented"
+        s1 = torch.as_tensor(np.ascontiguousarray(s1eb[sl]), dtype=torch.uint8).to(d)
+        s2 = torch.as_tensor(np.ascontiguousarray(s2eb[sl]), dtype=torch.uint8).to(d)
+        outs.append(_kernel_scores(e, s1, s2, ms[sl], ns[sl], scores, is_local))
+        f = np.float32
+        cells.append(np.sum((ms[sl].astype(f) + f(1)) * (ns[sl].astype(f) + f(1)), dtype=f))
+    sc, si, sj = (np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
+    return BatchScores(score=sc, start_i=si, start_j=sj, max_score=int(sc.max()),
+                       total_cells=np.sum(np.array(cells, np.float32), dtype=np.float32))
+
+
+def device_loop_scores(devices, s1b, s2b, ms, ns, scores, is_local: bool,
+                       engine: str = "stream"):
+    """Score a bucket across ``devices`` by explicit placement: the batch
+    is padded to a multiple of the device count (padding rows replicate
+    pair 0 and are dropped) and each device scores an equal slice with
+    ``engine``. Returns numpy (score, start_i, start_j) of shape (B,)."""
+    devices = [resolve_device(d) for d in devices]
+    B = len(ms)
+    n_dev = min(len(devices), B)
+    (s1p, s2p, mp, np_), Bp = pad_batch(
+        (np.asarray(s1b), np.asarray(s2b), np.asarray(ms), np.asarray(ns)), B, n_dev)
+    per = Bp // n_dev
+    outs = []
+    for k, d in enumerate(devices[:n_dev]):
+        sl = slice(k * per, (k + 1) * per)
+        s1 = torch.as_tensor(np.ascontiguousarray(s1p[sl]), dtype=torch.uint8).to(d)
+        s2 = torch.as_tensor(np.ascontiguousarray(s2p[sl]), dtype=torch.uint8).to(d)
+        outs.append(_kernel_scores(engine, s1, s2, mp[sl], np_[sl], scores, is_local))
+    return tuple(np.concatenate([o[x].cpu().numpy() for o in outs])[:B] for x in range(3))

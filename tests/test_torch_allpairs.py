@@ -304,7 +304,9 @@ def test_port_modules_do_not_import_jax():
         "genomics_rs_tpu_torch.models.caller, genomics_rs_tpu_torch.ops.gotoh_matrix, "
         "genomics_rs_tpu_torch.ops.gotoh_matrix_stream, genomics_rs_tpu_torch.ops.subst, "
         "genomics_rs_tpu_torch.ops.gotoh_segmented, genomics_rs_tpu_torch.ops.gotoh_stream8, "
-        "genomics_rs_tpu_torch.ops.gotoh_pallas; "
+        "genomics_rs_tpu_torch.ops.gotoh_pallas, genomics_rs_tpu_torch.ops.gotoh_tile, "
+        "genomics_rs_tpu_torch.parallel.mesh, genomics_rs_tpu_torch.parallel.longseq, "
+        "genomics_rs_tpu_torch.parallel.distributed, genomics_rs_tpu_torch.parallel; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -4,8 +4,10 @@ Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
 hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12, the query profile
-and the matrix fill of K13–K15, the warp-strip kernel of K7/K8 and the
-strip pipeline of K9) equal to the plain versions, bit for bit.
+and the matrix fill of K13–K15, the warp-strip kernel of K7/K8, the
+strip pipeline of K9 and its K16 entry, and K1's tile form K5 with a
+two-shard pipeline on one card) equal to the plain versions, bit for
+bit.
 """
 
 import numpy as np
@@ -60,7 +62,7 @@ def test_rowblock_kernel_matches_plain(cuda, is_local, st, with_left):
     s1 = torch.from_numpy(BASES[rng.integers(0, 4, R)].copy())
     s2 = torch.from_numpy(np.concatenate(
         [BASES[rng.integers(0, 4, n)], np.full(B - n, PAD_S2, np.uint8)]))
-    top = global_boundary_top(7, B, sc)
+    top = global_boundary_top(7, B, sc, device="cpu")
     left = torch.from_numpy(rng.integers(-40, 5, (3, R)).astype(np.int32)) if with_left else None
     args = (m, n, i0, sc, is_local)
     emit = dict(emit_dirs=True, emit_bottom=True, emit_cols=True)
@@ -556,3 +558,90 @@ def test_score_pairs_engines_agree_on_cuda(cuda, is_local):
         for dev in ("cuda", "cpu"):
             got = score_pairs(*a, engine=e, device=dev)
             assert all(np.array_equal(g, w) for g, w in zip(got, want)), (e, dev)
+
+
+def _tile_inputs(rng, R, B, sc):
+    """A tile's characters and boundary rows carried from a real fill:
+    the top row and left column of a seeded table's block at (R, B)."""
+    a = BASES[rng.integers(0, 4, 2 * R)]
+    b = BASES[rng.integers(0, 4, 2 * B)]
+    s1, s2 = torch.from_numpy(a.copy()), torch.from_numpy(b.copy())
+    full = rb.gotoh_rowblock_plain(s1[:R], s2, global_boundary_top(0, 2 * B, sc, device="cpu"),
+                                   2 * R, 2 * B, 0, sc, False, emit_cols=True)
+    top = full.bottom[:, B:].contiguous()  # row R, columns B..2B
+    return s1[R:].contiguous(), s2[B:].contiguous(), top
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+def test_tile_kernel_matches_tile_fill(cuda, is_local, st):
+    """K5 at an interior tile (i0, j0 > 0, top and left streamed), one
+    past n, and one holding (m, n): bottom, right, best, (m, n) and the
+    codes equal the plain versions."""
+    from genomics_rs_tpu_torch.ops.gotoh_tile import tile_fill
+
+    rng = np.random.default_rng(5)
+    R, B = 300, 400
+    sc = Scores(2, -3, -2, -4, st)
+    s1, s2, top = _tile_inputs(rng, R, B, sc)
+    left = torch.from_numpy(rng.integers(-600, -500, (3, R)).astype(np.int32))
+    i0, j0 = R, B
+    for m, n in ((2 * R + 50, 2 * B + 70), (2 * R, B - 5), (2 * R - 17, 2 * B - 33)):
+        before = dict(gp.TILE_COUNTS)
+        got = gp.gotoh_tile_pallas(s1.to(cuda), s2.to(cuda), top.to(cuda), left.to(cuda), m, n,
+                                   i0, j0, sc, is_local, emit_dirs=True, emit_bottom=True,
+                                   emit_right=True)
+        want = tile_fill(s1, s2, top, left, sc, is_local, i0, j0, m, n)
+        plain = gp.gotoh_tile_pallas(s1, s2, top, left, m, n, i0, j0, sc, is_local,
+                                     emit_dirs=True)
+        torch.cuda.synchronize()
+        assert gp.TILE_COUNTS["kernel"] == before["kernel"] + 1
+        assert torch.equal(got.bottom.cpu(), want.bottom)
+        assert torch.equal(got.right.cpu(), want.right)
+        assert [int(x) for x in got.best] == [int(x) for x in want.best], (m, n)
+        assert int(got.score_at_mn) == int(want.at_mn), (m, n)
+        assert np.array_equal(_codes_at(got.dirs.cpu().numpy(), R, B),
+                              _codes_at(plain.dirs.numpy(), R, B))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("R", [64, 4096])
+def test_blocked_kernel_matches_plain(cuda, is_local, R):
+    """K16 (the strip pipeline at a strip height from R) == the plain
+    strips at R-row strips, on its own launch count."""
+    rng = np.random.default_rng(12)
+    s1, s2, ms, ns = _stream_batch(rng, [700, 3, 640, 1], [500, 512, 0, 97], 768, 512)
+    before = dict(gp.BLOCKED_COUNTS)
+    got = gp.gotoh_scores_blocked(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local, R=R)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, Scores(), is_local, R)
+    assert gp.BLOCKED_COUNTS["kernel"] == before["kernel"] + 1
+    assert [x.cpu().tolist() for x in got] == [x.tolist() for x in want]
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_two_shard_sharded_score_on_one_card(cuda, is_local):
+    """Two shards of one card (two streams), C = 2: the score equals K1's
+    whole-table fill and the CPU mesh's; four K5 launches."""
+    from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_fill_pallas
+    from genomics_rs_tpu_torch.parallel import longseq
+    from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
+
+    rng = np.random.default_rng(14)
+    m, n = 700, 650
+    s1 = np.full(768, 0xFE, np.uint8)
+    s2 = np.full(768, PAD_S2, np.uint8)
+    s1[:m], s2[:n] = BASES[rng.integers(0, 4, m)], BASES[rng.integers(0, 4, n)]
+    before = gp.TILE_COUNTS["kernel"]
+    got = longseq.sharded_gotoh_score(make_mesh(2, SEQ_AXIS, devices=[cuda, cuda]), s1, s2, m,
+                                      n, Scores(), is_local)
+    got = (int(got.score), got.best.tolist())
+    assert gp.TILE_COUNTS["kernel"] == before + 4
+    cpu = longseq.sharded_gotoh_score(make_mesh(2, SEQ_AXIS, devices=["cpu", "cpu"]), s1, s2,
+                                      m, n, Scores(), is_local)
+    assert got == (int(cpu.score), cpu.best.tolist())
+    whole = gotoh_fill_pallas(torch.from_numpy(s1).to(cuda), torch.from_numpy(s2).to(cuda), m,
+                              n, Scores(), is_local, emit_dirs=True, packed_dirs=True)
+    if is_local:
+        assert got[1] == [int(whole.score), int(whole.start_i), int(whole.start_j)]
+    else:
+        assert got[0] == int(whole.score)

@@ -155,7 +155,7 @@ def test_rowblock_plain_left_window(is_local, score_t):
     b = s2[:n].tobytes().decode()
     ts = Scores.from_tuple(score_t)
     left = _true_column(a, b, ts, is_local, jc)
-    top_full = global_boundary_top(0, 384, ts).numpy()
+    top_full = global_boundary_top(0, 384, ts, device="cpu").numpy()
     Bw = n - jc
     emit = dict(emit_dirs=True, emit_bottom=True, emit_cols=True)
     jres, tres = _both(
@@ -181,10 +181,10 @@ def test_boundaries_match_jax():
     for st in (CLASSIC, KIMURA):
         js, ts = JaxScores(*st), Scores.from_tuple(st)
         assert np.array_equal(
-            np.asarray(jax_top(5, 40, js)), global_boundary_top(5, 40, ts).numpy()
+            np.asarray(jax_top(5, 40, js)), global_boundary_top(5, 40, ts, device="cpu").numpy()
         )
         assert np.array_equal(
-            np.asarray(jax_left(7, 30, js)), global_boundary_left(7, 30, ts).numpy()
+            np.asarray(jax_left(7, 30, js)), global_boundary_left(7, 30, ts, device="cpu").numpy()
         )
 
 

@@ -108,7 +108,7 @@ def test_jax_walks_port_bitmap(is_local):
     ts = Scores.from_tuple(SC)
     res = gotoh_rowblock(
         torch.from_numpy(s1.copy()), torch.from_numpy(s2.copy()),
-        global_boundary_top(0, s2.shape[0], ts), m, n, 0, ts, is_local,
+        global_boundary_top(0, s2.shape[0], ts, device="cpu"), m, n, 0, ts, is_local,
         emit_dirs=True, emit_bottom=False,
     )
     dirs = res.dirs.numpy()
