@@ -9,7 +9,12 @@ It needs a CUDA device, ``nvcc`` (it builds the kernels from
 Phases, one line each:
   0  the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1
   1  build the kernels and the oracle
-  2  K1 (row-block fill) kernel == its plain version, on the card
+  2  K1 (row-block fill: a strip pipeline over many SMs) kernel == its
+     plain version, on the card: small fills, the pipeline's edges
+     (ragged and short strips, top rows of 63-65 columns, grids of 1-3
+     blocks, a two-slot ring, a block past m, strips of 64-512 rows), and
+     the path's 10 kb local fill with dirs and 29.9 kb forward fill with
+     cols at 128, 256 and 512 rows a strip
   3  K2 (traceback walker) kernel == its plain version, on the card
   4  ``align`` end to end through ``PairwiseAligner(device="cuda")``:
      reference goldens, a seeded ~10 kb local pair (monolithic path) and
@@ -18,8 +23,9 @@ Phases, one line each:
      kernels ran and no plain version did; then the 29,903 bp path is
      replayed with every fill and walk recorded, and each is held
      against its plain version on the same inputs
-  5  kernel and plain-version times at the main path's shapes, and the
-     wall time of the 29,903 bp ``align``
+  5  kernel and plain-version times at the main path's shapes (K1's three
+     fills at 128, 256 and 512 rows a strip), and the wall time of the
+     29,903 bp ``align``
   6  K3 (batched fill) kernel == its plain version, on the card: small
      mixed-length batches (global/local, classic/kimura, B = 1, empty
      sequences, dirs at every true cell), the full 55-pair corpus of 10
@@ -144,7 +150,8 @@ Phases, one line each:
      local: bottom, right, best and the (m, n) value of an interior tile
      and of the tile holding (m, n) of the P = 4 pipeline over phase 4's
      29,903 x 29,892 bp pair (boundaries captured by
-     ``sharded_fill_checkpoints``), and of a tile wholly past n
+     ``sharded_fill_checkpoints``), and of a tile wholly past n; each also
+     at 128 rows a strip on one block and 512 rows on two
  28  the main path of this slice from here to phase 30 (launch counters
      reset just before it): ``sharded_gotoh_score`` on that pair at P in
      {1, 2, 4, 8} shards of the one card, C = P column blocks, global and
@@ -230,6 +237,8 @@ HBM_BYTES_PER_S = 3.35e12
 #: dirs adds the code chain (three compares, three selects) and its
 #: packing (shift, or, flush test).
 OPS_PER_CELL = {"global": 12, "local": 19, "dirs": 9}
+#: strip heights (threads a block) at which phases 2 and 5 hold and time K1.
+STRIP_ROWS = (128, 256, 512)
 #: integer ops per move of a walk (csrc/traceback_walk.cu): bounds test 4,
 #: decode 3, two saturating steps 4, stop/origin tests 2, packing 3.
 OPS_PER_MOVE = 16
@@ -2655,7 +2664,7 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
                 torch.from_numpy(b_seq.encoded(pad_to=Ln, pad_value=PAD_S2).copy()), R, Ln // C)
 
     def tile_err(got, want) -> int:
-        errs = [int((got.bottom.long() - want.bottom.long()).abs().max()),
+        errs = [abs(int(got.err)), int((got.bottom.long() - want.bottom.long()).abs().max()),
                 int((got.right.long() - want.right.long()).abs().max()),
                 abs(int(got.score_at_mn) - int(want.at_mn))]
         errs += [abs(int(x) - int(y)) for x, y in zip(got.best, want.best)]
@@ -2704,6 +2713,16 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             err = tile_err(got, want)
             k5_err = max(k5_err, err)
             check(err == 0, f"K5 != tile_fill on tile {name} (local={is_local}): max |err| {err}")
+            # The same tile on grids of one and two persistent blocks at
+            # strips of 128 and 512 rows: tickets and ring slots cycle.
+            for rows, max_blocks in ((128, 1), (512, 2)):
+                cap = rb.launch(*args[:8], sc, is_local, False, True, False, True, True,
+                                {"kernel": 0}, rows, max_blocks)
+                cap = cap._replace(bottom=cap.bottom.cpu(), right=cap.right.cpu())
+                err = tile_err(cap, want)
+                k5_err = max(k5_err, err)
+                check(err == 0, f"K5 != tile_fill on tile {name} (local={is_local}) at {rows} rows "
+                                f"a strip on {max_blocks} blocks: max |err| {err}")
             if name.startswith("interior"):
                 k5_plain_ms[is_local] = ms
                 interior[is_local] = args
@@ -2714,7 +2733,8 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             held.append(f"{name} {'local' if is_local else 'global'} (best "
                         f"{tuple(int(x) for x in got.best)}, plain {ms:.0f} ms)")
     print(f"[phase 27] card {card} | K5 == tile_fill (bottom, right, best, (m, n)) on the P = 4 "
-          f"pipeline's {R4} x {B4} tiles of the {m} x {n} bp pair: " + "; ".join(held)
+          f"pipeline's {R4} x {B4} tiles of the {m} x {n} bp pair, each also at 128 rows a strip "
+          f"on one block and 512 rows on two: " + "; ".join(held)
           + f"; max |err| {k5_err} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # References for the path's checks, made before its counters are reset.
@@ -2891,6 +2911,22 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
                 global_boundary_left(0, R, sc, device=dev), m, n, 0, 0)
         tile_alone[P] = med(cuda_ms(lambda: gp.gotoh_tile_pallas(
             *args, sc, False, emit_dirs=False, emit_bottom=True, emit_right=True), 2))
+    # One global call at P = 1 and at P = 8 under torch.profiler: the
+    # device's busy share of the wall.
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = {}
+    for P in (SEQPAR_P[0], SEQPAR_P[-1]):
+        s1e, s2e, R, B = padded(P, P)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            longseq.sharded_gotoh_score(mesh_of(P), s1e, s2e, m, n, sc, False)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        dev_ms = device_ms(torch, prof)
+        k5_dev = sum(v for k, v in dev_ms.items() if "rowblock" in k)
+        busy[P] = (f"P = {P}: wall {1e3 * t_prof:.1f} ms, device {sum(dev_ms.values()):.1f} ms "
+                   f"(K5 {k5_dev:.1f} ms over {P * P} launches)")
     overlap = "; ".join(
         f"P = {P}: {P * P} tiles x {tile_alone[P]:.2f} ms = {P * P * tile_alone[P]:.1f} ms "
         f"serial, {(2 * P - 1) * tile_alone[P]:.1f} ms if a wave's tiles overlap, wall "
@@ -2901,7 +2937,8 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
           f"batch global [{fmt(k16_full)}] ms ({cells_full:.4g} cells, bound {b16_full[0]:.3f}) "
           f"| K5 on the {R4} x {B4} interior tile global [{fmt(k5_ms)}] ms (bound {b5[0]:.4f} "
           f"by {b5[1]}), plain {k5_plain_ms[False]:.0f} ms | one tile alone against the "
-          f"walls (global): {overlap} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+          f"walls (global): {overlap} | profiled calls: {'; '.join(busy.values())} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return [
         {"name": "gotoh_tile", "route": "cuda",
          "source": "genomics_rs_tpu_torch/csrc/gotoh_rowblock.cu",
@@ -2935,6 +2972,7 @@ def main() -> None:
     from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
     from genomics_rs_tpu_torch.models.longalign import align_checkpointed
     from genomics_rs_tpu_torch.ops import _build
+    from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
     from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
     from genomics_rs_tpu_torch.ops import traceback_device as td
     from genomics_rs_tpu_torch.ops import traceback_walker as tw
@@ -2964,8 +3002,9 @@ def main() -> None:
         return torch.cat(out)
 
     def fill_err(got, want, R, n, B):
-        """Max |difference| over every output both fills give."""
-        errs = [abs(int(got.score_at_mn) - int(want.score_at_mn))]
+        """Max |difference| over every output both fills give (and the
+        kernel's error word, which must be clear)."""
+        errs = [abs(int(got.score_at_mn) - int(want.score_at_mn)), abs(int(got.err))]
         errs += [abs(int(a) - int(b)) for a, b in zip(got.best, want.best)]
         if want.bottom is not None:
             errs.append(int((got.bottom.long() - want.bottom.long()).abs().max()))
@@ -2979,6 +3018,14 @@ def main() -> None:
             d = codes_at(got.dirs, R, B) - codes_at(want.dirs, R, B)
             errs.append(int(d.abs().max()))
         return max(errs)
+
+    # The main path's pairs (phase 4), made first: phase 2 holds K1 at their
+    # fills' shapes.
+    rng = np.random.default_rng(7)
+    s10 = random_dna(rng, 10_000)
+    t10 = random_dna(rng, 1_000) + mutate(rng, s10[2_000:9_500], 0.01, 6) + random_dna(rng, 1_500)
+    base = random_dna(rng, 29_903)
+    var = mutate(rng, base, 0.01, 8)
 
     # ---- phase 2: K1 kernel vs plain ----
     rng = np.random.default_rng(2024)
@@ -3023,10 +3070,89 @@ def main() -> None:
             bitmaps.append((got.dirs, R, B, i0, si, sj))
         if i0 > 0 and not with_left and not is_local:
             bitmaps.append((got.dirs, R, B, i0, R, n))
+    # The strip pipeline's edges, on the card's own grid unless capped:
+    # (R, B, n, m, i0, local, kimura, left, rows a strip, max blocks, ring
+    # slots) for ragged and whole strips, a block shorter than a strip, top
+    # rows narrower than, as wide as and just wider than a published chunk,
+    # grids of one and two blocks, a ring of two slots, a block wholly past
+    # m and the probe inside a later block.
+    edges = [
+        (1000, 700, 690, 1000, 0, True, -1, True, 256, None, None),
+        (767, 320, 300, 900, 133, False, None, True, 256, None, None),
+        (100, 300, 280, 100, 0, True, None, False, 256, None, None),
+        (600, 63, 63, 600, 0, True, None, False, 128, None, None),
+        (600, 64, 64, 600, 0, False, -1, True, 128, None, None),
+        (600, 65, 65, 600, 0, True, -1, False, 128, None, None),
+        (2047, 900, 880, 2047, 0, True, -1, True, 128, 1, None),
+        (2047, 900, 880, 1900, 0, False, None, False, 256, 2, None),
+        (2047, 900, 880, 2047, 0, True, None, True, 64, 3, 2),
+        (1023, 400, 390, 500, 1024, True, None, False, 256, None, None),
+        (3071, 1000, 990, 5000, 3071, True, -1, True, 512, None, None),
+    ]
+    for R, B, n, m, i0, is_local, st, with_left, rows, max_blocks, slots in edges:
+        sc = Scores(2, -3, -2, -4, st)
+        s1 = torch.from_numpy(acgt[rng.integers(0, 4, R)].copy()).to(dev)
+        s2 = np.full(B, PAD_S2, np.uint8)
+        s2[:n] = acgt[rng.integers(0, 4, n)]
+        s2 = torch.from_numpy(s2).to(dev)
+        top = global_boundary_top(0, B, sc, device=dev)
+        left = (torch.from_numpy(rng.integers(-60, 8, (3, R)).astype(np.int32)).to(dev)
+                if with_left else None)
+        ring = gp.RING_BYTES
+        if slots is not None:
+            gp.RING_BYTES = slots * 8 * (B + 1)
+        try:
+            got = rb.launch(s1, s2, top, left, m, n, i0, 0, sc, is_local, True, True, True,
+                            False, False, {"kernel": 0}, rows, max_blocks)
+        finally:
+            gp.RING_BYTES = ring
+        want = rb.gotoh_rowblock_plain(s1, s2, top, m, n, i0, sc, is_local, emit_dirs=True,
+                                       emit_bottom=True, emit_cols=True, left=left)
+        torch.cuda.synchronize()
+        err = fill_err(got, want, R, n, B)
+        k1_err = max(k1_err, err)
+        check(err == 0, f"K1 kernel != plain at a pipeline edge (R={R}, B={B}, m={m}, i0={i0}, "
+                        f"local={is_local}, rows={rows}, blocks={max_blocks}, slots={slots}): "
+                        f"max |err| {err}")
+
+    # The main path's fills at three strip heights against one plain fill
+    # each: the 10 kb pair's monolithic local fill with dirs and the
+    # 29.9 kb pair's checkpointed forward fill with bottom and cols.
+    sc = Scores()  # the main path's scores, from here on
+    path_fills = {}
+    Lm10, Ln10 = round_up(len(s10), 128), round_up(len(t10), 128)
+    R30, L30 = round_up(len(base) + 1, 1024) - 1, round_up(len(var), 128)
+    for name, a, b, R, L, is_local, emit in (
+            ("10 kb local+dirs", s10, t10, Lm10, Ln10, True,
+             dict(emit_dirs=True, emit_bottom=False)),
+            ("29.9 kb forward+cols", base, var, R30, L30, False,
+             dict(emit_dirs=False, emit_bottom=True, emit_cols=True))):
+        s1 = torch.from_numpy(Sequence("a", a).encoded(R, 0xFE).copy()).to(dev)
+        s2 = torch.from_numpy(Sequence("b", b).encoded(L, PAD_S2).copy()).to(dev)
+        top = global_boundary_top(0, L, sc, device=dev)
+        args = (s1, s2, top, len(a), len(b), 0, sc, is_local)
+        t1 = time.perf_counter()
+        want = rb.gotoh_rowblock_plain(*args, **emit)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        path_fills[name] = (args, emit, plain_ms, want)
+        for rows in STRIP_ROWS:
+            got = rb.launch(s1, s2, top, None, len(a), len(b), 0, 0, sc, is_local,
+                            emit["emit_dirs"], emit["emit_bottom"], emit.get("emit_cols", False),
+                            False, False, {"kernel": 0}, rows)
+            err = fill_err(got, want, R, len(b), L)
+            k1_err = max(k1_err, err)
+            check(err == 0, f"K1 kernel != plain on the {name} fill ({R} x {L}) at {rows} rows "
+                            f"a strip: max |err| {err}")
+            del got
     print(f"[phase 2] K1 kernel == plain on {len(cases)} fills "
           f"(global/local, classic/kimura, dirs+bottom+cols, left; up to "
-          f"2047 x 3072); max |err| {k1_err} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+          f"2047 x 3072), {len(edges)} pipeline edges (ragged and short strips, top rows "
+          f"of 63-65 columns, grids of 1-3 blocks, a two-slot ring, a block past m, strips of "
+          f"64-512 rows) and the path's 10 kb local fill with dirs and 29.9 kb forward fill "
+          f"with cols at {'/'.join(map(str, STRIP_ROWS))} rows a strip (plain "
+          + ", ".join(f"{k} {v[2]:.0f} ms" for k, v in path_fills.items())
+          + f"); max |err| {k1_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- phase 3: K2 kernel vs plain ----
     t0 = time.perf_counter()
@@ -3066,13 +3192,6 @@ def main() -> None:
         di = sum(ch not in (C.INSERT, C.OPEN_INSERT) for ch, _, _ in aln)
         dj = sum(ch not in (C.DELETE, C.OPEN_DELETE) for ch, _, _ in aln)
         return di, dj
-
-    sc = Scores()
-    rng = np.random.default_rng(7)
-    s10 = random_dna(rng, 10_000)
-    t10 = random_dna(rng, 1_000) + mutate(rng, s10[2_000:9_500], 0.01, 6) + random_dna(rng, 1_500)
-    base = random_dna(rng, 29_903)
-    var = mutate(rng, base, 0.01, 8)
 
     for mod in (rb, td, tw):
         for key in mod.COUNTS:
@@ -3221,33 +3340,28 @@ def main() -> None:
             ts.append(a.elapsed_time(b))
         return ts
 
-    # the 10 kb pair's monolithic fill shape (lengths padded to 128)
-    Lm, Ln = round_up(len(s10), 128), round_up(len(t10), 128)
-    s1e = torch.from_numpy(Sequence("a", s10).encoded(Lm, 0xFE).copy()).to(dev)
-    s2e = torch.from_numpy(Sequence("b", t10).encoded(Ln, 0xFF).copy()).to(dev)
-    top = global_boundary_top(0, Ln, sc, device=dev)
-    fill_args = (s1e, s2e, top, len(s10), len(t10), 0, sc, True)
-    fill_kw = dict(emit_dirs=True, emit_bottom=False)
-    k1_ms = cuda_ms(lambda: rb.gotoh_rowblock(*fill_args, **fill_kw), 3)
-    t0 = time.perf_counter()
-    plain = rb.gotoh_rowblock_plain(*fill_args, **fill_kw)
-    torch.cuda.synchronize()
-    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    # K1 at the main path's three fills (the 10 kb pair's monolithic local
+    # fill with dirs; the 29.9 kb pair's checkpointed forward with cols and
+    # its refill with dirs, one block of R30 rows), at each strip height.
+    fill_args, fill_kw, k1_plain_ms, plain = path_fills["10 kb local+dirs"]
+    fwd_args = path_fills["29.9 kb forward+cols"][0]
+    del path_fills
+    k1_times = {}
+    for rows in STRIP_ROWS:
+        k1_times["10 kb local+dirs", rows] = cuda_ms(lambda: rb.launch(
+            *fill_args[:3], None, *fill_args[3:6], 0, sc, True, True, False, False, False,
+            False, {"kernel": 0}, rows), 3)
+        k1_times["29.9 kb forward+cols", rows] = cuda_ms(lambda: rb.launch(
+            *fwd_args[:3], None, *fwd_args[3:6], 0, sc, False, False, True, True, False,
+            False, {"kernel": 0}, rows), 3)
+        k1_times["29.9 kb refill+dirs", rows] = cuda_ms(lambda: rb.launch(
+            *fwd_args[:3], None, *fwd_args[3:6], 0, sc, False, True, False, False, False,
+            False, {"kernel": 0}, rows), 3)
+    k1_ms = k1_times["10 kb local+dirs", rb.PIPE_ROWS]
     kern = rb.gotoh_rowblock(*fill_args, **fill_kw)
-    err = fill_err(kern, plain, Lm, len(t10), Ln)
+    err = fill_err(kern, plain, Lm10, len(t10), Ln10)
     k1_err = max(k1_err, err)
     check(err == 0, f"K1 kernel != plain at the 10 kb shape: max |err| {err}")
-
-    # the 29.9 kb pair's checkpointed block shape (one block of R rows)
-    R30, L30 = round_up(len(base) + 1, 1024) - 1, round_up(len(var), 128)
-    s1b = torch.from_numpy(Sequence("a", base).encoded(R30, 0xFE).copy()).to(dev)
-    s2b = torch.from_numpy(Sequence("b", var).encoded(L30, 0xFF).copy()).to(dev)
-    topb = global_boundary_top(0, L30, sc, device=dev)
-    k1_fwd30_ms = cuda_ms(lambda: rb.gotoh_rowblock(
-        s1b, s2b, topb, len(base), len(var), 0, sc, False, emit_cols=True), 2)
-    k1_dirs30_ms = cuda_ms(lambda: rb.gotoh_rowblock(
-        s1b, s2b, topb, len(base), len(var), 0, sc, False,
-        emit_dirs=True, emit_bottom=False), 2)
 
     si, sj = int(kern.best[1]), int(kern.best[2])
     max_steps = 24_576
@@ -3267,25 +3381,50 @@ def main() -> None:
         PairwiseAligner(sc, device="cuda").align(Sequence("a", base), Sequence("b", var))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    # One more under torch.profiler: device time by kernel and the device's
+    # busy share of the wall.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        PairwiseAligner(sc, device="cuda").align(Sequence("a", base), Sequence("b", var))
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    dev_ms = device_ms(torch, prof)
+    align_profile = (f"profiled align wall {t_prof:.4f} s, device time "
+                     f"{sum(dev_ms.values()):.2f} ms (busy {sum(dev_ms.values()) / 10 / t_prof:.1f}%); "
+                     + "; ".join(f"{k[:40]} {v:.2f} ms"
+                                 for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:3]))
     fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
     rate = int32_ops_per_s(torch)
     m10, n10 = len(s10), len(t10)
     k1_cells = float(m10) * n10  # interior cells; row 0 and column 0 are closed forms
     k1_bound = bound(m10 + n10 + 12 * (n10 + 1) + k1_cells / 4 + 16,
                      k1_cells * (OPS_PER_CELL["local"] + OPS_PER_CELL["dirs"]), rate)
+    # The 29.9 kb fills: characters and the top row in; bottom and cols
+    # (forward) or 2 bits of dirs a cell (refill) out.
+    m30, n30 = len(base), len(var)
+    c30 = float(m30) * n30
+    fwd_bound = bound(m30 + n30 + 12 * (n30 + 1) * 2 + 12 * m30,
+                      c30 * OPS_PER_CELL["global"], rate)
+    dirs_bound = bound(m30 + n30 + 12 * (n30 + 1) + c30 / 4,
+                       c30 * (OPS_PER_CELL["global"] + OPS_PER_CELL["dirs"]), rate)
     k2_bound = bound(4 * k2_words + n_moves / 4 + 24, OPS_PER_MOVE * n_moves, rate)
-    print(f"[phase 5] card {card} | K1 {Lm}x{Ln} local+dirs: kernel "
-          f"[{fmt(k1_ms)}] ms, plain {k1_plain_ms:.1f} ms | K1 {R30}x{L30} "
-          f"forward+cols: kernel [{fmt(k1_fwd30_ms)}] ms, +dirs: [{fmt(k1_dirs30_ms)}] ms "
-          f"(plain on the path's 29.9 kb fills: bottom+cols {plain30['bottom+cols']:.1f} ms, "
-          f"dirs {plain30['dirs']:.1f} ms) "
+    print(f"[phase 5] card {card} | K1 (CUDA events, ms, 3 runs) at "
+          + "; ".join(f"{rows} rows a strip: " + ", ".join(
+              f"{name} [{fmt(k1_times[name, rows])}]"
+              for name in ("10 kb local+dirs", "29.9 kb forward+cols", "29.9 kb refill+dirs"))
+              for rows in STRIP_ROWS)
+          + f" | plain: 10 kb local+dirs {k1_plain_ms:.1f} ms, 29.9 kb (phase 4's path fills) "
+          f"bottom+cols {plain30['bottom+cols']:.1f} ms, dirs {plain30['dirs']:.1f} ms "
           f"| K2 walk of {n_moves} moves ({k2_words} words read): kernel [{fmt(k2_ms)}] ms, plain "
-          f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s",
+          f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s; {align_profile}",
           flush=True)
 
     print(f"[phase 5] bounds (int32 {rate:.4g} ops/s, {HBM_BYTES_PER_S:.3g} B/s): "
-          f"K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 {k2_bound[0]:.6f} ms "
-          f"({k2_bound[1]})", flush=True)
+          f"K1 10 kb local+dirs {k1_bound[0]:.4f} ms ({k1_bound[1]}), 29.9 kb forward+cols "
+          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}), 29.9 kb refill+dirs {dirs_bound[0]:.4f} ms "
+          f"({dirs_bound[1]}), K2 {k2_bound[0]:.6f} ms ({k2_bound[1]})", flush=True)
 
     rows = [
         {"name": "gotoh_rowblock", "route": "cuda",

@@ -1,11 +1,12 @@
 // The batched Gotoh fill's body, shared by K3 (gotoh_stream.cu: the
 // substitution compares two characters, classic or kimura), the matrix
 // fill (gotoh_matrix.cu: the substitution is read from a query profile),
-// K9's strip pipeline (gotoh_pallas.cu) and the warp-strip kernel K7/K8
+// K9's strip pipeline (gotoh_pallas.cu), the row-block pipeline of K1 and
+// K5 (gotoh_rowblock.cu: the strip sweep and the hand-off under its own
+// boundaries and outputs) and the warp-strip kernel K7/K8
 // (gotoh_segmented.cu, which takes the cell recurrence and CharSub). A
 // substitution policy `Sub` supplies s(i, j); the recurrence, the
-// boundaries, the direction codes and the local argmax are this file's,
-// once.
+// direction codes and the strip hand-off are this file's, once.
 //
 // Contract, for every pair p of a padded batch (true lengths m_p, n_p): the
 // affine-gap (Gotoh) table over rows 0..m_p and columns 0..n_p with the
@@ -22,11 +23,11 @@
 //                                  >> 2*((i+j)%16)) & 3
 //
 // Design: a strip of T rows is swept by T threads, thread t owning row
-// s*T + t and stepping one column a barrier (K1's skewed wavefront,
-// gotoh_rowblock.cu); the strip's last thread hands its row's A and M to
-// the next strip through global scratch rows. No padded cell is computed,
-// so the local argmax needs no padding mask and no pair needs a seam,
-// probe or drift guard. Two modes:
+// s*T + t and stepping one column a barrier (a skewed wavefront); the
+// strip's last thread hands its row's A and M to the next strip through
+// global scratch rows. No padded cell is computed, so the local argmax
+// needs no padding mask and no pair needs a seam, probe or drift guard.
+// Two modes:
 //   stream_kernel  one block a pair sweeps its strips in order (K3, the
 //                  matrix fill);
 //   pipe_kernel    every strip of every pair is a block's work, taken from
@@ -40,6 +41,10 @@
 //   int next(Row& r, int j, int n) const          s(i, j) for the row's next
 //                                                 column j (1 <= j <= n),
 //                                                 then prefetch column j+1
+// The sweep takes two more policies. An edge (GlobalEdge here; K1's given
+// top row and streamed left column in gotoh_rowblock.cu) gives I/S/D on
+// row 0 and column 0. An output (PairOut here; K1's in gotoh_rowblock.cu)
+// sees every true cell once, after its codes, as cell(i, j, I, S, D, M).
 
 #pragma once
 
@@ -89,31 +94,43 @@ struct CharSub {
   }
 };
 
-// The recurrence at one true cell (i, j). The row's state: Il = I and
-// Pl = max(S, D) of (i, j-1), diagM = M of (i-1, j-1); `up(a, m)` gives A
-// and M of the cell above, (i-1, j), and is called only off row 0 (the
-// fetch stays inside the cell's one branch on i). Row 0 and column 0 are
-// the global boundary. `sub()` gives s(i, j) and is called only for i, j
-// >= 1, once a column. Sets I, S, D, M (floored in local mode) and A,
-// moves the row state on, and returns M0, the cell max before the local
-// floor. INTERIOR: the caller knows i, j >= 1, and the boundary branches
-// go (the warp-strip kernel's straight-line steps).
-template <bool LOCAL, bool INTERIOR = false, class UpF, class SubF>
-__device__ __forceinline__ int gotoh_cell(int i, int j, int g, int h, UpF up, SubF sub,
-                                          int& Il, int& Pl, int& diagM, int& I,
-                                          int& S, int& D, int& M, int& A) {
-  const int hg = h + g;
-  if (!INTERIOR && i == 0) {
+// The table's global boundary (K3, K7/K8, K9, the matrix fill): corner 0,
+// I(0, j) = h + j*g, D(i, 0) = h + i*g, the rest -inf.
+struct GlobalEdge {
+  __device__ __forceinline__ void top(int j, int g, int h, int& I, int& S, int& D) const {
     I = j == 0 ? 0 : h + j * g;
     S = j == 0 ? 0 : NEG_INF;
     D = S;
+  }
+  __device__ __forceinline__ void left(int i, int g, int h, int& I, int& S, int& D) const {
+    I = NEG_INF;
+    S = NEG_INF;
+    D = h + i * g;
+  }
+};
+
+// The recurrence at one true cell (i, j). The row's state: Il = I and
+// Pl = max(S, D) of (i, j-1), diagM = M of (i-1, j-1); `up(a, m)` gives A
+// and M of the cell above, (i-1, j), and is called only off row 0 (the
+// fetch stays inside the cell's one branch on i). Row 0 and column 0 come
+// from `edge`. `sub()` gives s(i, j) and is called only for i, j >= 1,
+// once a column. Sets I, S, D, M (floored in local mode) and A, moves the
+// row state on, and returns M0, the cell max before the local floor.
+// INTERIOR: the caller knows i, j >= 1, and the boundary branches go (the
+// warp-strip kernel's straight-line steps).
+template <bool LOCAL, bool INTERIOR = false, class UpF, class SubF, class Edge = GlobalEdge>
+__device__ __forceinline__ int gotoh_cell(int i, int j, int g, int h, UpF up, SubF sub,
+                                          int& Il, int& Pl, int& diagM, int& I,
+                                          int& S, int& D, int& M, int& A,
+                                          const Edge& edge = Edge{}) {
+  const int hg = h + g;
+  if (!INTERIOR && i == 0) {
+    edge.top(j, g, h, I, S, D);
   } else {
     int upA, upM;
     up(upA, upM);
     if (!INTERIOR && j == 0) {
-      I = NEG_INF;
-      S = NEG_INF;
-      D = h + i * g;
+      edge.left(i, g, h, I, S, D);
     } else {
       I = imax(Il + g, Pl + hg);
       if (LOCAL) I = imax(I, 0);
@@ -163,11 +180,37 @@ __device__ __forceinline__ void block_best(int* rv, int* ri, int* rj, int bv,
   }
 }
 
+// The outputs of K3 and K9 at a pair's true cell: local, the thread's
+// keep-last best (a thread's cells come in row-major order, so >= keeps the
+// last); global, the score at (m, n), beside m and n for K9.
+template <bool LOCAL, bool PIPE>
+struct PairOut {
+  int* res;
+  int p, m, n;
+  int bv = INT_MIN_V, bi = -1, bj = 0;
+
+  __device__ __forceinline__ void cell(int i, int j, int, int, int, int M) {
+    if (LOCAL) {
+      if (M >= bv) {
+        bv = M;
+        bi = i;
+        bj = j;
+      }
+    } else if (i == m && j == n) {
+      res[3 * p] = M;
+      if (PIPE) {
+        res[3 * p + 1] = m;
+        res[3 * p + 2] = n;
+      }
+    }
+  }
+};
+
 // ---- K9's pipeline hand-off --------------------------------------------------
 
 //: columns a producer publishes at once (a consumer waits once a chunk).
 constexpr int PIPE_CHUNK = 64;
-//: a wait on another block that passes this many ns is a fault.
+//: a wait that sees nothing move for this many ns is a fault.
 constexpr unsigned long long SPIN_NS = 10ull * 1000 * 1000 * 1000;
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -187,17 +230,32 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 }
 
 // Spin until *flag >= target (acquire). False when the launch's error
-// word is set, or when this wait passes SPIN_NS (it then sets the word).
-__device__ __noinline__ bool wait_geq(const int* flag, int target, int* err) {
+// word is set, or when the wait sees nothing move for `bound` ns (it then
+// sets the word). Without `beat` that is the wait's own length (K9);
+// with it, each time the bound passes the wait looks at *beat and starts
+// its clock again if it changed, so a wait behind strips that are still
+// sweeping is no fault however long, and a hang (no strip of the launch
+// moves for a whole bound) is. The beat is read once a bound, not once a
+// spin, so the waits add no loads to the line every strip adds to.
+__device__ __noinline__ bool wait_geq(const int* flag, int target, int* err,
+                                      const int* beat = nullptr,
+                                      unsigned long long bound = SPIN_NS) {
   if (ld_acquire(flag) >= target) return true;
-  const unsigned long long t0 = globaltimer();
+  unsigned long long t0 = globaltimer();
+  int seen = beat != nullptr ? *(const volatile int*)beat : 0;
   for (;;) {
     __nanosleep(64);
     if (ld_acquire(flag) >= target) return true;
     if (*(volatile int*)err) return false;
-    if (globaltimer() - t0 > SPIN_NS) {
-      atomicExch(err, 1);
-      return false;
+    const unsigned long long now = globaltimer();
+    if (now - t0 > bound) {
+      const int b = beat != nullptr ? *(const volatile int*)beat : seen;
+      if (b == seen) {
+        atomicExch(err, 1);
+        return false;
+      }
+      seen = b;
+      t0 = now;
     }
   }
 }
@@ -211,20 +269,24 @@ struct StripLinks {
   int* abort;              // shared: set by warp 0 when a wait failed
   int* upA;                // shared: the staged chunk of the top row
   int* upM;
+  int* beat = nullptr;     // the launch's heartbeat: a strip adds one with
+                           // each chunk it publishes (K1; null for K9),
+                           // see wait_geq
+  unsigned long long bound = SPIN_NS;  // wait_geq's bound
 };
 
 // Sweep strip s of pair p: rows s*T .. s*T + T - 1 (those <= m), columns
 // 0..n. Thread 0 reads the row above from `up` (A at [j], M at [W + j]);
 // the last thread writes its row to `down` when `writes_down`. PIPE: the
 // top row arrives in published chunks (warp 0 stages each chunk in
-// shared memory) and the bottom row is published chunk by chunk. Returns
+// shared memory) and the bottom row is published chunk by chunk. Row 0
+// and column 0 come from `edge`; `out` sees every true cell. Returns
 // false when a pipeline wait failed (every thread of the block returns).
-template <bool LOCAL, bool PIPE, class Sub>
+template <bool LOCAL, bool PIPE, class Sub, class Edge, class Out>
 __device__ __forceinline__ bool strip_sweep(
-    const Sub& sub, int p, int s, int m, int n, int g, int h, int (*sA)[MAX_T],
-    int (*sM)[MAX_T], int& cur, const int* up, int* down, bool writes_down,
-    unsigned* dp, int V, int* res, int& bv, int& bi, int& bj,
-    const StripLinks& ln) {
+    const Sub& sub, const Edge& edge, Out& out, int p, int s, int m, int n, int g, int h,
+    int (*sA)[MAX_T], int (*sM)[MAX_T], int& cur, const int* up, int* down,
+    bool writes_down, unsigned* dp, int V, const StripLinks& ln) {
   const int t = threadIdx.x;
   const int T = blockDim.x;
   const int W = n + 1;
@@ -242,7 +304,7 @@ __device__ __forceinline__ bool strip_sweep(
       // Warp 0 stages top-row columns q .. q + PIPE_CHUNK - 1 once strip
       // s-1 has published them (L2 loads: L1 is not coherent across SMs).
       const int hi = min(q + PIPE_CHUNK, W);
-      if (t == 0 && !wait_geq(ln.progress_in, hi, ln.err)) *ln.abort = 1;
+      if (t == 0 && !wait_geq(ln.progress_in, hi, ln.err, ln.beat, ln.bound)) *ln.abort = 1;
       __syncwarp();
       for (int c = q + t; c < hi; c += 32) {
         ln.upA[c - q] = __ldcg(up + c);
@@ -273,19 +335,21 @@ __device__ __forceinline__ bool strip_sweep(
               upM = sM[cur ^ 1][t - 1];
             }
           },
-          [&] { return sub.next(row, j, n); }, Il, Pl, diagM, I, S, D, M, A);
+          [&] { return sub.next(row, j, n); }, Il, Pl, diagM, I, S, D, M, A, edge);
       sA[cur][t] = A;
       sM[cur][t] = M;
       if (writes_down) {
         down[j] = A;
         down[W + j] = M;
-        if (PIPE && ((j + 1) % PIPE_CHUNK == 0 || j == n))
+        if (PIPE && ((j + 1) % PIPE_CHUNK == 0 || j == n)) {
           st_release(ln.progress_out, j + 1);  // orders this thread's row stores
+          if (ln.beat != nullptr) atomicAdd(ln.beat, 1);
+        }
       }
       if (dp != nullptr) {
-        // Tested against the pre-floor max M0, as in K1: ptxas (CUDA
-        // 12.9, -O1 and up) miscompiles `M == D` after the fused
-        // max-with-zero in local mode (see gotoh_rowblock.cu).
+        // Tested against the pre-floor max M0: ptxas (CUDA 12.9, -O1 and
+        // up) miscompiled K1's `M == D` after the fused max-with-zero in
+        // local mode, found only on the card.
         const unsigned code = (LOCAL && M0 < 0) ? 3u
                               : (M0 == S)         ? 0u
                               : (M0 == I)         ? 1u
@@ -297,20 +361,7 @@ __device__ __forceinline__ bool strip_sweep(
         acc |= code << (2 * sp);
         if (sp == 15 || j == n) dp[(size_t)(k >> 4) * V + i] = acc;
       }
-      if (LOCAL) {
-        // A thread's cells come in row-major order, so >= keeps the last.
-        if (M >= bv) {
-          bv = M;
-          bi = i;
-          bj = j;
-        }
-      } else if (i == m && j == n) {
-        res[3 * p] = M;
-        if (PIPE) {
-          res[3 * p + 1] = m;
-          res[3 * p + 2] = n;
-        }
-      }
+      out.cell(i, j, I, S, D, M);
     }
     __syncthreads();
     cur ^= 1;
@@ -339,21 +390,21 @@ stream_kernel(Sub sub, const int* __restrict__ ms, const int* __restrict__ ns,
   const int nstrips = (m + 1 + T - 1) / T;
   const StripLinks none{};
 
-  int bv = INT_MIN_V, bi = -1, bj = 0;  // this thread's keep-last best
+  PairOut<LOCAL, false> out{res, p, m, n};  // with this thread's keep-last best
   int cur = 0;
   for (int s = 0; s < nstrips; ++s) {
     const int* up = scr + ((s + 1) & 1) * 2 * W;  // written by strip s-1
     int* down = scr + (s & 1) * 2 * W;
     const bool writes_down = (t == T - 1) && (s + 1 < nstrips);
-    strip_sweep<LOCAL, false>(sub, p, s, m, n, g, h, sA, sM, cur, up, down,
-                              writes_down, dp, V, res, bv, bi, bj, none);
+    strip_sweep<LOCAL, false>(sub, GlobalEdge{}, out, p, s, m, n, g, h, sA, sM, cur, up,
+                              down, writes_down, dp, V, none);
   }
 
   // Thread 0 owns row 0, whose cells are all >= 0, so the merge always
   // finds a true cell.
   if (LOCAL) {
     int v, ii, jj;
-    block_best(rv, ri, rj, bv, bi, bj, v, ii, jj);
+    block_best(rv, ri, rj, out.bv, out.bi, out.bj, v, ii, jj);
     if (t == 0) {
       res[3 * p] = v;
       res[3 * p + 1] = ii;
@@ -465,17 +516,17 @@ pipe_kernel(Sub sub, PipePlan plan, PipeWork work, int* __restrict__ ring,
     const StripLinks ln{s > 0 ? work.progress + gid - 1 : nullptr,
                         work.progress + gid, work.released + gid, work.err,
                         &s_abort, sUpA, sUpM};
-    int bv = INT_MIN_V, bi = -1, bj = 0;
+    PairOut<LOCAL, true> out{res, p, m, n};
     const bool writes_down = down != nullptr && t == T - 1;
-    if (!strip_sweep<LOCAL, true>(sub, p, s, m, n, g, h, sA, sM, cur, up, down,
-                                  writes_down, nullptr, 0, res, bv, bi, bj, ln))
+    if (!strip_sweep<LOCAL, true>(sub, GlobalEdge{}, out, p, s, m, n, g, h, sA, sM, cur, up,
+                                  down, writes_down, nullptr, 0, ln))
       return;
 
     if (LOCAL) {
       // The strip's best, then the pair's once its last strip is done.
       // Thread 0's row (s*T) is a true row, so the strip has a cell >= 0.
       int v, ii, jj;
-      block_best(rv, ri, rj, bv, bi, bj, v, ii, jj);
+      block_best(rv, ri, rj, out.bv, out.bi, out.bj, v, ii, jj);
       if (t == 0) {
         work.best[3 * gid] = v;
         work.best[3 * gid + 1] = ii;

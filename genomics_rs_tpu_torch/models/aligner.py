@@ -36,7 +36,7 @@ from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_matrix import gotoh_matrix_fill
 from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import gotoh_matrix_stream_fill_dirs
-from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock
+from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
@@ -80,10 +80,9 @@ def _fill(s1e, s2e, m: int, n: int, scores: Scores, is_local: bool,
         m, n, 0, scores, is_local,
         emit_dirs=emit_dirs, emit_bottom=False,
     )
-    if is_local:
-        score, si, sj = torch.stack(list(res.best)).tolist()
-    else:
-        score, si, sj = int(res.score_at_mn), m, n
+    at_mn, v, bi, bj, err = torch.stack([res.score_at_mn, *res.best, res.err]).tolist()
+    raise_on_err(err)
+    score, si, sj = (v, bi, bj) if is_local else (at_mn, m, n)
     return FillResult(dirs=res.dirs, score=score, start_i=si, start_j=sj)
 
 

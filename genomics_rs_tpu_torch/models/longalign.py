@@ -28,7 +28,7 @@ import torch
 
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
-from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, lane_count
+from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, lane_count, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
@@ -54,7 +54,8 @@ def _forward_blocks(
     block's bottom row the next one's top.
 
     Returns (tops [NB x (3, Ln+1)] | None, cols [NB x (NC, 3, V)] | None,
-    best (v, i, j), at_mn), the last two merged on the host once.
+    best (v, i, j), at_mn), the last two merged on the host once, where
+    the fills' error words are read too.
     """
     top = global_boundary_top(0, s2e.shape[0], scores, device=s2e.device)
     tops, cols, outs = [], [], []
@@ -68,9 +69,10 @@ def _forward_blocks(
             tops.append(top)
         if keep_cols:
             cols.append(res.cols)
-        outs.append(torch.stack([res.score_at_mn, *res.best]))
+        outs.append(torch.stack([res.score_at_mn, *res.best, res.err]))
         top = res.bottom
     r = torch.stack(outs).cpu().numpy().astype(np.int64)
+    raise_on_err(r[:, 4].max())
     at_mn = int(r[:, 0].max())
     if is_local:
         # Merge with the reference tie-break (blocks ordered by i).
@@ -152,6 +154,7 @@ def _walk_span_windowed(
         blk_codes, i, j_local, done = device_walk(
             res.dirs, i - i0, j - jc, i0, max_steps=max_steps, j0=jc
         )
+        raise_on_err(res.err)  # the walk's read has synchronised
         codes.append(blk_codes)
         j = j_local + jc
         if done:

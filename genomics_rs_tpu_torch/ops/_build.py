@@ -118,7 +118,9 @@ def _compile(srcs: list[Path], out_dir: Path, so: Path) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.gotoh_rowblock_launch.argtypes = [vp] * 10 + [i] * 16 + [vp]
+    lib.gotoh_rowblock_blocks_per_sm.argtypes = [i, i, i]
+    lib.gotoh_rowblock_blocks_per_sm.restype = i
+    lib.gotoh_rowblock_launch.argtypes = [vp] * 10 + [i] * 19 + [ctypes.c_longlong, vp]
     lib.gotoh_rowblock_launch.restype = i
     lib.traceback_walk_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
     lib.traceback_walk_launch.restype = i

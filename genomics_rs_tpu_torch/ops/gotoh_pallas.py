@@ -311,11 +311,13 @@ def gotoh_tile_pallas(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local: 
     ``(dirs[(li+j)//16, li] >> 2*((li+j)%16)) & 3``), ``score_at_mn``,
     ``best`` (v, i, j) in global coordinates, ``bottom`` (3, B+1) and
     ``right`` (3, R). ``best`` is ``tile_fill``'s argmax in both modes
-    (the JAX tile kernel tracks it in local mode only).
+    (the JAX tile kernel tracks it in local mode only). ``err`` is the
+    launch's error word, read by the caller (``gotoh_rowblock.raise_on_err``).
 
-    A CUDA tile launches K5 (K1's kernel at column offset ``j0``); a CPU
-    tile runs ``ops/gotoh_tile.tile_fill`` (and, for ``dirs``, the
-    row-block fill's plain version, whose codes do not depend on ``j0``).
+    A CUDA tile launches K5 (K1's pipeline kernel at column offset ``j0``,
+    without waiting for it); a CPU tile runs ``ops/gotoh_tile.tile_fill``
+    (and, for ``dirs``, the row-block fill's plain version, whose codes do
+    not depend on ``j0``).
     """
     if _build.uses_kernel(s1_block):
         return rb.launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local,
@@ -332,7 +334,8 @@ def gotoh_tile_pallas(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local: 
     return rb.TileFillResult(
         dirs=dirs, score_at_mn=res.at_mn, best=res.best,
         bottom=res.bottom if emit_bottom else None, cols=None,
-        right=res.right if emit_right else None)
+        right=res.right if emit_right else None,
+        err=torch.zeros((), dtype=torch.int32, device=s1_block.device))
 
 
 def unpack_dirs(packed: torch.Tensor, Kp: int) -> torch.Tensor:
@@ -349,7 +352,8 @@ def gotoh_fill_pallas(s1e, s2e, m, n, scores, is_local: bool, emit_dirs: bool = 
     global boundary streams; with dirs, the row-block fill K1 and, unless
     ``packed_dirs``, the unpack to per-cell codes ``dirs[i + j, i]``.
     Returns ``FillResult`` with 0-d int32 tensors: the score at (m, n)
-    and (m, n) in global mode, the keep-last argmax in local mode."""
+    and (m, n) in global mode, the keep-last argmax in local mode. Reads
+    the fill's error word (one synchronisation) and raises if it is set."""
     from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_left, global_boundary_top
 
     dev = s1e.device
@@ -363,6 +367,7 @@ def gotoh_fill_pallas(s1e, s2e, m, n, scores, is_local: bool, emit_dirs: bool = 
         res = gotoh_tile_pallas(s1e, s2e, top, global_boundary_left(0, Lm, scores, device=dev),
                                 m, n, 0, 0, scores, is_local, emit_dirs=False)
         dirs = torch.zeros((0, 0), dtype=torch.uint8, device=dev)
+    rb.raise_on_err(res.err)
     if is_local:
         v, bi, bj = res.best
         return FillResult(dirs=dirs, score=v, start_i=bi, start_j=bj)

@@ -7,8 +7,16 @@ the contract of ``gotoh_rowblock_pallas``: the score at ``(m, n)`` when
 row ``m`` falls in the block, the local keep-last row-major argmax, and
 optionally the packed direction codes, the bottom row and the stride-V
 column checkpoints. On a CUDA tensor it launches the hand-written
-kernel in ``csrc/gotoh_rowblock.cu``; on a CPU tensor it runs
+kernel in ``csrc/gotoh_rowblock.cu``, a strip pipeline over many SMs
+(:func:`block_plan` sizes it on the host); on a CPU tensor it runs
 :func:`gotoh_rowblock_plain`.
+
+The result carries the launch's error word (``TileFillResult.err``, a
+0-d int32 tensor; always 0 on the CPU route). It is set when a pipeline
+wait saw nothing of the launch move for :data:`SPIN_NS` (a hang, not a
+long wait behind running strips), and then no other output holds: a caller reads it
+with its own first read of the result and calls :func:`raise_on_err`, so
+no launch synchronises the host.
 
 Layouts kept from the JAX package so the two can be compared and mixed:
 
@@ -61,6 +69,18 @@ PACK = 16
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
+#: rows of a pipeline strip (threads of a block); ``chip_smoke.py`` phase 5
+#: times the fill at 128, 256 and 512.
+PIPE_ROWS = 256
+#: ints of the kernel's workspace before its per-strip arrays: res[4],
+#: ticket, error word, finished strips, heartbeat (``WORK_HEAD`` in the
+#: source).
+WORK_HEAD = 8
+#: ns a pipeline wait may see nothing of the launch move before it sets
+#: the error word (``SPIN_NS`` in the source).
+SPIN_NS = 10_000_000_000
+#: the error word's index in the workspace.
+ERR_INDEX = 5
 
 
 class TileFillResult(NamedTuple):
@@ -77,6 +97,57 @@ class TileFillResult(NamedTuple):
     #: I/S/D of the block's last column (rows 1..R), the tile kernel's
     #: ``emit_right`` (K5; ``ops/gotoh_pallas.gotoh_tile_pallas``).
     right: torch.Tensor | None = None
+    #: the launch's error word (0-d int32; nonzero: a pipeline wait saw
+    #: nothing move for its bound and no output holds). See
+    #: :func:`raise_on_err`.
+    err: torch.Tensor | None = None
+
+
+class BlockPlan(NamedTuple):
+    """The host's plan of one pipelined block fill (the kernel's
+    arguments; nothing is copied to the device for it)."""
+
+    rows: int  # T: rows of a strip, threads of a block
+    strips: int  # ceil((R + 1) / T)
+    slots: int  # ring slots of 2 x (B + 1) int32
+    blocks: int  # persistent blocks of the grid
+
+    @property
+    def work_ints(self) -> int:
+        return WORK_HEAD + 5 * self.strips
+
+
+def strip_rows(R: int, rows: int = PIPE_ROWS) -> int:
+    """The strip height for a block of ``R`` rows: ``rows``, or fewer
+    for a shorter block (a multiple of 32, at least one warp)."""
+    return min(int(rows), round_up(R + 1, 32))
+
+
+def block_plan(R: int, B: int, rows: int, resident: int) -> BlockPlan:
+    """Plan one block's pipeline: strips of ``rows`` rows (a multiple of
+    32), as many persistent blocks as strips up to ``resident``, and
+    ``min(strips - 1, k)`` ring slots with ``k`` from 2 (a strip never
+    writes the slot its successor still reads) up to ``blocks + 1`` (no
+    more strips run at once), as many as ``gotoh_pallas.RING_BYTES``
+    holds at ``B + 1`` columns (``ring_budget``). Raises ``ValueError``
+    when two slots do not fit."""
+    from genomics_rs_tpu_torch.ops.gotoh_pallas import ring_budget
+
+    if rows < 32 or rows % 32 or rows > 1024:
+        raise ValueError(f"gotoh_rowblock: {rows} rows a strip (a multiple of 32 up to 1024)")
+    strips = (R + rows) // rows
+    blocks = max(1, min(strips, int(resident)))
+    need = min(strips - 1, 2)
+    budget = ring_budget(B)
+    if budget < need:
+        raise ValueError(f"gotoh_rowblock: {need} ring slots of {B + 1} columns pass RING_BYTES")
+    return BlockPlan(rows, strips, min(strips - 1, max(2, min(blocks + 1, budget))), blocks)
+
+
+def raise_on_err(err) -> None:
+    """Raise if a pipeline's error word (read on the host) is set."""
+    if int(err) != 0:
+        raise RuntimeError("gotoh_rowblock: a strip pipeline wait passed its bound")
 
 
 def lane_count(R: int) -> int:
@@ -124,13 +195,42 @@ def gotoh_rowblock(
     )
 
 
+#: persistent blocks an SM holds, by (device, rows, local, tile).
+_PER_SM: dict = {}
+
+
+def _resident(lib, dev: torch.device, rows: int, is_local: bool, tile: bool) -> int:
+    """Blocks of ``rows`` threads the card holds at once for the kernel's
+    instantiation (cached: an occupancy query, no synchronisation)."""
+    key = (dev.index, rows, bool(is_local), bool(tile))
+    if key not in _PER_SM:
+        with torch.cuda.device(dev):
+            per_sm = lib.gotoh_rowblock_blocks_per_sm(rows, int(is_local), int(tile))
+        if per_sm < 1:
+            raise RuntimeError(f"gotoh_rowblock: no block of {rows} threads fits an SM ({per_sm})")
+        _PER_SM[key] = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    return _PER_SM[key]
+
+
+def _workspace(plan: BlockPlan, dev: torch.device) -> torch.Tensor:
+    """The kernel's zeroed workspace: res[4], ticket, error word, finished,
+    heartbeat, then progress, released and the strips' bests."""
+    return torch.zeros(plan.work_ints, dtype=torch.int32, device=dev)
+
+
 def launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local, emit_dirs,
-           emit_bottom, emit_cols, emit_right, tile, counts) -> TileFillResult:
+           emit_bottom, emit_cols, emit_right, tile, counts, rows=PIPE_ROWS,
+           max_blocks=None, spin_ns=SPIN_NS) -> TileFillResult:
     """Launch ``csrc/gotoh_rowblock.cu`` on the tensors' CUDA device and
     add one to ``counts["kernel"]`` (K1's count, or K5's for
     ``ops/gotoh_pallas.gotoh_tile_pallas``). ``j0`` is the block's global
     column offset; ``tile`` tracks the argmax in global mode too;
-    ``emit_right`` returns column B's I/S/D as ``right`` (3, R)."""
+    ``emit_right`` returns column B's I/S/D as ``right`` (3, R). Strips
+    hold :func:`strip_rows` ``(R, rows)`` rows; ``max_blocks`` caps the
+    persistent grid below what the card holds (the card tests cycle
+    tickets and ring slots with it); ``spin_ns`` bounds a pipeline wait
+    that sees nothing move. Nothing here waits for the device: the error
+    word comes back in the result."""
     lib = _build.library()
     dev = s1_block.device
     if dev.type != "cuda":
@@ -142,6 +242,11 @@ def launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local, emit_dirs,
     _build.require(top, "top", torch.int32, dev, (3, B + 1))
     if left is not None:
         _build.require(left, "left", torch.int32, dev, (3, R))
+    T = strip_rows(R, rows)
+    resident = _resident(lib, dev, T, is_local, tile)
+    if max_blocks is not None:
+        resident = min(resident, int(max_blocks))
+    plan = block_plan(R, B, T, resident)
     i32 = dict(dtype=torch.int32, device=dev)
     s1c = encode_chars(s1_block, scores).contiguous()
     s2c = encode_chars(s2e, scores).contiguous()
@@ -149,30 +254,30 @@ def launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local, emit_dirs,
     bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
     cols = torch.empty((NC, 3, V), **i32) if emit_cols else None
     right = torch.empty((3, R), **i32) if emit_right else None
-    res = torch.full((4,), INT_MIN, **i32)  # res[0] stays INT_MIN unless (m, n) is here
-    scratch = torch.empty(4 * (B + 1), **i32)
-    threads = min(1024, round_up(R + 1, 32))
+    work = _workspace(plan, dev)
+    ring = torch.empty(max(plan.slots, 1) * 2 * (B + 1), **i32)
     kim = kimura_active(scores)
     with torch.cuda.device(dev):
         err = lib.gotoh_rowblock_launch(
             _build.ptr(s1c), _build.ptr(s2c), _build.ptr(top),
             _build.ptr(left), _build.ptr(dirs), _build.ptr(bottom),
-            _build.ptr(cols), _build.ptr(right), _build.ptr(res), _build.ptr(scratch),
+            _build.ptr(cols), _build.ptr(right), _build.ptr(work), _build.ptr(ring),
             R, B, V, int(m), int(n), int(i0), int(j0), int(tile),
             scores.s_match, scores.s_mismatch,
             scores.s_transition if kim else 0, int(kim),
-            scores.g, scores.h, int(is_local), threads,
-            _build.stream_handle(dev),
+            scores.g, scores.h, int(is_local), T, plan.blocks, plan.strips, plan.slots,
+            int(spin_ns), _build.stream_handle(dev),
         )
     _build.check(err, "gotoh_rowblock")
     counts["kernel"] += 1
     return TileFillResult(
         dirs=dirs,
-        score_at_mn=res[0],
-        best=(res[1], res[2], res[3]),
+        score_at_mn=work[0],
+        best=(work[1], work[2], work[3]),
         bottom=bottom,
         cols=cols,
         right=right,
+        err=work[ERR_INDEX],
     )
 
 
@@ -304,6 +409,10 @@ def gotoh_rowblock_plain(
     t32 = lambda x: torch.tensor(x, **i32)  # noqa: E731
     if not is_local:
         best = (t32(INT_MIN), t32(0), t32(0))
+    elif mi0 < 0:
+        # No true cell: the TPU kernel's lane merge over its Kp padded
+        # diagonals leaves lane V-1 at column Kp - V.
+        best = (t32(INT_MIN), t32(i0 + V - 1), t32(max(-1, Kp - V)))
     else:
         vmax = bv.max()
         ig = i0 + iv
@@ -316,4 +425,5 @@ def gotoh_rowblock_plain(
         best=best,
         bottom=bottom,
         cols=cols,
+        err=t32(0),
     )

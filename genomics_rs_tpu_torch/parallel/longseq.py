@@ -41,7 +41,7 @@ import torch
 
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_tile_pallas
-from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, lane_count
+from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, lane_count, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_left, global_boundary_top
 from genomics_rs_tpu_torch.ops.traceback import classify_moves
@@ -127,9 +127,11 @@ def _as_u8(x) -> torch.Tensor:
 def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: int,
               engine: str = "auto", emit_ckpt: bool = False):
     """The pipeline of one pair over the shard devices ``devs`` (a list of
-    ``torch.device``; repeats allowed): returns ``LongSeqResult``, or
-    ``ShardedFill`` with ``emit_ckpt``, on ``devs[0]``. Issues work and
-    returns without waiting for it."""
+    ``torch.device``; repeats allowed): returns ``(LongSeqResult, err)``,
+    or ``(ShardedFill, err)`` with ``emit_ckpt``, on ``devs[0]``, ``err``
+    the largest of the tiles' error words (0-d int32). Issues work and
+    returns without waiting for it: the caller reads ``err``
+    (``raise_on_err``) with the result."""
     _check_engine(engine)
     devs = [resolve_device(d) for d in devs]
     if len({d.type for d in devs}) > 1:
@@ -153,7 +155,7 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
     # wait for them.
     s2_on = {d: s2e.to(d) for d in devs}
     s1_sh = [s1e[p * R : (p + 1) * R].to(d) for p, d in enumerate(devs)]
-    s2_sh, left, best, at_mn = [], [], [], []
+    s2_sh, left, best, at_mn, errs = [], [], [], [], []
     for p, (d, s) in enumerate(zip(devs, streams)):
         if s is not None:
             s.wait_stream(torch.cuda.current_stream(d))
@@ -164,6 +166,7 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
             z = torch.zeros((), dtype=torch.int32, device=d)
             best.append((z + INT_MIN, z, z))
             at_mn.append(z + INT_MIN)
+            errs.append(z)
     tops = [[] for _ in range(P)]
     lefts = [[] for _ in range(P)]
     incoming = [None] * P
@@ -188,6 +191,7 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
                 left[p] = res.right
                 best[p] = _merge_best(best[p], res.best)
                 at_mn[p] = torch.maximum(at_mn[p], res.score_at_mn)
+                errs[p] = torch.maximum(errs[p], res.err)
             if p + 1 < P:
                 incoming[p + 1] = _hand_off(res.bottom, streams[p], devs[p + 1],
                                             streams[p + 1], xfer[p + 1])
@@ -197,7 +201,7 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
     dev0 = devs[0]
     outs = []
     for p, (d, s) in enumerate(zip(devs, streams)):
-        row = [*best[p], at_mn[p]]
+        row = [*best[p], at_mn[p], errs[p]]
         if emit_ckpt:
             with _on(s):
                 row += [torch.stack(tops[p]), torch.stack(lefts[p])]
@@ -209,14 +213,15 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
     i = torch.stack([o[1] for o in outs])
     j = torch.stack([o[2] for o in outs])
     score = torch.stack([o[3] for o in outs]).max()
+    err = torch.stack([o[4] for o in outs]).max()
     bv = v.max()
     bi = torch.where(v == bv, i, -1).max()
     bj = torch.where((v == bv) & (i == bi), j, -1).max()
     best_t = torch.stack([bv, bi, bj])
     if emit_ckpt:
-        return ShardedFill(score=score, best=best_t, tops=torch.cat([o[4] for o in outs]),
-                           lefts=torch.cat([o[5] for o in outs]))
-    return LongSeqResult(score=score, best=best_t)
+        return ShardedFill(score=score, best=best_t, tops=torch.cat([o[5] for o in outs]),
+                           lefts=torch.cat([o[6] for o in outs])), err
+    return LongSeqResult(score=score, best=best_t), err
 
 
 def sharded_gotoh_score(mesh, s1e, s2e, m, n, scores, is_local: bool = False,
@@ -229,10 +234,13 @@ def sharded_gotoh_score(mesh, s1e, s2e, m, n, scores, is_local: bool = False,
     and pass the true lengths in ``m``/``n``. ``engine``: ``"auto"`` or
     ``"pallas"`` (K5 on CUDA shards, ``tile_fill`` on CPU shards).
     Returns 0-d ``score`` and (3,) ``best`` int32 tensors on the axis's
-    first device.
+    first device, once the tiles' error words are read (one
+    synchronisation, after every tile is issued).
     """
     devs = axis_devices(mesh, axis_name)
-    return _seq_core(devs, s1e, s2e, m, n, scores, is_local, n_blocks or len(devs), engine)
+    out, err = _seq_core(devs, s1e, s2e, m, n, scores, is_local, n_blocks or len(devs), engine)
+    raise_on_err(err)
+    return out
 
 
 def sharded_fill_checkpoints(mesh, s1e, s2e, m, n, scores, is_local: bool = False,
@@ -242,8 +250,10 @@ def sharded_fill_checkpoints(mesh, s1e, s2e, m, n, scores, is_local: bool = Fals
     :func:`sharded_gotoh_score`'s contract plus every tile's entry
     boundaries (``ShardedFill.tops``/``lefts``)."""
     devs = axis_devices(mesh, axis_name)
-    return _seq_core(devs, s1e, s2e, m, n, scores, is_local, n_blocks or len(devs), engine,
-                     emit_ckpt=True)
+    fill, err = _seq_core(devs, s1e, s2e, m, n, scores, is_local, n_blocks or len(devs),
+                          engine, emit_ckpt=True)
+    raise_on_err(err)
+    return fill
 
 
 def batched_sharded_scores(mesh, s1b, s2b, ms, ns, scores, is_local: bool = False,
@@ -263,11 +273,14 @@ def batched_sharded_scores(mesh, s1b, s2b, ms, ns, scores, is_local: bool = Fals
     if batch % n_data:
         raise ValueError(f"batch {batch} must divide into {n_data} data shards")
     per = batch // n_data
-    outs = []
-    for b in range(batch):
-        outs.append(_seq_core(list(arr[b // per]), s1b[b], s2b[b], int(ms[b]), int(ns[b]),
-                              scores, is_local, C, engine))
     dev0 = arr[0, 0]
+    outs, errs = [], []
+    for b in range(batch):
+        out, err = _seq_core(list(arr[b // per]), s1b[b], s2b[b], int(ms[b]), int(ns[b]),
+                             scores, is_local, C, engine)
+        outs.append(out)
+        errs.append(err.to(dev0))
+    raise_on_err(torch.stack(errs).max())  # every pair issued: one synchronisation
     return LongSeqResult(score=torch.stack([o.score.to(dev0) for o in outs]),
                          best=torch.stack([o.best.to(dev0) for o in outs]))
 
@@ -288,6 +301,7 @@ def _refill_and_walk_shard(s1_rows, s2_win, top_w, left_col, m: int, i0: int, jc
     def left_of(r0, rk):
         return left_col[:, r0 : r0 + rk].contiguous() if jc > 0 else None
 
+    errs = []  # the fills' error words, read after each walk
     if R <= sub_rows:
         subs, sub_tops = [(0, R)], [top_w]
     else:
@@ -298,6 +312,7 @@ def _refill_and_walk_shard(s1_rows, s2_win, top_w, left_col, m: int, i0: int, jc
                                  scores, is_local, emit_dirs=False, emit_bottom=True,
                                  left=left_of(r0, rk))
             sub_tops.append(res.bottom)
+            errs.append(res.err)
 
     # Walk the sub-blocks bottom-up from (i, j).
     kb = next(k for k, (r0, rk) in enumerate(subs) if i0 + r0 < max(i, 1) <= i0 + r0 + rk)
@@ -308,6 +323,7 @@ def _refill_and_walk_shard(s1_rows, s2_win, top_w, left_col, m: int, i0: int, jc
                              left=left_of(r0, rk))
         blk_codes, i, j_f, done = device_walk(res.dirs, i - (i0 + r0), j - jc, i0 + r0,
                                               max_steps=rk + 2 * lane_count(rk) + 1, j0=jc)
+        raise_on_err(torch.stack([*errs, res.err]).max())  # the walk's read has synchronised
         codes.append(np.asarray(blk_codes))
         i, j = int(i), int(j_f) + jc
         if done:
@@ -341,11 +357,10 @@ def align_sharded(mesh, seq1, seq2, scores, is_local: bool = False, axis_name: s
     s1e = torch.from_numpy(seq1.encoded(pad_to=Lm, pad_value=PAD_S1).copy())
     s2e = torch.from_numpy(seq2.encoded(pad_to=Ln, pad_value=PAD_S2).copy())
 
-    fill = _seq_core(devs, s1e, s2e, m, n, scores, is_local, C, engine, emit_ckpt=True)
-    if is_local:
-        score, start_i, start_j = (int(x) for x in fill.best.tolist())
-    else:
-        score, start_i, start_j = int(fill.score), m, n
+    fill, err = _seq_core(devs, s1e, s2e, m, n, scores, is_local, C, engine, emit_ckpt=True)
+    v, bi, bj, at_mn, err = torch.stack([*fill.best, fill.score, err]).tolist()
+    raise_on_err(err)
+    score, start_i, start_j = (v, bi, bj) if is_local else (at_mn, m, n)
 
     s1_sh = {}
     top_cache: dict[int, torch.Tensor] = {}

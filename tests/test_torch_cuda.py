@@ -7,7 +7,8 @@ hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12, the query profile
 and the matrix fill of K13–K15, the warp-strip kernel of K7/K8, the
 strip pipeline of K9 and its K16 entry, and K1's tile form K5 with a
 two-shard pipeline on one card) equal to the plain versions, bit for
-bit.
+bit; K1 and K5 also at the edges of their strip pipeline (strip counts,
+chunk widths, capped grids, a tight ring) and with a set error word.
 """
 
 import numpy as np
@@ -52,26 +53,35 @@ def _codes_at(dirs: np.ndarray, R: int, B: int) -> np.ndarray:
     return (dirs[k // 16, li].astype(np.int64) >> (2 * (k % 16))) & 3
 
 
-@pytest.mark.parametrize("is_local", [False, True])
-@pytest.mark.parametrize("st", [None, -1])
-@pytest.mark.parametrize("with_left", [False, True])
-def test_rowblock_kernel_matches_plain(cuda, is_local, st, with_left):
-    rng = np.random.default_rng(1)
-    R, m, n, B, i0 = 300, 1000, 500, 512, 300
-    sc = Scores(2, -3, -2, -4, st)
-    s1 = torch.from_numpy(BASES[rng.integers(0, 4, R)].copy())
+def _k1_inputs(rng, R, B, n, i0, sc, with_left, alphabet=BASES):
+    s1 = torch.from_numpy(alphabet[rng.integers(0, len(alphabet), R)].copy())
     s2 = torch.from_numpy(np.concatenate(
-        [BASES[rng.integers(0, 4, n)], np.full(B - n, PAD_S2, np.uint8)]))
+        [alphabet[rng.integers(0, len(alphabet), n)], np.full(B - n, PAD_S2, np.uint8)]))
     top = global_boundary_top(7, B, sc, device="cpu")
+    if i0 > 0:  # a carried row, not the table's first
+        top = top + torch.from_numpy(rng.integers(-6, 3, (3, B + 1)).astype(np.int32))
     left = torch.from_numpy(rng.integers(-40, 5, (3, R)).astype(np.int32)) if with_left else None
-    args = (m, n, i0, sc, is_local)
+    return s1, s2, top, left
+
+
+def _k1_check(cuda, s1, s2, top, left, m, n, i0, sc, is_local, rows=None, max_blocks=None):
+    """K1 on the card (at ``rows`` rows a strip, the grid capped at
+    ``max_blocks``) == the plain version: every output, dirs at every
+    cell of the block, and the error word clear."""
+    R, B = s1.shape[0], s2.shape[0]
     emit = dict(emit_dirs=True, emit_bottom=True, emit_cols=True)
-    want = rb.gotoh_rowblock(s1, s2, top, *args, left=left, **emit)
-    got = rb.gotoh_rowblock(
-        s1.to(cuda), s2.to(cuda), top.to(cuda), *args,
-        left=None if left is None else left.to(cuda), **emit,
-    )
+    want = rb.gotoh_rowblock(s1, s2, top, m, n, i0, sc, is_local, left=left, **emit)
+    before = rb.COUNTS["kernel"]
+    on_card = (s1.to(cuda), s2.to(cuda), top.to(cuda))
+    left_card = None if left is None else left.to(cuda)
+    if rows is None and max_blocks is None:  # the entry point
+        got = rb.gotoh_rowblock(*on_card, m, n, i0, sc, is_local, left=left_card, **emit)
+    else:  # the same launch at another strip height or on a capped grid
+        got = rb.launch(*on_card, left_card, m, n, i0, 0, sc, is_local, True, True, True, False,
+                        False, rb.COUNTS, rows or rb.PIPE_ROWS, max_blocks)
     torch.cuda.synchronize()
+    assert rb.COUNTS["kernel"] == before + 1
+    assert int(got.err) == 0
     assert int(got.score_at_mn) == int(want.score_at_mn)
     assert [int(x) for x in got.best] == [int(x) for x in want.best]
     assert torch.equal(got.bottom.cpu(), want.bottom)
@@ -82,6 +92,161 @@ def test_rowblock_kernel_matches_plain(cuda, is_local, st, with_left):
     assert np.array_equal(
         _codes_at(got.dirs.cpu().numpy(), R, B), _codes_at(want.dirs.numpy(), R, B)
     )
+    return got
+
+
+#: K1 shapes (R, B, n, m, i0): two strips at T = 256 with the probe below
+#: the block; ragged strips (R + 1 not a multiple of T) holding (m, n);
+#: three whole strips; one strip shorter than T.
+K1_SHAPES = {"two_strips": (300, 512, 500, 1000, 300), "ragged": (1000, 700, 690, 1000, 0),
+             "whole": (767, 320, 300, 900, 133), "short": (100, 300, 280, 100, 0)}
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+@pytest.mark.parametrize("with_left", [False, True])
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_rowblock_kernel_matches_plain(cuda, is_local, st, with_left, shape):
+    R, B, n, m, i0 = K1_SHAPES[shape]
+    rng = np.random.default_rng(1)
+    sc = Scores(2, -3, -2, -4, st)
+    s1, s2, top, left = _k1_inputs(rng, R, B, n, i0, sc, with_left)
+    _k1_check(cuda, s1, s2, top, left, m, n, i0, sc, is_local)
+    plan = rb.block_plan(R, B, rb.strip_rows(R), 1 << 20)
+    assert plan.blocks == plan.strips == -(-(R + 1) // rb.strip_rows(R))
+
+
+@pytest.mark.parametrize(
+    "R,B,n,m,i0,is_local,st,with_left,rows,max_blocks",
+    [
+        (600, 63, 63, 600, 0, True, None, False, 128, None),  # B below PIPE_CHUNK
+        (600, 64, 64, 600, 0, False, -1, True, 128, None),  # B at PIPE_CHUNK
+        (600, 65, 65, 600, 0, True, -1, True, 128, None),  # B just past it
+        (900, 400, 380, 950, 0, True, None, False, 128, 1),  # one block: tickets cycle
+        (900, 400, 380, 700, 64, False, -1, True, 128, 2),  # two blocks, probe inside
+        (1100, 300, 290, 1100, 0, True, -1, False, 512, None),  # V = 2048
+        (200, 2100, 2090, 200, 0, False, None, True, 64, 3),  # two column checkpoints
+    ],
+)
+def test_rowblock_kernel_strip_edges_match_plain(cuda, R, B, n, m, i0, is_local, st,
+                                                 with_left, rows, max_blocks):
+    """K1 at the pipeline's edges: a top row narrower than, as wide as and
+    just wider than a published chunk, grids of 1–3 persistent blocks, strip
+    heights 64–512, and column checkpoints past the first."""
+    rng = np.random.default_rng(R + B)
+    sc = Scores(2, -3, -2, -4, st)
+    s1, s2, top, left = _k1_inputs(rng, R, B, n, i0, sc, with_left)
+    _k1_check(cuda, s1, s2, top, left, m, n, i0, sc, is_local, rows, max_blocks)
+
+
+def test_rowblock_kernel_tight_ring_matches_plain(cuda, monkeypatch):
+    """A ring of two slots for 16 strips of 64 rows on a grid of 3 blocks:
+    every slot is written again once its reader has released it."""
+    R, B, n = 1023, 300, 290
+    monkeypatch.setattr(gp, "RING_BYTES", 2 * 8 * (B + 1))
+    assert rb.block_plan(R, B, 64, 3) == rb.BlockPlan(64, 16, 2, 3)
+    rng = np.random.default_rng(6)
+    sc = Scores(2, -3, -2, -4, -1)
+    for is_local in (False, True):
+        s1, s2, top, left = _k1_inputs(rng, R, B, n, 0, sc, True)
+        _k1_check(cuda, s1, s2, top, left, R, n, 0, sc, is_local, 64, 3)
+
+
+def test_rowblock_long_slot_waits_are_no_fault(cuda, monkeypatch):
+    """Slot waits far longer than the waits' bound, behind strips that
+    still sweep, are no fault: a two-slot ring for 32 strips of 64 rows on
+    16 blocks, 12,000 columns wide, so strip s waits about a sweep of B
+    columns for strip s - 1 to release its slot (and strip s + 1 as long
+    again for strip s), under a bound of 1 ms. The fill equals the plain
+    version with the error word clear. Under a bound of 1 ns the first
+    wait trips it, and the result raises."""
+    R, B, n = 2047, 12_000, 11_990
+    monkeypatch.setattr(gp, "RING_BYTES", 2 * 8 * (B + 1))
+    assert rb.block_plan(R, B, 64, 16) == rb.BlockPlan(64, 32, 2, 16)
+    rng = np.random.default_rng(21)
+    sc = Scores(2, -3, -2, -4, -1)
+    s1, s2, top, _ = _k1_inputs(rng, R, B, n, 0, sc, False)
+    want = rb.gotoh_rowblock(s1, s2, top, R, n, 0, sc, False)
+    bound_ns = 1_000_000
+    on_card = (s1.to(cuda), s2.to(cuda), top.to(cuda), None, R, n, 0, 0, sc, False, False, True,
+               False, False, False, {"kernel": 0}, 64, 16)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = rb.launch(*on_card, spin_ns=bound_ns)
+    end.record()
+    torch.cuda.synchronize()
+    assert int(got.err) == 0
+    assert start.elapsed_time(end) > 3 * bound_ns / 1e6  # a strip's sweep outlasts the bound
+    assert int(got.score_at_mn) == int(want.score_at_mn)
+    assert torch.equal(got.bottom.cpu(), want.bottom)
+    tripped = rb.launch(*on_card, spin_ns=1)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        rb.raise_on_err(tripped.err)
+
+
+@pytest.mark.parametrize("case", ["equal_bests", "all_mismatch", "past_m"])
+def test_rowblock_kernel_local_best_conventions(cuda, case):
+    """Local bests: a motif repeated in every strip (equal bests in many
+    strips: the last row wins), an all-mismatch table (every cell 0: the
+    last true cell), and a block wholly past m (no true cell: the TPU
+    kernel's lane-merge answer)."""
+    R, B, n = 900, 200, 180
+    sc = Scores()
+    rng = np.random.default_rng(9)
+    if case == "equal_bests":
+        s1 = torch.from_numpy(np.frombuffer(b"ACGTTGCA" * 113, np.uint8)[:R].copy())
+        s2 = torch.from_numpy(np.concatenate([np.frombuffer(b"ACGTTGCA", np.uint8),
+                                              np.full(B - 8, PAD_S2, np.uint8)]))
+        n, m, i0 = 8, R, 0
+    elif case == "all_mismatch":
+        s1 = torch.full((R,), ord("A"), dtype=torch.uint8)
+        s2 = torch.from_numpy(np.concatenate([np.full(n, ord("C"), np.uint8),
+                                              np.full(B - n, PAD_S2, np.uint8)]))
+        m, i0 = R - 5, 0
+    else:
+        s1, s2, _, _ = _k1_inputs(rng, R, B, n, 0, sc, False)
+        m, i0 = 500, 1000
+    top = global_boundary_top(0, B, sc, device="cpu")
+    got = _k1_check(cuda, s1, s2, top, None, m, n, i0, sc, True, 128, 2)
+    if case == "equal_bests":
+        assert int(got.best[1]) > 3 * 128  # the repeat in the last strips wins
+    elif case == "all_mismatch":
+        assert [int(x) for x in got.best] == [0, m, n]
+    else:
+        assert int(got.best[0]) == -(2**31)
+
+
+def test_pipeline_error_word_raises_at_the_callers_read(cuda, monkeypatch):
+    """A set error word (the kernel then leaves at once) raises where each
+    caller reads its result: ``align`` (monolithic and checkpointed),
+    ``sharded_gotoh_score`` and ``gotoh_fill_pallas``; no plain version
+    runs instead."""
+    from genomics_rs_tpu_torch.models.longalign import align_checkpointed
+    from genomics_rs_tpu_torch.parallel import longseq
+    from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
+
+    def failed_workspace(plan, dev):
+        work = torch.zeros(plan.work_ints, dtype=torch.int32, device=dev)
+        work[rb.ERR_INDEX] = 1
+        return work
+
+    monkeypatch.setattr(rb, "_workspace", failed_workspace)
+    rng = np.random.default_rng(15)
+    a = Sequence("a", BASES[rng.integers(0, 4, 700)].tobytes().decode())
+    b = Sequence("b", BASES[rng.integers(0, 4, 650)].tobytes().decode())
+    plain = rb.COUNTS["plain"], gp.TILE_COUNTS["plain"]
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        PairwiseAligner(Scores(), device="cuda").align(a, b)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        align_checkpointed(a, b, Scores(), block_rows=255, device="cuda")
+    s1 = torch.from_numpy(a.encoded(pad_to=768, pad_value=0xFE).copy())
+    s2 = torch.from_numpy(b.encoded(pad_to=768, pad_value=PAD_S2).copy())
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        longseq.sharded_gotoh_score(make_mesh(2, SEQ_AXIS, devices=[cuda, cuda]), s1, s2, 700,
+                                    650, Scores(), True)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        gp.gotoh_fill_pallas(s1.to(cuda), s2.to(cuda), 700, 650, Scores(), False, emit_dirs=False)
+    assert (rb.COUNTS["plain"], gp.TILE_COUNTS["plain"]) == plain
 
 
 @pytest.mark.parametrize("j0", [0, 1024])
@@ -574,28 +739,36 @@ def _tile_inputs(rng, R, B, sc):
 
 @pytest.mark.parametrize("is_local", [False, True])
 @pytest.mark.parametrize("st", [None, -1])
-def test_tile_kernel_matches_tile_fill(cuda, is_local, st):
+@pytest.mark.parametrize("R,max_blocks", [(300, None), (700, 2), (1000, 1)])
+def test_tile_kernel_matches_tile_fill(cuda, is_local, st, R, max_blocks):
     """K5 at an interior tile (i0, j0 > 0, top and left streamed), one
-    past n, and one holding (m, n): bottom, right, best, (m, n) and the
-    codes equal the plain versions."""
+    past n, and one holding (m, n), over 2–4 strips of 256 rows on a grid
+    of all, two or one persistent blocks: bottom, right, best, (m, n) and
+    the codes equal the plain versions."""
     from genomics_rs_tpu_torch.ops.gotoh_tile import tile_fill
 
     rng = np.random.default_rng(5)
-    R, B = 300, 400
+    B = 400
     sc = Scores(2, -3, -2, -4, st)
     s1, s2, top = _tile_inputs(rng, R, B, sc)
     left = torch.from_numpy(rng.integers(-600, -500, (3, R)).astype(np.int32))
     i0, j0 = R, B
     for m, n in ((2 * R + 50, 2 * B + 70), (2 * R, B - 5), (2 * R - 17, 2 * B - 33)):
         before = dict(gp.TILE_COUNTS)
-        got = gp.gotoh_tile_pallas(s1.to(cuda), s2.to(cuda), top.to(cuda), left.to(cuda), m, n,
-                                   i0, j0, sc, is_local, emit_dirs=True, emit_bottom=True,
-                                   emit_right=True)
+        on_card = (s1.to(cuda), s2.to(cuda), top.to(cuda), left.to(cuda), m, n, i0, j0, sc,
+                   is_local)
+        if max_blocks is None:  # the entry point
+            got = gp.gotoh_tile_pallas(*on_card, emit_dirs=True, emit_bottom=True,
+                                       emit_right=True)
+        else:  # the same launch on a capped grid
+            got = rb.launch(*on_card, True, True, False, True, True, gp.TILE_COUNTS,
+                            max_blocks=max_blocks)
         want = tile_fill(s1, s2, top, left, sc, is_local, i0, j0, m, n)
         plain = gp.gotoh_tile_pallas(s1, s2, top, left, m, n, i0, j0, sc, is_local,
                                      emit_dirs=True)
         torch.cuda.synchronize()
         assert gp.TILE_COUNTS["kernel"] == before["kernel"] + 1
+        assert int(got.err) == 0
         assert torch.equal(got.bottom.cpu(), want.bottom)
         assert torch.equal(got.right.cpu(), want.right)
         assert [int(x) for x in got.best] == [int(x) for x in want.best], (m, n)
