@@ -72,9 +72,11 @@ Phases, one line each:
  15  the banded fill (K10 one pair, K12 a batch; one kernel) == its plain
      version, on the card: small fills at V = 1024 and 2048 (full cover and
      narrow, classic and kimura), an 11-pair batch at W = 128, 384 and 2048,
-     the 29,903 bp planted pair at V = 2048, and one fill for each wider
-     compiled form (16 lanes a thread at V = 8192; 32 lanes at V = 16,384
-     and 32,768; the wide form at V = 33,792 and 34,816); codes at every
+     the 29,903 bp planted pair at V = 2048, one fill at each width that
+     had its own compiled form before the warp-strip sweep (V = 8192,
+     16,384, 32,768, 33,792 and 34,816; one kernel since), and the sweep's
+     edges: a band at column 0, a band that slides a column a row and a
+     mixed batch, each on the whole grid and on two blocks; codes at every
      true in-band cell
  16  K11 (banded walker) == its plain version over phase 15's bitmaps,
      resumed past 1,000 moves, and the batch walks in one launch with the
@@ -115,8 +117,8 @@ Phases, one line each:
  22  profile, fill and K4 times (median of 3, CUDA events), the one
      PyTorch call that computes the profile (a (256, A) byte table indexed
      by the batch), plain times, bounds, and the walls of phase 21's calls
- 23  the warp-strip kernel (K7 and K8 routes) and the strip pipeline (K9)
-     == their plain versions on small batches (empty and one-base pairs,
+ 23  the warp-strip kernel (K7 and K8 routes) and the warp-strip pipeline
+     (K9) == their plain versions on small batches (empty and one-base pairs,
      global/local, classic/kimura; K9 also at 32-row strips on a 3-block
      grid, so tickets and ring slots cycle, and on a ring of five slots,
      which splits the batch into launches of two or more slots a pair),
@@ -136,8 +138,9 @@ Phases, one line each:
      (auto at B = 1: "pallas") == the C++ oracle and K1;
      ``align-matrix --engine pallas`` on the 10 x 29.9 kb corpus == phase
      8's TSV; phase 17's 1,078,175 bp planted pair == its closed form;
-     then, off the path, K9 == K3 on the 29.9 kb pair (global/local) and
-     both timed at B = 1
+     then, off the path, K9 == K3 on the 29.9 kb pair (global/local), also
+     at strips of 128, 256 and 512 rows on the whole grid and on 7 blocks,
+     and each timed at B = 1
  26  ``reads -a global|local --engine segmented|stream8|pallas`` on phase
      10's 16,384 x 152 bp batch == ``--engine auto``'s TSV (K6); the path's
      launches by route, no plain version; then each route (K7, K8, K9) ==
@@ -164,11 +167,12 @@ Phases, one line each:
      5,000 bp and one whole, with the long self-pair split, ==
      ``allpairs_scores``
  30  ``gotoh_scores_blocked`` (K16: K9's pipeline at R = 4096, strips of
-     1,024 rows) on 4 planted copies of a random 155,000 bp genome: global
+     512 rows) on 4 planted copies of a random 155,000 bp genome: global
      == the planted optima, local == K9 at its own strips; the path
      launched K5, K16, K1 and K2 and no plain version
  31  K16 == its plain version (strips of 4,096 rows, on the host) on the
-     batch's first 300 rows, global and local; K16 there and on the whole
+     batch's first 300 rows, global and local, also at 64-row strips on 3
+     blocks; K16 there and on the whole
      batch, K5 on the interior tile, and one tile alone at each P against
      the phase 28 walls (times: CUDA events, median of 3)
 
@@ -217,11 +221,11 @@ CALL_N, CALL_LEN, CALL_SNPS = 100_000, 150, 50
 #: The banded path at the sizes of the JAX bench rows chr12_banded_align (a
 #: 1,078,175 bp pair at band 2048; here GENOME_BP bp from a seed and its
 #: planted copy) and banded_batch (16 planted copies of a 29,903 bp genome
-#: at W = 2048). WIDE_FILLS: phase 15's one fill per compiled form of the
-#: kernel past 8 lanes a thread, (V, m, n): 16 lanes (V = 8192), 32 lanes
-#: at 512 and 1,024 threads, and the wide form (row state in device
-#: memory) on a band that slides and on one cut to n = 33,100 lanes, whose
-#: last thread holds fewer lanes than the others.
+#: at W = 2048). WIDE_FILLS: phase 15's one fill at each width that had its
+#: own compiled form before the warp-strip sweep (one kernel for every V
+#: since), (V, m, n): 16 lanes a thread (V = 8192), 32 lanes at 512 and
+#: 1,024 threads, and the wide form (row state in device memory) on a band
+#: that slides and on one cut to n = 33,100 lanes.
 BAND, BATCH_B, BATCH_LEN = 2048, 16, 29_903
 WIDE_FILLS = ((8_192, 8_600, 8_500), (16_384, 17_000, 16_900), (32_768, 33_100, 33_000),
               (33_792, 34_100, 34_000), (34_816, 33_500, 33_100))
@@ -1420,13 +1424,34 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
             s1, s2, [m], [len(b)], sc, V))
         err = band_err((torch.tensor([score]), dirs[None]), want, [m], [len(b)], V)
         k10_err = max(k10_err, err)
-        check(err == 0, f"K10 at V={V} ({m} x {len(b)}, {gb.lanes_computed(len(b), V)} lanes) "
-                        f"!= plain: max |err| {err}")
+        check(err == 0, f"K10 at V={V} ({m} x {len(b)}) != plain: max |err| {err}")
         walks.append((dirs, m, len(b), V, None))
         del want
+    # The sweep's edges at small shapes: a band at column 0 all along (n <=
+    # V), one that slides a column a row (m = n), and a mixed K12 batch
+    # whose last strips end mid-lane, each on the whole grid and on two
+    # persistent blocks (tickets and ring slots cycle).
+    edges = (("column 0", [1_500], [900], 1024), ("sliding", [1_300], [1_300], 256),
+             ("mixed", [2_000, 1_990, 1_700, 1_111], [1_900, 1_950, 1_650, 1_100], 384))
+    for name, ems, ens, V in edges:
+        a = [random_dna(rng, m) for m in ems]
+        b = [mutate(rng, x, 0.04, 2)[:n] for x, n in zip(a, ens)]
+        ens = [len(x) for x in b]
+        s1 = encode(a, round_up(max(ems), 128), PAD_S1)
+        s2 = encode(b, max(round_up(max(ens), 128), V), PAD_S2)
+        want = gb.gotoh_banded_plain(s1, s2, ems, ens, sc, V)
+        for blocks in (None, 2):
+            got = gb.fill_cuda(s1, s2, ems, ens, sc, V, {"kernel": 0}, max_blocks=blocks)
+            err = band_err(got, want, ems, ens, V)
+            k10_err = max(k10_err, err)
+            check(err == 0, f"K10/K12 sweep edge '{name}' (V={V}, grid {blocks}) != plain: "
+                            f"max |err| {err}")
+        n_k10 += 1
     print(f"[phase 15] K10 kernel == plain on {n_k10} fills (V = 1024 and 2048, full cover "
-          f"and narrow, classic and kimura), the 29,903 bp planted pair at V = {BAND} (score "
-          f"{score29} == planted; plain {k10_plain_ms:.0f} ms) and one fill per wider form, "
+          f"and narrow, classic and kimura; a band at column 0, a sliding band and a mixed "
+          f"batch, each also on two blocks), the 29,903 bp planted pair at V = {BAND} (score "
+          f"{score29} == planted; plain {k10_plain_ms:.0f} ms) and one fill at each width "
+          f"that had its own compiled form before the warp-strip sweep, "
           f"(V, m, n) kernel / plain ms: "
           f"{', '.join(f'({V}, {m}, {n}) {wide_ms[V]:.2f} / {wide_plain_ms[V]:.0f}' for V, m, n in WIDE_FILLS)}; "
           f"K12 kernel == plain on 11 pairs of "
@@ -2300,7 +2325,7 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             # A ring of five slots for seven pairs of up to 17 strips: three
             # launches, two or more slots a pair.
             tight = random_bucket(rng, 7, 1024, 768, 0)
-            ring_bytes, gp.RING_BYTES = gp.RING_BYTES, 5 * 8 * 769
+            ring_bytes, gp.PIPE_RING_BYTES = gp.PIPE_RING_BYTES, 5 * 8 * 769
             try:
                 groups = len(gp.pipeline_groups(tight[2], 768, 64))
                 before = gp.COUNTS["kernel"]
@@ -2308,7 +2333,7 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
                 check(gp.COUNTS["kernel"] - before == groups > 1,
                       f"K9 on a tight ring: {gp.COUNTS['kernel'] - before} launches, {groups} groups")
             finally:
-                gp.RING_BYTES = ring_bytes
+                gp.PIPE_RING_BYTES = ring_bytes
             e = err_of(got, gp.gotoh_strips_plain(*tight, sck, is_local, 64))
             err["pipe"] = max(err["pipe"], e)
             check(e == 0, f"K9 (tight ring, 3 blocks) != plain (local={is_local}, st={st}): {e}")
@@ -2330,8 +2355,9 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
                 c = cells(args[2], args[3])
                 b = bound_of(args[2], args[3], is_local)
                 sweep.append((L, B, is_local, c, ts, b))
-    print(f"[phase 23] card {card} | warp strips (R = {gseg.ROWS_PER_LANE}) and strip pipeline "
-          f"(T = {gp.PIPE_ROWS}) == plain on {n_small} small batches (8 x 512 with empty and "
+    print(f"[phase 23] card {card} | warp strips (R = {gseg.ROWS_PER_LANE}) and the warp-strip "
+          f"pipeline (strips of {gp.PIPE_ROWS} rows) == plain on {n_small} small batches "
+          f"(8 x 512 with empty and "
           f"one-base pairs, global/local, classic/kimura; K9 also at 32-row strips on 3 "
           f"blocks, 4 x 1,024, and on a five-slot ring, 7 x 1,024) and == K3 on every sweep "
           f"bucket; max |err| K7 {err['seg']}, K8 {err['s8']}, K9 {err['pipe']} "
@@ -2481,6 +2507,16 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
         check(e == 0, f"K9 != K3 on the 29.9 kb pair (local={is_local}): {e}")
     k9_one = cuda_ms(lambda: gp.gotoh_scores_pallas_batch(*one_d, sc, False), 3)
     k3_one = cuda_ms(lambda: gs.gotoh_scores_stream(*one_d, sc, False), 3)
+    # The pipeline at each timed strip height (16 rows a lane down to 4),
+    # on the whole grid and on 7 blocks (tickets and ring slots cycle).
+    k9_rows = {}
+    k3_ref = gs.gotoh_scores_stream(*one_d, sc, False)
+    for r in (128, 256, 512):
+        for blocks in (None, 7):
+            e = err_of(gp._pallas_cuda(*one_d, sc, False, r, blocks), k3_ref)
+            err["pipe"] = max(err["pipe"], e)
+            check(e == 0, f"K9 at {r} rows a strip (grid {blocks}) != K3 on the 29.9 kb pair: {e}")
+        k9_rows[r] = cuda_ms(lambda r=r: gp._pallas_cuda(*one_d, sc, False, r), 3)
     rows_mb = gp.pipe_rows(mb[0].shape[1])
     strips_mb = (GENOME_BP + rows_mb) // rows_mb
     c_one, c_mb = cells(one[2], one[3]), float(GENOME_BP) * len(planted)
@@ -2489,7 +2525,9 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
           f"score_pairs {walls['score_pairs 29.9 kb']:.1f} ms wall) == C++ oracle and K1 "
           f"({main['k1_score']}), global/local == K3: K9 [{fmt(k9_one)}] ms = "
           f"{c_one / med(k9_one) * 1e3:.4g} cells/s vs K3 at B = 1 [{fmt(k3_one)}] ms (bound "
-          f"{b_one[0]:.4f} ms by {b_one[1]}) | align-matrix --engine pallas on {N_GENOMES} x "
+          f"{b_one[0]:.4f} ms by {b_one[1]}); K9 at strips of "
+          + ", ".join(f"{r} rows [{fmt(t)}] ms" for r, t in k9_rows.items())
+          + f" (each == K3, also on 7 blocks) | align-matrix --engine pallas on {N_GENOMES} x "
           f"{GENOME_LEN} bp: TSV == phase 8's, {walls['align-matrix --engine pallas']:.3f} s "
           f"wall, {want} launch(es) | 1 Mb planted pair {GENOME_BP} x {len(planted)} "
           f"({strips_mb} strips of {rows_mb} rows): score {int(got[0][0])} == planted, "
@@ -2888,6 +2926,13 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
         err = max(int((g.long().cpu() - w.long()).abs().max()) for g, w in zip(got, want))
         k16_err = max(k16_err, err)
         check(err == 0, f"K16 != plain on the first {SLICE_ROWS} rows (local={is_local}): {err}")
+        # The same launch at 64-row strips on 3 blocks: tickets and ring slots cycle.
+        before = gp.BLOCKED_COUNTS["kernel"]
+        got = gp._pallas_cuda(*c, sc, is_local, gp.blocked_rows(64), 3, gp.BLOCKED_COUNTS)
+        err = max(int((g.long().cpu() - w.long()).abs().max()) for g, w in zip(got, want))
+        k16_err = max(k16_err, err)
+        check(err == 0 and gp.BLOCKED_COUNTS["kernel"] == before + 1,
+              f"K16 at 64-row strips on 3 blocks != plain (local={is_local}): {err}")
         held16.append(f"{'local' if is_local else 'global'} on {SLICE_ROWS} x {c[1].shape[1]} "
                       f"({k16_plain_ms[is_local]:.0f} ms plain)")
     k16_ms = cuda_ms(lambda: gp.gotoh_scores_blocked(*cut, sc, False, R=BLOCKED_R), 3)
@@ -2932,7 +2977,8 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
         f"serial, {(2 * P - 1) * tile_alone[P]:.1f} ms if a wave's tiles overlap, wall "
         f"{1e3 * med(walls[P, False]):.1f} ms" for P in SEQPAR_P)
     print(f"[phase 31] card {card} | K16 == plain (strips of {BLOCKED_R} rows, on the host) on the "
-          f"batch's first rows: " + "; ".join(held16) + f"; max |err| {k16_err} | K16 on "
+          f"batch's first rows: " + "; ".join(held16) + f" (the kernel at {gp.blocked_rows(BLOCKED_R, Lc)} "
+          f"rows a strip, and at 64 on 3 blocks); max |err| {k16_err} | K16 on "
           f"{SLICE_ROWS} x {Ln_k} [{fmt(k16_ms)}] ms (bound {b16[0]:.4f} by {b16[1]}), the whole "
           f"batch global [{fmt(k16_full)}] ms ({cells_full:.4g} cells, bound {b16_full[0]:.3f}) "
           f"| K5 on the {R4} x {B4} interior tile global [{fmt(k5_ms)}] ms (bound {b5[0]:.4f} "

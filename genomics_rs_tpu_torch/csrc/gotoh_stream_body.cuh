@@ -1,10 +1,11 @@
 // The batched Gotoh fill's body, shared by K3 (gotoh_stream.cu: the
 // substitution compares two characters, classic or kimura), the matrix
 // fill (gotoh_matrix.cu: the substitution is read from a query profile),
-// K9's strip pipeline (gotoh_pallas.cu), the row-block pipeline of K1 and
-// K5 (gotoh_rowblock.cu: the strip sweep and the hand-off under its own
-// boundaries and outputs) and the warp-strip kernel K7/K8
-// (gotoh_segmented.cu, which takes the cell recurrence and CharSub). A
+// the row-block pipeline of K1 and K5 (gotoh_rowblock.cu: the strip sweep
+// and the hand-off under its own boundaries and outputs), the warp-strip
+// kernel K7/K8 (gotoh_segmented.cu) and the warp-strip pipeline of K9, K16,
+// K10 and K12 (gotoh_warp_pipe.cuh), which take the cell recurrence,
+// CharSub, GlobalEdge and the hand-off's waits. A
 // substitution policy `Sub` supplies s(i, j); the recurrence, the
 // direction codes and the strip hand-off are this file's, once.
 //
@@ -27,12 +28,8 @@
 // strip's last thread hands its row's A and M to the next strip through
 // global scratch rows. No padded cell is computed, so the local argmax
 // needs no padding mask and no pair needs a seam, probe or drift guard.
-// Two modes:
-//   stream_kernel  one block a pair sweeps its strips in order (K3, the
-//                  matrix fill);
-//   pipe_kernel    every strip of every pair is a block's work, taken from
-//                  a ticket counter in dependency order, so one pair's
-//                  strips run on many SMs at once (K9, below).
+// stream_kernel: one block a pair sweeps its strips in order (K3, the
+// matrix fill); K1's pipeline runs the same sweep with a strip a block.
 //
 // A policy is a struct with a nested `Row` and two device methods:
 //   Row row(int p, int i, int m, int n) const    state for row i of pair p
@@ -180,10 +177,10 @@ __device__ __forceinline__ void block_best(int* rv, int* ri, int* rj, int bv,
   }
 }
 
-// The outputs of K3 and K9 at a pair's true cell: local, the thread's
-// keep-last best (a thread's cells come in row-major order, so >= keeps the
-// last); global, the score at (m, n), beside m and n for K9.
-template <bool LOCAL, bool PIPE>
+// The outputs of K3 at a pair's true cell: local, the thread's keep-last
+// best (a thread's cells come in row-major order, so >= keeps the last);
+// global, the score at (m, n).
+template <bool LOCAL>
 struct PairOut {
   int* res;
   int p, m, n;
@@ -198,20 +195,14 @@ struct PairOut {
       }
     } else if (i == m && j == n) {
       res[3 * p] = M;
-      if (PIPE) {
-        res[3 * p + 1] = m;
-        res[3 * p + 2] = n;
-      }
     }
   }
 };
 
-// ---- K9's pipeline hand-off --------------------------------------------------
+// ---- the pipelines' hand-off (K1's strips, the warp strips of K9 and K10) ----
 
 //: columns a producer publishes at once (a consumer waits once a chunk).
 constexpr int PIPE_CHUNK = 64;
-//: a wait that sees nothing move for this many ns is a fault.
-constexpr unsigned long long SPIN_NS = 10ull * 1000 * 1000 * 1000;
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -231,25 +222,24 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 
 // Spin until *flag >= target (acquire). False when the launch's error
 // word is set, or when the wait sees nothing move for `bound` ns (it then
-// sets the word). Without `beat` that is the wait's own length (K9);
-// with it, each time the bound passes the wait looks at *beat and starts
-// its clock again if it changed, so a wait behind strips that are still
-// sweeping is no fault however long, and a hang (no strip of the launch
-// moves for a whole bound) is. The beat is read once a bound, not once a
-// spin, so the waits add no loads to the line every strip adds to.
-__device__ __noinline__ bool wait_geq(const int* flag, int target, int* err,
-                                      const int* beat = nullptr,
-                                      unsigned long long bound = SPIN_NS) {
+// sets the word): each time the bound passes the wait looks at the
+// launch's heartbeat *beat and starts its clock again if it changed, so a
+// wait behind strips that are still sweeping is no fault however long,
+// and a hang (no strip of the launch moves for a whole bound) is. The beat
+// is read once a bound, not once a spin, so the waits add no loads to the
+// line every strip adds to.
+__device__ __noinline__ bool wait_geq(const int* flag, int target, int* err, const int* beat,
+                                      unsigned long long bound) {
   if (ld_acquire(flag) >= target) return true;
   unsigned long long t0 = globaltimer();
-  int seen = beat != nullptr ? *(const volatile int*)beat : 0;
+  int seen = *(const volatile int*)beat;
   for (;;) {
     __nanosleep(64);
     if (ld_acquire(flag) >= target) return true;
     if (*(volatile int*)err) return false;
     const unsigned long long now = globaltimer();
     if (now - t0 > bound) {
-      const int b = beat != nullptr ? *(const volatile int*)beat : seen;
+      const int b = *(const volatile int*)beat;
       if (b == seen) {
         atomicExch(err, 1);
         return false;
@@ -260,7 +250,7 @@ __device__ __noinline__ bool wait_geq(const int* flag, int target, int* err,
   }
 }
 
-// One pipelined strip's links to its neighbours (pipe_kernel only).
+// One pipelined strip's links to its neighbours (K1's pipeline).
 struct StripLinks {
   const int* progress_in;  // columns of the top row published by strip s-1
   int* progress_out;       // this strip's published bottom-row columns
@@ -269,10 +259,9 @@ struct StripLinks {
   int* abort;              // shared: set by warp 0 when a wait failed
   int* upA;                // shared: the staged chunk of the top row
   int* upM;
-  int* beat = nullptr;     // the launch's heartbeat: a strip adds one with
-                           // each chunk it publishes (K1; null for K9),
-                           // see wait_geq
-  unsigned long long bound = SPIN_NS;  // wait_geq's bound
+  int* beat;               // the launch's heartbeat: a strip adds one with
+                           // each chunk it publishes, see wait_geq
+  unsigned long long bound;  // wait_geq's bound (ns)
 };
 
 // Sweep strip s of pair p: rows s*T .. s*T + T - 1 (those <= m), columns
@@ -343,7 +332,7 @@ __device__ __forceinline__ bool strip_sweep(
         down[W + j] = M;
         if (PIPE && ((j + 1) % PIPE_CHUNK == 0 || j == n)) {
           st_release(ln.progress_out, j + 1);  // orders this thread's row stores
-          if (ln.beat != nullptr) atomicAdd(ln.beat, 1);
+          atomicAdd(ln.beat, 1);
         }
       }
       if (dp != nullptr) {
@@ -390,7 +379,7 @@ stream_kernel(Sub sub, const int* __restrict__ ms, const int* __restrict__ ns,
   const int nstrips = (m + 1 + T - 1) / T;
   const StripLinks none{};
 
-  PairOut<LOCAL, false> out{res, p, m, n};  // with this thread's keep-last best
+  PairOut<LOCAL> out{res, p, m, n};  // with this thread's keep-last best
   int cur = 0;
   for (int s = 0; s < nstrips; ++s) {
     const int* up = scr + ((s + 1) & 1) * 2 * W;  // written by strip s-1
@@ -428,153 +417,6 @@ int launch_stream(const Sub& sub, const int* ms, const int* ns, unsigned* dirs,
   } else {
     stream_kernel<false, Sub><<<B, threads, 0, s>>>(sub, ms, ns, dirs, res, scratch,
                                                     Ln, V, KW, g, h);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---- the strip pipeline (K9) -------------------------------------------------
-
-// The host's plan of one pipelined launch (int32 arrays on the device).
-struct PipePlan {
-  const int* ms;           // [B] true lengths
-  const int* ns;           // [B]
-  const int* strip0;       // [B+1] pair p's strips are ids strip0[p] ..
-  const int* level_start;  // [nlevels+1] first ticket of strip level s
-  const int* by_strips;    // [B] pairs by strip count, descending
-  const int* slot0;        // [B] pair p's first ring slot
-  const int* slots;        // [B] its ring slots (0 for a one-strip pair)
-  int B, nlevels, total;
-};
-
-// The launch's zeroed workspace, in this order: ticket, error word,
-// progress[total], released[total], finished[B], best[3 * total].
-struct PipeWork {
-  int* ticket;
-  int* err;
-  int* progress;
-  int* released;
-  int* finished;
-  int* best;
-};
-
-// Persistent blocks: each takes a ticket, sweeps that strip and takes the
-// next. Tickets go level by level (strip 0 of every pair, then strip 1
-// of every pair that has one, ...), so a strip's predecessor always holds
-// an earlier ticket: it has started on a running block, and no wait can
-// deadlock whatever the occupancy. Strip s of pair p reads its top row
-// from ring slot (s-1) % slots[p] and writes its bottom row to slot
-// s % slots[p] once the strip that last read that slot has released it.
-template <bool LOCAL, class Sub>
-__global__ void __launch_bounds__(MAX_T)
-pipe_kernel(Sub sub, PipePlan plan, PipeWork work, int* __restrict__ ring,
-            int* __restrict__ res, int Ln, int g, int h) {
-  __shared__ int sA[2][MAX_T];
-  __shared__ int sM[2][MAX_T];
-  __shared__ int rv[MAX_T], ri[MAX_T], rj[MAX_T];
-  __shared__ int sUpA[PIPE_CHUNK], sUpM[PIPE_CHUNK];
-  __shared__ int s_p, s_s, s_abort;
-
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const size_t slot_ints = 2 * (size_t)(Ln + 1);
-  int cur = 0;
-  for (;;) {
-    if (t == 0) {
-      const int tk = *(volatile int*)work.err ? plan.total : atomicAdd(work.ticket, 1);
-      int lv = 0;
-      if (tk < plan.total) {  // the level holding ticket tk
-        int hi = plan.nlevels;
-        while (hi - lv > 1) {
-          const int mid = (lv + hi) >> 1;
-          if (plan.level_start[mid] <= tk) lv = mid;
-          else hi = mid;
-        }
-        s_p = plan.by_strips[tk - plan.level_start[lv]];
-      } else {
-        s_p = -1;
-      }
-      s_s = lv;
-      s_abort = 0;
-    }
-    __syncthreads();
-    const int p = s_p, s = s_s;
-    if (p < 0) return;
-    const int m = plan.ms[p], n = plan.ns[p];
-    const int gid = plan.strip0[p] + s;
-    const int nst = plan.strip0[p + 1] - plan.strip0[p];
-    const int nslots = plan.slots[p];
-    int* ring_p = ring + (size_t)plan.slot0[p] * slot_ints;
-    const int* up = s > 0 ? ring_p + (size_t)((s - 1) % nslots) * slot_ints : nullptr;
-    int* down = s + 1 < nst ? ring_p + (size_t)(s % nslots) * slot_ints : nullptr;
-    // The slot this strip writes was last read by strip s - nslots + 1.
-    if (t == 0 && down != nullptr && s >= nslots &&
-        !wait_geq(work.released + gid - nslots + 1, 1, work.err))
-      s_abort = 1;
-    __syncthreads();
-    if (s_abort) return;
-
-    const StripLinks ln{s > 0 ? work.progress + gid - 1 : nullptr,
-                        work.progress + gid, work.released + gid, work.err,
-                        &s_abort, sUpA, sUpM};
-    PairOut<LOCAL, true> out{res, p, m, n};
-    const bool writes_down = down != nullptr && t == T - 1;
-    if (!strip_sweep<LOCAL, true>(sub, GlobalEdge{}, out, p, s, m, n, g, h, sA, sM, cur, up,
-                                  down, writes_down, nullptr, 0, ln))
-      return;
-
-    if (LOCAL) {
-      // The strip's best, then the pair's once its last strip is done.
-      // Thread 0's row (s*T) is a true row, so the strip has a cell >= 0.
-      int v, ii, jj;
-      block_best(rv, ri, rj, out.bv, out.bi, out.bj, v, ii, jj);
-      if (t == 0) {
-        work.best[3 * gid] = v;
-        work.best[3 * gid + 1] = ii;
-        work.best[3 * gid + 2] = jj;
-        __threadfence();
-        if (atomicAdd(work.finished + p, 1) == nst - 1) {
-          __threadfence();
-          int V = INT_MIN_V, I = -1, J = 0;
-          for (int u = plan.strip0[p]; u < plan.strip0[p + 1]; ++u) {
-            const int uv = __ldcg(work.best + 3 * u), ui = __ldcg(work.best + 3 * u + 1),
-                      uj = __ldcg(work.best + 3 * u + 2);
-            if (better(uv, ui, uj, V, I, J)) {
-              V = uv;
-              I = ui;
-              J = uj;
-            }
-          }
-          res[3 * p] = V;
-          res[3 * p + 1] = I;
-          res[3 * p + 2] = J;
-        }
-      }
-      __syncthreads();  // rv/ri/rj are read before the next strip rewrites them
-    }
-  }
-}
-
-// Blocks of `threads` one SM holds for the pipeline (the launch sizes its
-// persistent grid and ring from it).
-template <class Sub>
-int pipe_blocks_per_sm(int threads, int is_local) {
-  int n = 0;
-  cudaError_t e = is_local
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pipe_kernel<true, Sub>, threads, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pipe_kernel<false, Sub>, threads, 0);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
-template <class Sub>
-int launch_pipe(const Sub& sub, const PipePlan& plan, const PipeWork& work, int* ring,
-                int* res, int Ln, int g, int h, int is_local, int threads, int blocks,
-                cudaStream_t s) {
-  if (threads < 32 || threads > MAX_T || (threads & 31) || blocks < 1 || plan.total < 1)
-    return (int)cudaErrorInvalidValue;
-  if (is_local) {
-    pipe_kernel<true, Sub><<<blocks, threads, 0, s>>>(sub, plan, work, ring, res, Ln, g, h);
-  } else {
-    pipe_kernel<false, Sub><<<blocks, threads, 0, s>>>(sub, plan, work, ring, res, Ln, g, h);
   }
   return (int)cudaGetLastError();
 }

@@ -132,7 +132,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_shortread_launch.restype = i
     lib.walk_rows16_launch.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.walk_rows16_launch.restype = i
-    lib.gotoh_banded_launch.argtypes = [vp] * 8 + [i] * 11 + [vp]
+    lib.gotoh_banded_blocks_per_sm.argtypes = []
+    lib.gotoh_banded_blocks_per_sm.restype = i
+    lib.gotoh_banded_launch.argtypes = [vp] * 8 + [i] * 15 + [ctypes.c_longlong, vp]
     lib.gotoh_banded_launch.restype = i
     lib.walk_banded_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.walk_banded_launch.restype = i
@@ -144,7 +146,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_segmented_launch.restype = i
     lib.gotoh_pallas_blocks_per_sm.argtypes = [i, i]
     lib.gotoh_pallas_blocks_per_sm.restype = i
-    lib.gotoh_pallas_launch.argtypes = [vp] * 6 + [i] * 14 + [vp]
+    lib.gotoh_pallas_launch.argtypes = [vp] * 6 + [i] * 14 + [ctypes.c_longlong, vp]
     lib.gotoh_pallas_launch.restype = i
 
 

@@ -19,9 +19,12 @@ an int32 word at each lane: ``dirs[(i-1)//16, v]``, ``(ceil(m/16), V)``.
 * :func:`plan_streams` is the host planning (int64 geometry) shared by
   the single-pair and batched fills; :func:`band_offset` is JAX's.
 * :func:`gotoh_banded` launches ``csrc/gotoh_banded.cu`` on a CUDA
-  tensor (one thread block per pair, a row per step) and runs
-  :func:`gotoh_banded_plain` on a CPU tensor: ``_kernel_banded``'s step
-  restated for a flat ``(B, V)`` state, one loop step per row.
+  tensor (the warp-strip pipeline of ``csrc/gotoh_warp_pipe.cuh``: the
+  band as the full table with its out-of-band cells at -inf, strips of
+  128 rows on many SMs, each visiting only its rows' band columns,
+  :func:`band_strip_columns`) and runs :func:`gotoh_banded_plain` on a
+  CPU tensor: ``_kernel_banded``'s step restated for a flat ``(B, V)``
+  state, one loop step per row.
 * :func:`walk_banded` chases the codes from ``(m, n)`` to the origin,
   tracking ``off`` by the per-row deltas (``(i*n)//m`` overflows int32
   at chromosome scale). A CUDA bitmap launches ``walk_banded_kernel``
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 from genomics_rs_tpu_torch.ops.gotoh_scan import (
     DIR_DEL,
     DIR_INS,
@@ -48,13 +52,9 @@ from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW, unpac
 
 #: 2-bit codes per packed word (rows per int32).
 PACK = 16
-#: widest band the kernel keeps in registers (1,024 threads x 32 lanes
-#: each; a band wider than ``n`` is cut to ``n`` first, see
-#: :func:`lanes_computed`). A wider one runs the kernel's wide form: 1,024
-#: threads, the row state in device memory (``WIDE_THREADS`` x
-#: ``ceil(lanes / WIDE_THREADS)`` slots per array, two row parities of A,
-#: M and the s2 window).
-REGISTER_LANES, WIDE_THREADS = 32768, 1024
+#: rows of a strip (one warp) of the kernel's sweep: 4 rows a lane, so a
+#: code word's 16 rows fill 4 lanes (``BAND_RT`` in the source).
+BAND_STRIP_ROWS = 32 * 4
 
 #: launches of the fill kernel from :func:`gotoh_banded` (K10) and of the
 #: walker (K11); calls of their plain versions.
@@ -109,15 +109,6 @@ def window_init(enc2: torch.Tensor, V: int, scores) -> torch.Tensor:
     return out
 
 
-def lanes_computed(N: int, V: int) -> int:
-    """Lanes the kernel computes and stores. While ``N <= V`` the window
-    never slides (off = 0), so lanes past column N never reach a lane
-    below it: the band is cut to ``N`` rounded up to 32 (a multiple of
-    every lanes-per-thread count of the kernel), and the lanes past it
-    are left zero. Otherwise all ``V``."""
-    return min(V, -(-N // 32) * 32) if N <= V else V
-
-
 def _check_fill(s1e, s2e, m: int, n: int, V: int):
     if V < 1024 or V % 1024:
         raise ValueError(f"band width V={V} must be a multiple of 1024")
@@ -154,47 +145,100 @@ def probe_lanes(ms: np.ndarray, ns: np.ndarray, M: int, N: int, V: int) -> np.nd
     return np.asarray(ns, np.int64) - band_offset(np.asarray(ms, np.int64), M, N, V) - 1
 
 
-def fill_cuda(s1b, s2b, ms, ns, scores, V: int, counts: dict):
+def band_strip_columns(off: np.ndarray, m: int, n: int, V: int) -> tuple[np.ndarray, np.ndarray]:
+    """The columns each strip (:data:`BAND_STRIP_ROWS` rows) of one pair
+    visits in the kernel's sweep, over its rows ``1..m`` in the window whose row offsets
+    are ``off`` (:func:`plan_streams`; row i at ``off[i - 1]``): ``(lo,
+    hi)`` int64 arrays, one entry a strip, ``lo = off(first)`` (the column
+    left of the first row's band) and ``hi = min(off(last) + V, n)``."""
+    first = np.arange(1, int(m) + 1, BAND_STRIP_ROWS, dtype=np.int64)
+    last = np.minimum(first + BAND_STRIP_ROWS - 1, int(m))
+    off = np.asarray(off, np.int64)
+    return off[first - 1], np.minimum(off[last - 1] + V, int(n))
+
+
+def band_slot_width(off: np.ndarray, ms, ns, V: int) -> int:
+    """Columns a ring slot of the kernel holds: the widest strip of the
+    batch (``hi - lo + 1`` of :func:`band_strip_columns`, at most ``V +
+    BAND_STRIP_ROWS``)."""
+    return max(int((hi - lo).max()) + 1
+               for lo, hi in (band_strip_columns(off, m, n, V) for m, n in zip(ms, ns)))
+
+
+def band_strips_in_flight(off: np.ndarray, ms, ns, V: int) -> np.ndarray:
+    """Each pair's strips that can sweep at once
+    (``gotoh_pallas.strips_in_flight`` of its widest strip and its median
+    shift between strips: the band moves right as it goes down, so a
+    strip waits for the one above to pass its first column)."""
+    out = []
+    for m, n in zip(ms, ns):
+        lo, hi = band_strip_columns(off, m, n, V)
+        shift = int(np.median(np.diff(lo))) if lo.size > 1 else 0
+        out.append(int(gp.strips_in_flight(int((hi - lo).max()) + 1, shift)))
+    return np.asarray(out, np.int64)
+
+
+def fill_cuda(s1b, s2b, ms, ns, scores, V: int, counts: dict, max_blocks=None,
+              spin_ns=gp.SPIN_NS):
     """Launch the banded fill over a batch of ``B`` pairs that share the
-    window of ``(M, N) = (max ms, max ns)``: one thread block per pair.
+    window of ``(M, N) = (max ms, max ns)``: each pair's strips of
+    :data:`BAND_STRIP_ROWS` rows are tickets of one warp-strip pipeline.
     Returns ``(score (B,) int32, dirs (B, ceil(M/16), V) int32)`` on the
-    card and adds one to ``counts["kernel"]``. The callers check the
-    geometry."""
+    card (the codes of every true in-band cell; the rest zero) and adds
+    one to ``counts["kernel"]``. ``max_blocks`` caps the persistent grid,
+    ``spin_ns`` bounds a wait that sees nothing of the launch move; reads
+    the launch's error word (one synchronisation) and raises if it is
+    set. The callers check the geometry."""
     dev = s1b.device
     if dev.type != "cuda":
         raise ValueError(f"the banded fill kernel takes CUDA tensors, not {dev}")
     _build.require(s1b, "s1b", torch.uint8, dev)
     _build.require(s2b, "s2b", torch.uint8, dev)
-    B = s1b.shape[0]
-    M, N = int(np.max(ms)), int(np.max(ns))
-    KW = -(-M // PACK)
-    Vc = lanes_computed(N, V)
-    scratch = None
-    if Vc > REGISTER_LANES:
-        slots = -(-Vc // WIDE_THREADS) * WIDE_THREADS
-        scratch = torch.empty((B, 6 * slots), dtype=torch.int32, device=dev)
-    enc1, enc2 = encode_chars(s1b, scores), encode_chars(s2b, scores)
-    s1c, s2in, delta, at0 = row_streams(enc1, enc2, M, N, V)
-    flags = torch.from_numpy((delta | (at0.astype(np.int64) << 1)).astype(np.int32)).to(dev)
-    s2init = window_init(enc2, V, scores)
-    probe = torch.from_numpy(
-        np.stack([np.asarray(ms, np.int64), probe_lanes(ms, ns, M, N, V)], 1).astype(np.int32)
-    ).to(dev)
-    alloc = torch.empty if Vc == V else torch.zeros
-    dirs = alloc((B, KW, V), dtype=torch.int32, device=dev)
-    score = torch.full((B,), INT_MIN, dtype=torch.int32, device=dev)
-    kim = kimura_active(scores)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.gotoh_banded_launch(
-            _build.ptr(s1c), _build.ptr(s2in), _build.ptr(flags), _build.ptr(s2init),
-            _build.ptr(probe), _build.ptr(dirs), _build.ptr(score), _build.ptr(scratch),
-            B, M, V, Vc, KW, scores.s_match, scores.s_mismatch,
-            scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
-            _build.stream_handle(dev),
-        )
+        resident = gp.resident_blocks(lib.gotoh_banded_blocks_per_sm(),
+                                      torch.cuda.get_device_properties(dev).multi_processor_count,
+                                      max_blocks)
+        return run_band(lib, s1b, s2b, ms, ns, scores, V, resident, counts, spin_ns,
+                        _build.stream_handle(dev))
+
+
+def run_band(lib, s1b, s2b, ms, ns, scores, V: int, resident: int, counts: dict, spin_ns,
+             stream):
+    """Plan and launch the banded fill over the batch's tensors (on the
+    card): ``(score, dirs)`` after reading the launch's error word."""
+    dev = s1b.device
+    B, Lm = s1b.shape
+    Ln = s2b.shape[1]
+    ms = np.asarray(ms, np.int64)
+    ns = np.asarray(ns, np.int64)
+    M, N = int(ms.max()), int(ns.max())
+    KW = -(-M // PACK)
+    off, _, _ = plan_streams(M, N, V)
+    slotw = band_slot_width(off, ms, ns, V)
+    plan_h, nlevels, total, blocks, nslots = gp.pipeline_plan(
+        ms, ns, slotw - 1, BAND_STRIP_ROWS, resident, row0=1,
+        inflight=band_strips_in_flight(off, ms, ns, V))
+    i32 = dict(dtype=torch.int32, device=dev)
+    plan = torch.from_numpy(plan_h).to(dev)
+    offs = torch.from_numpy(off.astype(np.int32)).to(dev)
+    s1c = encode_chars(s1b, scores).contiguous()
+    s2c = encode_chars(s2b, scores).contiguous()
+    dirs = torch.zeros((B, KW, V), **i32)
+    score = torch.full((B,), INT_MIN, **i32)
+    work = torch.zeros(gp.WORK_HEAD + 5 * total + B, **i32)
+    ring = torch.empty(max(nslots, 1) * 2 * slotw, **i32)
+    kim = kimura_active(scores)
+    err = lib.gotoh_banded_launch(
+        _build.ptr(s1c), _build.ptr(s2c), _build.ptr(offs), _build.ptr(plan), _build.ptr(work),
+        _build.ptr(ring), _build.ptr(dirs), _build.ptr(score), B, Lm, Ln, V, KW, nlevels, total,
+        slotw, scores.s_match, scores.s_mismatch, scores.s_transition if kim else 0, int(kim),
+        scores.g, scores.h, blocks, int(spin_ns), stream,
+    )
     _build.check(err, "gotoh_banded")
     counts["kernel"] += 1
+    if int(work[1]) != 0:  # the launch's error word (synchronises)
+        raise RuntimeError("gotoh_banded: a strip pipeline wait passed its bound")
     return score, dirs
 
 

@@ -12,9 +12,11 @@ local keep-last row-major argmax ``(v, i, j)``, as ``(score, start_i,
 start_j)`` int32 tensors of shape (B,).
 
 On a CUDA tensor it launches ``csrc/gotoh_pallas.cu``: every row strip of
-``rows_per_strip`` rows is one block's work, the strips of a pair running
-on many SMs at once, each fed the bottom row of the strip above through a
-ring of boundary rows (see the source's note). On a CPU tensor it runs
+``32 * RT`` rows is one warp's work in the warp-strip pipeline of
+``csrc/gotoh_warp_pipe.cuh`` (lane l holding RT rows in registers, the
+lanes one column apart), the strips of a pair running on many SMs at once,
+each fed the bottom row of the strip above through a ring of boundary rows
+(see the sources' notes). On a CPU tensor it runs
 :func:`gotoh_strips_plain`, the same decomposition: strips one after
 another, each strip's bottom A/M row carried to the next, the local bests
 merged across strips by (larger v, larger i, larger j).
@@ -40,24 +42,39 @@ from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN, FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import _lengths, wavefront_plain
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
-from genomics_rs_tpu_torch.sequence import round_up
 
 #: sublane count of the JAX flat layout (kept for the modules that import
 #: it there; the port's kernels have no panes).
 ROWS = 8
-#: rows of a pipeline strip (threads of a block): phase 23 of
-#: ``chip_smoke.py`` measures the pipeline at this height.
+#: rows a lane of the warp-strip pipeline holds, one compiled kernel each
+#: (RT; a strip is ``32 * RT`` rows).
+LANE_ROWS = (1, 2, 4, 8, 16)
+#: rows of a pipeline strip (32 x RT): ``tools/time_fills.py`` times K9 at
+#: RT = 4, 8 and 16.
 PIPE_ROWS = 256
-#: bytes the pipeline's ring of boundary rows may take on the card.
+#: bytes K1's ring of boundary rows may take on the card
+#: (``gotoh_rowblock.block_plan`` passes it to :func:`ring_budget`).
 RING_BYTES = 2 << 30
+#: bytes the warp-strip pipeline's ring may take (K9, K16, K10, K12), and
+#: the default budget of :func:`ring_budget`, :func:`pipeline_groups` and
+#: :func:`pipeline_plan`: a strip is one warp, so a long pair needs about a
+#: thousand strips in flight, each holding a slot of its bottom row (8.6 MB
+#: at 1 Mb columns).
+PIPE_RING_BYTES = 8 << 30
+#: ns a pipeline wait may see nothing of the launch move before it sets the
+#: error word.
+SPIN_NS = rb.SPIN_NS
+#: ints of the pipeline's workspace before its per-strip arrays: ticket,
+#: error word, heartbeat (``PIPE_WORK_HEAD`` in the source).
+WORK_HEAD = 3
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
 #: the same for the tile entry (K5) and the row-blocked entry (K16).
 TILE_COUNTS = {"kernel": 0, "plain": 0}
 BLOCKED_COUNTS = {"kernel": 0, "plain": 0}
-#: threads a pipeline block holds (a strip row a thread).
-PIPE_MAX_ROWS = 1024
+#: the tallest strip (16 rows a lane).
+PIPE_MAX_ROWS = 32 * LANE_ROWS[-1]
 #: codes per packed int32 word.
 PACK = rb.PACK
 
@@ -85,11 +102,17 @@ def concrete_lengths_or_none(ms, ns):
         return None
 
 
+def strip_height(rows: int) -> int:
+    """The least compiled strip height (32 x RT, RT in :data:`LANE_ROWS`)
+    that holds ``rows`` rows, or the tallest."""
+    return 32 * next((r for r in LANE_ROWS if 32 * r >= rows), LANE_ROWS[-1])
+
+
 def pipe_rows(Lm: int, rows_per_strip: int = PIPE_ROWS) -> int:
-    """The strip height (block threads) for a bucket of padded ``Lm``
-    rows: ``rows_per_strip``, or fewer for a shorter bucket (a multiple
-    of 32)."""
-    return min(rows_per_strip, round_up(Lm + 1, 32))
+    """The strip height for a bucket of padded ``Lm`` rows:
+    ``rows_per_strip`` (a compiled height), or the least compiled height
+    that holds the bucket's ``Lm + 1`` rows if that is lower."""
+    return min(int(rows_per_strip), strip_height(Lm + 1))
 
 
 def gotoh_scores_pallas_batch(s1eb, s2eb, ms, ns, scores, is_local: bool = False):
@@ -164,20 +187,28 @@ def gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local: bool = False,
             torch.as_tensor(ns_h, dtype=torch.int32).to(dev))
 
 
-def ring_budget(Ln: int) -> int:
-    """Ring slots (2 x (Ln + 1) int32 each) that ``RING_BYTES`` holds."""
-    return RING_BYTES // (8 * (Ln + 1))
+def ring_budget(Ln: int, ring_bytes: int | None = None) -> int:
+    """Ring slots (2 x (Ln + 1) int32 each) that ``ring_bytes`` (default
+    ``PIPE_RING_BYTES``) holds."""
+    return (PIPE_RING_BYTES if ring_bytes is None else ring_bytes) // (8 * (Ln + 1))
 
 
-def pipeline_groups(ms_h, Ln: int, rows: int) -> list[tuple[int, int]]:
-    """Split a bucket into launches whose rings fit ``RING_BYTES``:
-    contiguous pair ranges ``[lo, hi)``. A pair of s strips needs
-    ``min(s - 1, 2)`` slots (strip s - 1 writes the slot strip s - 2 read),
-    so a launch takes pairs while their needs fit the budget."""
-    need = np.minimum((np.asarray(ms_h, np.int64) + rows) // rows - 1, 2)
-    budget = ring_budget(Ln)
+def strip_counts(ms_h, rows: int, row0: int = 0) -> np.ndarray:
+    """Strips of ``rows`` rows each pair's rows ``row0..m`` take (int64)."""
+    return (np.asarray(ms_h, np.int64) - row0 + rows) // rows
+
+
+def pipeline_groups(ms_h, Ln: int, rows: int, ring_bytes: int | None = None
+                    ) -> list[tuple[int, int]]:
+    """Split a bucket into launches whose rings fit ``ring_bytes``
+    (default ``PIPE_RING_BYTES``): contiguous pair ranges ``[lo, hi)``. A pair
+    of s strips needs ``min(s - 1, 2)`` slots (strip s - 1 writes the slot
+    strip s - 2 read), so a launch takes pairs while their needs fit the
+    budget."""
+    need = np.minimum(strip_counts(ms_h, rows) - 1, 2)
+    budget = ring_budget(Ln, ring_bytes)
     if budget < int(need.max(initial=0)):
-        raise ValueError(f"gotoh_pallas: two ring slots of {Ln + 1} columns pass RING_BYTES")
+        raise ValueError(f"gotoh_pallas: two ring slots of {Ln + 1} columns pass PIPE_RING_BYTES")
     groups, lo, used = [], 0, 0
     for p, k in enumerate(need.tolist()):
         if used + k > budget:
@@ -188,43 +219,66 @@ def pipeline_groups(ms_h, Ln: int, rows: int) -> list[tuple[int, int]]:
     return groups
 
 
-def pipeline_plan(ms_h, ns_h, Ln: int, rows: int, resident: int):
-    """The host's plan of one pipelined launch: ``(plan int32 array,
+def strips_in_flight(width, shift) -> np.ndarray:
+    """Strips of each pair that can sweep at once in the warp-strip
+    pipeline: a strip sweeps ``width`` columns (and 31 steps of lane skew)
+    while the next one starts ``shift`` columns further right plus about
+    64 steps of lookahead and skew behind it; two more for slack. A warp
+    beyond these only spins on its predecessor's progress, and spinning
+    warps slow the sweeping ones (PERF.md)."""
+    return -(-(np.asarray(width, np.int64) + 32) // (np.asarray(shift, np.int64) + 64)) + 2
+
+
+def pipeline_plan(ms_h, ns_h, Ln: int, rows: int, resident: int, row0: int = 0,
+                  ring_bytes: int | None = None, inflight=None):
+    """The host's plan of one pipelined launch over each pair's rows
+    ``row0..m`` (0 for K9, 1 for the band fill): ``(plan int32 array,
     nlevels, total strips, persistent blocks, ring slots)``. Tickets go
     level by level (strip s of every pair that has one), pairs ordered by
-    strip count; each pair gets ``min(strips - 1, k)`` ring slots, ``k``
-    from 2 (a strip never writes the slot it reads) up to ``ceil(blocks /
-    B) + 1``, as large as ``RING_BYTES`` allows. The pairs must fit at
-    ``k = 2`` (:func:`pipeline_groups`)."""
+    strip count; each pair gets ``min(strips - 1, k)`` ring slots of 2 x
+    (``Ln`` + 1) int32, ``k`` from 2 (a strip never writes the slot it
+    reads) up to ``ceil(blocks / B) + 1``, as large as ``ring_bytes``
+    (default ``PIPE_RING_BYTES``) allows. The pairs must fit at ``k = 2``
+    (:func:`pipeline_groups`). The grid is then cut to the strips that can
+    run at once: ``min(strips, slots + 1)`` a pair, and at most
+    ``inflight`` (one entry a pair, :func:`strips_in_flight`) when
+    given."""
     B = len(ms_h)
-    strips = (np.asarray(ms_h, np.int64) + rows) // rows
+    strips = strip_counts(ms_h, rows, row0)
     strip0 = np.concatenate([[0], np.cumsum(strips)])
     total = int(strip0[-1])
     nlevels = int(strips.max())
     by_strips = np.argsort(-strips, kind="stable")
     level_start = np.concatenate([[0], np.cumsum([(strips > s).sum() for s in range(nlevels)])])
     blocks = max(1, min(total, resident))
-    budget = ring_budget(Ln)
+    budget = ring_budget(Ln, ring_bytes)
     lo, hi = 2, max(2, -(-blocks // B) + 1)  # the most slots a pair that fit the budget
     if np.minimum(strips - 1, lo).sum() > budget:
-        raise ValueError("gotoh_pallas: the pairs' two ring slots each pass RING_BYTES")
+        raise ValueError("gotoh_pallas: the pairs' two ring slots each pass PIPE_RING_BYTES")
     while lo < hi:
         mid = (lo + hi + 1) // 2
         lo, hi = (mid, hi) if np.minimum(strips - 1, mid).sum() <= budget else (lo, mid - 1)
     slots = np.minimum(strips - 1, lo)
+    cap = np.minimum(strips, slots + 1)
+    if inflight is not None:
+        cap = np.minimum(cap, inflight)
+    blocks = max(1, min(blocks, int(cap.sum())))
     slot0 = np.concatenate([[0], np.cumsum(slots)[:-1]])
     plan = np.concatenate([ms_h, ns_h, strip0, level_start, by_strips, slot0, slots])
     return plan.astype(np.int32), nlevels, total, blocks, int(slots.sum())
 
 
 def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
-                 max_blocks=None, counts=COUNTS):
+                 max_blocks=None, counts=COUNTS, spin_ns=SPIN_NS):
     """Launch the pipeline at strips of ``pipe_rows(Lm, rows_per_strip)``
-    rows, once for each of :func:`pipeline_groups`' pair ranges (one
-    launch unless the bucket's ring passes ``RING_BYTES``), adding one to
-    ``counts["kernel"]`` a launch (K9's count, or K16's); ``max_blocks``
-    caps the persistent grid below what the card holds (the card tests
-    cycle tickets and ring slots with it)."""
+    rows (a compiled height), once for each of :func:`pipeline_groups`'
+    pair ranges (one launch unless the bucket's ring passes
+    ``PIPE_RING_BYTES``), adding one to ``counts["kernel"]`` a launch (K9's
+    count, or K16's); ``max_blocks`` caps the persistent grid below what
+    the card holds (the card tests cycle tickets and ring slots with it);
+    ``spin_ns`` bounds a wait that sees nothing of the launch move. Reads
+    the launches' error words (one synchronisation) and raises if one is
+    set."""
     dev = s1eb.device
     if dev.type != "cuda":
         raise ValueError(f"the K9 kernel takes CUDA tensors, not {dev}")
@@ -233,18 +287,41 @@ def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
     _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
     _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
     ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
-    i32 = dict(dtype=torch.int32, device=dev)
     if B == 0:
-        return tuple(torch.empty((0,), **i32) for _ in range(3))
+        return tuple(torch.empty((0,), dtype=torch.int32, device=dev) for _ in range(3))
     lib = _build.library()
     rows = pipe_rows(Lm, rows_per_strip)
+    if rows % 32 or rows // 32 not in LANE_ROWS:
+        raise ValueError(f"gotoh_pallas: {rows} rows a strip is not 32 x {LANE_ROWS}")
     with torch.cuda.device(dev):
-        per_sm = lib.gotoh_pallas_blocks_per_sm(rows, int(is_local))
+        per_sm = lib.gotoh_pallas_blocks_per_sm(rows // 32, int(is_local))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        res = run_pipeline(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, rows,
+                           resident_blocks(per_sm, sms, max_blocks), counts, spin_ns,
+                           _build.stream_handle(dev))
+    return res
+
+
+def resident_blocks(per_sm: int, sms: int, max_blocks=None) -> int:
+    """Persistent one-warp blocks of a launch: what ``sms`` SMs hold at
+    ``per_sm`` each (the occupancy query's answer), capped by
+    ``max_blocks``. Raises if none fits."""
     if per_sm < 1:
-        raise RuntimeError(f"gotoh_pallas: no block of {rows} threads fits an SM ({per_sm})")
-    resident = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
-    if max_blocks is not None:
-        resident = min(resident, int(max_blocks))
+        raise RuntimeError(f"gotoh_pallas: no warp of the pipeline fits an SM ({per_sm})")
+    resident = per_sm * sms
+    return resident if max_blocks is None else min(resident, int(max_blocks))
+
+
+def run_pipeline(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, rows, resident, counts,
+                 spin_ns, stream):
+    """Plan and launch the warp-strip pipeline over the batch's tensors
+    (on the card), one launch for each of :func:`pipeline_groups`' pair
+    ranges; returns ``(score, start_i, start_j)`` after reading the
+    launches' error words."""
+    dev = s1eb.device
+    B, Lm = s1eb.shape
+    Ln = s2eb.shape[1]
+    i32 = dict(dtype=torch.int32, device=dev)
     kim = kimura_active(scores)
     s1c = encode_chars(s1eb, scores).contiguous()
     s2c = encode_chars(s2eb, scores).contiguous()
@@ -252,18 +329,18 @@ def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
     errs = []
     for lo, hi in pipeline_groups(ms_h, Ln, rows):
         plan_h, nlevels, total, blocks, nslots = pipeline_plan(
-            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident)
+            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident,
+            inflight=strips_in_flight(np.asarray(ns_h[lo:hi]) + 1, 0))
         plan = torch.from_numpy(plan_h).to(dev)
-        work = torch.zeros(2 + 5 * total + (hi - lo), **i32)
+        work = torch.zeros(WORK_HEAD + 5 * total + (hi - lo), **i32)
         ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
-        with torch.cuda.device(dev):
-            err = lib.gotoh_pallas_launch(
-                _build.ptr(s1c[lo:hi]), _build.ptr(s2c[lo:hi]), _build.ptr(plan),
-                _build.ptr(work), _build.ptr(ring), _build.ptr(res[lo:hi]), hi - lo, Lm, Ln,
-                nlevels, total, scores.s_match, scores.s_mismatch,
-                scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
-                int(is_local), rows, blocks, _build.stream_handle(dev),
-            )
+        err = lib.gotoh_pallas_launch(
+            _build.ptr(s1c[lo:hi]), _build.ptr(s2c[lo:hi]), _build.ptr(plan),
+            _build.ptr(work), _build.ptr(ring), _build.ptr(res[lo:hi]), hi - lo, Lm, Ln,
+            nlevels, total, scores.s_match, scores.s_mismatch,
+            scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
+            int(is_local), rows // 32, blocks, int(spin_ns), stream,
+        )
         _build.check(err, "gotoh_pallas")
         counts["kernel"] += 1
         errs.append(work[1])
@@ -272,11 +349,16 @@ def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
     return res[:, 0], res[:, 1], res[:, 2]
 
 
-def blocked_rows(R: int) -> int:
-    """The pipeline's strip height for K16's block height ``R``: ``R``
-    rounded up to a warp and capped at :data:`PIPE_MAX_ROWS` (a thread
-    holds a row)."""
-    return min(round_up(max(int(R), 1), 32), PIPE_MAX_ROWS)
+def blocked_rows(R: int, Lm: int | None = None) -> int:
+    """The pipeline's strip height for K16's block height ``R``: the least
+    compiled height (32 x RT) that holds ``R`` rows, at most
+    :data:`PIPE_MAX_ROWS` (16 rows a lane). A bucket of padded ``Lm``
+    rows that one such strip would hold runs at :data:`PIPE_ROWS` at most:
+    its pairs' strips then sweep at once, and a 300-row block took 45.5
+    ms at 256 rows a strip against 53.4 ms in one strip of 16-row lanes
+    (PERF.md, ``tools/time_fills.py``)."""
+    rows = strip_height(max(int(R), 1))
+    return min(rows, PIPE_ROWS) if Lm is not None and Lm + 1 <= rows else rows
 
 
 def gotoh_scores_blocked(s1eb, s2eb, ms, ns, scores, is_local: bool = False, R: int = 4096):
@@ -287,13 +369,14 @@ def gotoh_scores_blocked(s1eb, s2eb, ms, ns, scores, is_local: bool = False, R: 
     shape (B,) on the batch's device.
 
     A CUDA batch runs K9's strip pipeline at strips of
-    :func:`blocked_rows` ``(R)`` rows, a CPU batch
+    :func:`blocked_rows` ``(R, Lm)`` rows, a CPU batch
     ``gotoh_strips_plain`` at strips of ``R`` rows. The answer does not
     depend on ``R``: every block height fills the same table.
     """
     if _build.uses_kernel(s1eb):
         return _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local,
-                            rows_per_strip=blocked_rows(R), counts=BLOCKED_COUNTS)
+                            rows_per_strip=blocked_rows(R, s1eb.shape[1]),
+                            counts=BLOCKED_COUNTS)
     BLOCKED_COUNTS["plain"] += 1
     return gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local, R)
 

@@ -131,14 +131,14 @@ def block_plan(R: int, B: int, rows: int, resident: int) -> BlockPlan:
     more strips run at once), as many as ``gotoh_pallas.RING_BYTES``
     holds at ``B + 1`` columns (``ring_budget``). Raises ``ValueError``
     when two slots do not fit."""
-    from genomics_rs_tpu_torch.ops.gotoh_pallas import ring_budget
+    from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 
     if rows < 32 or rows % 32 or rows > 1024:
         raise ValueError(f"gotoh_rowblock: {rows} rows a strip (a multiple of 32 up to 1024)")
     strips = (R + rows) // rows
     blocks = max(1, min(strips, int(resident)))
     need = min(strips - 1, 2)
-    budget = ring_budget(B)
+    budget = gp.ring_budget(B, gp.RING_BYTES)
     if budget < need:
         raise ValueError(f"gotoh_rowblock: {need} ring slots of {B + 1} columns pass RING_BYTES")
     return BlockPlan(rows, strips, min(strips - 1, max(2, min(blocks + 1, budget))), blocks)

@@ -306,3 +306,38 @@ def test_cli_band_is_global_only(tmp_path, capsys):
     got = capsys.readouterr().err
     assert "--band is global-only" in got and got.strip().splitlines()[-1] == \
         want.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("M,N,V", [(6000, 5900, 1024), (1500, 900, 1024), (1300, 1300, 256),
+                                   (33_100, 33_000, 32_768), (1_000_000, 999_000, 2048)])
+def test_band_strip_columns_follow_off(M, N, V):
+    """Each strip of the kernel's sweep (128 rows) visits the columns from
+    its first row's off (the column left of that row's band) to its last
+    row's band end, cut at n; every in-band cell of its rows lies inside,
+    and the ring slot (the widest strip) holds at most V + 128 columns."""
+    off, _, _ = gb.plan_streams(M, N, V)
+    H = gb.BAND_STRIP_ROWS
+    assert H == 128
+    for m, n in ((M, N), (M - 700, N - 650)):
+        lo, hi = gb.band_strip_columns(off, m, n, V)
+        assert lo.size == hi.size == -(-m // H)
+        for s in range(lo.size):
+            rows = np.arange(s * H + 1, min(s * H + H, m) + 1)
+            assert lo[s] == off[rows[0] - 1] and hi[s] == min(off[rows[-1] - 1] + V, n)
+            band_lo, band_hi = off[rows - 1] + 1, np.minimum(off[rows - 1] + V, n)
+            assert band_lo.min() > lo[s] and band_hi.max() <= hi[s]
+            if s:  # a strip starts at or right of the one above, never left
+                assert lo[s] >= lo[s - 1] and hi[s] >= hi[s - 1]
+    w = gb.band_slot_width(off, [M, M - 700], [N, N - 650], V)
+    assert w <= V + H and w == max(int((h - l).max()) + 1 for l, h in (
+        gb.band_strip_columns(off, M, N, V), gb.band_strip_columns(off, M - 700, N - 650, V)))
+
+
+def test_band_strips_in_flight_follow_the_slide():
+    """A band that slides a column a row lets a few strips sweep at once
+    (each waits for the one above to pass its first column); a band that
+    stays at column 0 lets more (they start a lookahead apart)."""
+    off, _, _ = gb.plan_streams(29_903, 29_892, 2048)
+    assert list(gb.band_strips_in_flight(off, [29_903], [29_892], 2048)) == [14]
+    off, _, _ = gb.plan_streams(1500, 900, 1024)
+    assert list(gb.band_strips_in_flight(off, [1500, 1400], [900, 900], 1024)) == [17, 17]

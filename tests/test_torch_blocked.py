@@ -79,5 +79,18 @@ def test_blocked_matches_jax(case, score_t, R, is_local):
 
 
 def test_blocked_rows_fit_a_block():
-    """The card's strip height: R rounded up to a warp, at most 1,024."""
-    assert [gp.blocked_rows(r) for r in (1, 16, 64, 100, 4096)] == [32, 32, 64, 128, 1024]
+    """The card's strip height: the least compiled warp-strip height (32 x
+    RT rows, RT = 1, 2, 4, 8 or 16) that holds R rows, at most 512."""
+    assert [gp.blocked_rows(r) for r in (1, 16, 64, 100, 200, 300, 4096)] == [
+        32, 32, 64, 128, 256, 512, 512]
+
+
+@pytest.mark.parametrize("R,Lm,want", [(4096, 384, 256), (4096, 511, 256), (4096, 512, 512),
+                                       (4096, 155_008, 512), (300, 384, 256), (4096, 200, 256),
+                                       (64, 384, 64), (200, 150, 256)])
+def test_blocked_rows_short_bucket_takes_pipe_rows(R, Lm, want):
+    """A bucket that one strip of ``blocked_rows(R)`` would hold runs at
+    K9's height at most (its pairs' strips sweep at once); a longer bucket
+    keeps the block's height."""
+    assert gp.blocked_rows(R, Lm) == want
+    assert gp.pipe_rows(Lm, gp.blocked_rows(R, Lm)) <= want

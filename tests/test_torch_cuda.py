@@ -8,7 +8,11 @@ and the matrix fill of K13–K15, the warp-strip kernel of K7/K8, the
 strip pipeline of K9 and its K16 entry, and K1's tile form K5 with a
 two-shard pipeline on one card) equal to the plain versions, bit for
 bit; K1 and K5 also at the edges of their strip pipeline (strip counts,
-chunk widths, capped grids, a tight ring) and with a set error word.
+chunk widths, capped grids, a tight ring) and with a set error word; the
+warp-strip pipeline of K9, K16, K10 and K12 at its edges (strips that end
+mid-lane, one-row and empty pairs, local ties, capped grids, a tight ring
+under a short wait bound, bands at column 0 and bands that slide, every
+band width that had its own compiled form, mixed batches).
 """
 
 import numpy as np
@@ -444,8 +448,8 @@ def _band_codes(dirs, ms, ns, V, M, N):
 )
 def test_banded_fill_kernel_matches_plain(cuda, st, ms, ns, V):
     """K10 (one pair, V a multiple of 1024) and K12 (a batch): scores and
-    codes at every true in-band cell; 8 lanes a thread, and 16 at V =
-    8192."""
+    codes at every true in-band cell (at V = 8192, the width that had a
+    16-lanes-a-thread form before the warp-strip sweep)."""
     rng = np.random.default_rng(11)
     s1, s2, ms, ns = _banded_batch(rng, ms, ns, max(ms), max(max(ns), V))
     sc = Scores(2, -3, -2, -4, st)
@@ -464,9 +468,9 @@ def test_banded_fill_kernel_matches_plain(cuda, st, ms, ns, V):
 
 
 def test_banded_fill_wide_kernel_matches_plain(cuda):
-    """The wide form (more than 32,768 lanes, the row state in device
-    memory) on a band that slides, against the plain fill run on the
-    card."""
+    """A band wider than 32,768 lanes (the width that had a form with the
+    row state in device memory) that slides, against the plain fill run
+    on the card."""
     rng = np.random.default_rng(14)
     V = 33_792
     s1, s2, ms, ns = _banded_batch(rng, [V + 300], [V + 200], V + 300, V + 200)
@@ -477,6 +481,60 @@ def test_banded_fill_wide_kernel_matches_plain(cuda):
     M, N = int(ms[0]), int(ns[0])
     assert np.array_equal(_band_codes(dirs[None], ms, ns, V, M, N),
                           _band_codes(want[1], ms, ns, V, M, N))
+
+
+#: band edges of the warp-strip sweep (ms, ns, V): a band at column 0 all
+#: along (n <= V), one that slides a column a row (m = n, 2.5 strips),
+#: 32 lanes a thread in the old register form (V = 32,768, cut to n), a
+#: K12 batch of mixed lengths whose strips end mid-lane.
+BAND_EDGES = {
+    "column0": ([1500], [900], 1024),
+    "slides": ([1300], [1300], 256),
+    "lanes32": ([33_100], [33_000], 32_768),
+    "mixed": ([2000, 1990, 1700, 1111], [1900, 1950, 1650, 1100], 384),
+}
+
+
+@pytest.mark.parametrize("case", list(BAND_EDGES))
+@pytest.mark.parametrize("max_blocks", [None, 2])
+def test_banded_sweep_edges_match_plain(cuda, case, max_blocks):
+    """The band sweep at its edges (strips of 128 rows, a code word over 4
+    lanes), on the whole grid and on two blocks (tickets and ring slots
+    cycle): scores and codes at every true in-band cell equal the plain
+    fill's."""
+    ms, ns, V = BAND_EDGES[case]
+    rng = np.random.default_rng(15)
+    s1, s2, ms, ns = _banded_batch(rng, ms, ns, max(ms), max(max(ns), V))
+    sc = Scores(2, -3, -2, -4, -1)
+    plain_dev = cuda if V > 4096 else torch.device("cpu")
+    want = gb.gotoh_banded_plain(s1.to(plain_dev), s2.to(plain_dev), ms, ns, sc, V)
+    got = gb.fill_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, V, {"kernel": 0},
+                       max_blocks=max_blocks)
+    M, N = int(max(ms)), int(max(ns))
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert np.array_equal(_band_codes(got[1], ms, ns, V, M, N),
+                          _band_codes(want[1], ms, ns, V, M, N))
+
+
+def test_banded_tight_ring_waits_are_no_fault(cuda, monkeypatch):
+    """A ring of two slots a pair on two blocks: a strip waits a whole
+    strip's sweep (about V + 128 columns) for its slot, each wait under a
+    1 ms bound, and the heartbeat keeps them from tripping; a 1 ns bound
+    trips and raises."""
+    rng = np.random.default_rng(16)
+    M, N, V = 12_000, 11_900, 4096
+    s1, s2, ms, ns = _banded_batch(rng, [M], [N], M, N)
+    sc = Scores()
+    want = gb.gotoh_banded_plain(s1.to(cuda), s2.to(cuda), ms, ns, sc, V)
+    off, _, _ = gb.plan_streams(M, N, V)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 2 * 8 * gb.band_slot_width(off, ms, ns, V))
+    got = gb.fill_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, V, {"kernel": 0},
+                       max_blocks=2, spin_ns=1_000_000)
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert np.array_equal(_band_codes(got[1], ms, ns, V, M, N), _band_codes(want[1], ms, ns, V, M, N))
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        gb.fill_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, V, {"kernel": 0}, max_blocks=2,
+                     spin_ns=1)
 
 
 def test_banded_walk_kernel_matches_plain(cuda):
@@ -681,20 +739,69 @@ def test_strip_pipeline_kernel_matches_plain(cuda, is_local, st, rows, max_block
 
 
 @pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("rows", [128, 256, 512])
+def test_strip_pipeline_mid_lane_and_tiny_pairs(cuda, is_local, rows):
+    """Strips that end mid-lane (m + 1 not a multiple of 32 x RT, a lane
+    with some rows past m), one-row, one-column and empty pairs, at each
+    timed strip height on a capped grid."""
+    rng = np.random.default_rng(60 + rows)
+    ms, ns = [rows + 5, 1, 0, 3 * rows - 40, 17, 2, rows], [rows - 3, 0, 9, 450, 1, 1, 0]
+    s1, s2, ms, ns = _stream_batch(rng, ms, ns, 3 * rows, 512)
+    sc = Scores(2, -3, -2, -4, -1)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, 7)
+    got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, rows, 5)
+    torch.cuda.synchronize()
+    _same_scores(got, want)
+
+
+@pytest.mark.parametrize("rows", [32, 256])
+def test_strip_pipeline_local_ties_keep_last(cuda, rows):
+    """Local ties across a lane's rows and across strips: repeats give
+    equal bests on many rows and columns, and the kernel keeps the
+    row-major last one, as the plain version does."""
+    unit = np.frombuffer(b"ACGTTGCA", np.uint8)
+    s1 = torch.from_numpy(np.tile(unit, 80)[None, :600].copy())
+    s2 = torch.from_numpy(np.tile(unit, 20)[None, :150].copy())
+    s1 = torch.cat([s1, torch.from_numpy(np.tile(unit[::-1], 80)[None, :600].copy())])
+    s2 = torch.cat([s2, s2])
+    ms, ns = np.array([600, 599]), np.array([150, 149])
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, Scores(), True, 64)
+    got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), True, rows, 3)
+    torch.cuda.synchronize()
+    _same_scores(got, want)
+
+
+def test_strip_pipeline_tight_ring_waits_are_no_fault(cuda, monkeypatch):
+    """Two ring slots for a pair of 40 strips on two blocks: slot waits of
+    a whole sweep each pass under a 1 ms bound (the heartbeat), and a 1 ns
+    bound trips and raises."""
+    rng = np.random.default_rng(62)
+    s1, s2, ms, ns = _stream_batch(rng, [1279], [9000], 1280, 9000)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 2 * 8 * 9001)
+    want = gp.gotoh_strips_plain(s1, s2, ms, ns, Scores(), False, 256)
+    got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), False, 32, 2,
+                          spin_ns=1_000_000)
+    _same_scores(got, want)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), False, 32, 2, spin_ns=1)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
 def test_strip_pipeline_splits_a_tight_ring(cuda, monkeypatch, is_local):
     """A ring of five slots for seven pairs of up to 11 strips on a 3-block
     grid: the bucket runs as three launches, every pair of three or more
     strips on two or more slots, and equals the plain version."""
     rng = np.random.default_rng(58)
     s1, s2, ms, ns = _stream_batch(rng, STRIP_MS, STRIP_NS, 768, 768)
-    monkeypatch.setattr(gp, "RING_BYTES", 5 * 8 * 769)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 5 * 8 * 769)
     sc = Scores(2, -3, -2, -4, -1)
     want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, 64)
     before = gp.COUNTS["kernel"]
     got = gp._pallas_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, 64, 3)
     torch.cuda.synchronize()
     _same_scores(got, want)
-    assert gp.COUNTS["kernel"] == before + len(gp.pipeline_groups(ms, 768, 64)) == before + 3
+    groups = gp.pipeline_groups(ms, 768, 64)
+    assert gp.COUNTS["kernel"] == before + len(groups) == before + 3
 
 
 @pytest.mark.parametrize("route", ["segmented", "stream8", "pallas", "stream"])
@@ -778,7 +885,7 @@ def test_tile_kernel_matches_tile_fill(cuda, is_local, st, R, max_blocks):
 
 
 @pytest.mark.parametrize("is_local", [False, True])
-@pytest.mark.parametrize("R", [64, 4096])
+@pytest.mark.parametrize("R", [64, 300, 4096])
 def test_blocked_kernel_matches_plain(cuda, is_local, R):
     """K16 (the strip pipeline at a strip height from R) == the plain
     strips at R-row strips, on its own launch count."""

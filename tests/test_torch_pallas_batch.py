@@ -91,7 +91,8 @@ def test_strips_plain_heights_agree_on_a_larger_batch():
 
 def test_pipeline_plan_levels_and_ring():
     """Tickets level by level, pairs by strip count; ring slots from the
-    grid, capped by ``RING_BYTES``."""
+    grid, capped by the warp pipeline's ring budget (``PIPE_RING_BYTES``,
+    the plan's default)."""
     ms, ns = np.array([600, 10, 255, 256]), np.array([5, 6, 7, 8])
     plan, nlevels, total, blocks, nslots = gp.pipeline_plan(ms, ns, 64, 256, resident=4)
     strips = [3, 1, 1, 2]
@@ -106,8 +107,53 @@ def test_pipeline_plan_levels_and_ring():
     assert list(by_strips) == [0, 3, 1, 2]
     assert list(slots) == [min(s - 1, 2) for s in strips] and nslots == 3
     _, _, _, _, capped = gp.pipeline_plan(np.array([1 << 20]), np.array([1 << 20]), 1 << 20,
-                                          256, resident=1000)
-    assert capped == gp.RING_BYTES // (8 * ((1 << 20) + 1))
+                                          256, resident=5000)
+    assert capped == gp.PIPE_RING_BYTES // (8 * ((1 << 20) + 1))
+
+
+@pytest.mark.parametrize("Lm,rows,want", [
+    (0, 256, 32), (31, 256, 32), (32, 256, 64), (100, 256, 128), (200, 256, 256),
+    (300, 256, 256), (300, 512, 512), (8191, 256, 256), (700, 32, 32), (700, 64, 64),
+])
+def test_pipe_rows_are_compiled_heights(Lm, rows, want):
+    """The warp-strip pipeline's strip height is 32 x RT for a compiled RT
+    (1, 2, 4, 8, 16): the asked height, or the least that holds a short
+    bucket's Lm + 1 rows."""
+    got = gp.pipe_rows(Lm, rows)
+    assert got == want and got // 32 in gp.LANE_ROWS and got % 32 == 0
+    assert gp.strip_height(Lm + 1) >= min(Lm + 1, gp.PIPE_MAX_ROWS)
+
+
+def test_pipeline_plan_band_rows_from_one():
+    """The band fill's plan counts rows 1..m (ceil(m / H) strips, not
+    (m + H) // H); ring slots a pair stay min(strips - 1, k)."""
+    ms, ns = np.array([512, 513, 1, 1024, 1600]), np.array([500, 510, 1, 1000, 1600])
+    plan, nlevels, total, blocks, nslots = gp.pipeline_plan(ms, ns, 2559, 512, resident=6,
+                                                            row0=1)
+    strips = [1, 2, 1, 2, 4]
+    assert list(gp.strip_counts(ms, 512, 1)) == strips
+    assert (nlevels, total, blocks) == (4, 10, 6)
+    B = 5
+    slots = plan[5 * B + 2 + nlevels :]
+    k = -(-blocks // B) + 1
+    assert list(slots) == [min(s - 1, k) for s in strips] and nslots == sum(slots)
+    assert list(gp.strip_counts(ms, 512)) == [2, 2, 1, 3, 4]  # rows 0..m (K9)
+
+
+def test_pipeline_plan_cuts_the_grid_to_what_runs():
+    """A warp beyond the strips that can sweep at once only spins: the
+    grid is cut to min(strips, slots + 1) a pair (the 1 Mb pair at the
+    warp pipeline's ring: its slots + 1), and to ``inflight`` when given."""
+    ms, ns = np.array([1_078_175]), np.array([1_076_816])
+    Ln = 1_076_863
+    _, _, total, blocks, nslots = gp.pipeline_plan(
+        ms, ns, Ln, 256, 2772, inflight=gp.strips_in_flight(ns + 1, 0))
+    assert nslots == gp.ring_budget(Ln) == gp.PIPE_RING_BYTES // (8 * (Ln + 1)) < total - 1
+    assert blocks == nslots + 1
+    assert list(gp.strips_in_flight([29_893, 2_208], [0, 128])) == [470, 14]
+    ms, ns = np.array([1000, 1000, 50]), np.array([900, 900, 900])
+    _, _, total, blocks, _ = gp.pipeline_plan(ms, ns, 1023, 64, 100, inflight=[3, 4, 5])
+    assert total == 16 + 16 + 1 and blocks == 3 + 4 + 1
 
 
 def test_pipeline_groups_keep_two_slots_a_pair(monkeypatch):
@@ -115,7 +161,7 @@ def test_pipeline_groups_keep_two_slots_a_pair(monkeypatch):
     into launches that can; no pair of three or more strips gets one slot
     (its strips would write the slot they read)."""
     Ln, rows = 767, 64
-    monkeypatch.setattr(gp, "RING_BYTES", 5 * 8 * (Ln + 1))  # five slots
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 5 * 8 * (Ln + 1))  # five slots
     ms = np.array([700, 0, 130, 1, 257, 700, 513])  # 11, 1, 3, 1, 5, 11, 9 strips
     groups = gp.pipeline_groups(ms, Ln, rows)
     assert groups == [(0, 4), (4, 6), (6, 7)]
@@ -126,10 +172,10 @@ def test_pipeline_groups_keep_two_slots_a_pair(monkeypatch):
         assert nslots <= 5
     assert got == [[2, 0, 2, 0], [2, 2], [4]]
     assert gp.pipeline_groups(np.array([10, 20]), Ln, rows) == [(0, 2)]  # one strip each: no slot
-    monkeypatch.setattr(gp, "RING_BYTES", 8 * (Ln + 1))
-    with pytest.raises(ValueError, match="RING_BYTES"):
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 8 * (Ln + 1))
+    with pytest.raises(ValueError, match="PIPE_RING_BYTES"):
         gp.pipeline_groups(ms, Ln, rows)
-    with pytest.raises(ValueError, match="RING_BYTES"):
+    with pytest.raises(ValueError, match="PIPE_RING_BYTES"):
         gp.pipeline_plan(ms, ms, Ln, rows, resident=3)
 
 

@@ -91,7 +91,8 @@ def test_block_plan_long_blocks_fit_the_ring(R, B):
     assert 2 <= plan.slots <= plan.strips - 1
     assert _ring_bytes(plan, B) <= gp.RING_BYTES
     if B > 100_000:
-        assert plan.slots == gp.ring_budget(B) < plan.strips - 1  # the ring bounds the flight
+        # The ring bounds the flight.
+        assert plan.slots == gp.ring_budget(B, gp.RING_BYTES) < plan.strips - 1
     else:
         assert plan.slots == plan.strips - 1
 

@@ -4,23 +4,36 @@
 Inputs are made from a seed: K1 at the main path's three fills (the
 29,903 bp pair's forward fill with column checkpoints and its refill
 with dirs, one block of 30,719 rows; a 10 kb local fill with dirs), K5
-at the P = 4 tile of that pair, K9 on the whole pair, K3 on 132 pairs
-of 8,192 bp, the warp strips (K7) on 528 pairs of 2,048 bp, and the
-matrix fill (K14) on 8,192 BLOSUM62 pairs of 383 aa; global and local
-where the path has both; and the host wall of ``sharded_gotoh_score`` on
-the 29,903 bp pair at P = 1 and 4 shards of the card. Prints the card's
-name and power limit, then one JSON object: per fill the median
-CUDA-event ms of ``--reps`` runs and a checksum of its outputs (per wall
-every run, after a first), so that two builds of the kernels (two
-checkouts, run one after the other in one session on one card) can be
-compared for time and held equal for results.
+at the P = 4 tile of that pair, K9 on the whole pair (at strips of 128,
+256 and 512 rows too, and on a grid of one block: the sweep's step) and
+on a 300 kb prefix and the whole of ``chip_smoke.py``'s 1,078,175 bp
+planted pair (that also at a 2 GiB ring), K16 on 4 planted copies of a
+155 kb genome (strips of 128, 256 and 512 rows) and on their first 300
+rows (phase 31's slice: at 128, 256 and 512 rows a strip, and on one
+block at 256 and 512), K3 on 132 pairs of
+8,192 bp, the warp strips (K7) on 528 pairs of 2,048 bp, the matrix fill
+(K14) on 8,192 BLOSUM62 pairs of 383 aa, the banded fill K10 on the
+29,903 bp pair at band 2048 (also on one block, where the build takes
+it) and on the 1 Mb pair, and
+K12 on 16 mutated copies of the 29,903 bp one; global and local where
+the path has both; and the host walls of ``align_banded`` on the 1 Mb
+pair and of ``sharded_gotoh_score`` on the 29,903 bp pair at P = 1 and
+4 shards of the card. Prints the card's name
+and power limit, then one JSON object: per fill the median CUDA-event ms
+of ``--reps`` runs and a checksum of its outputs (per wall every run,
+after a first; for a banded fill the codes of the true in-band cells
+only, the contract), so that two builds of the kernels (two checkouts,
+run one after the other on one card, in one run) can be compared for
+time and held equal for results. ``--only`` keeps the fills whose name
+holds one of its words.
 
-    python3 tools/time_fills.py [--reps 5]
+    python3 tools/time_fills.py [--reps 5] [--only K9 K10]
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -35,7 +48,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
-    reps = ap.parse_args().reps
+    ap.add_argument("--only", nargs="*", default=None)
+    args = ap.parse_args()
+    reps = args.reps
+
+    def wanted(name: str) -> bool:
+        return args.only is None or any(w in name for w in args.only)
 
     import torch
 
@@ -47,6 +65,8 @@ def main() -> None:
 
     from genomics_rs_tpu_torch.config import Scores
     from genomics_rs_tpu_torch.ops import _build
+    from genomics_rs_tpu_torch.ops import gotoh_banded as gb
+    from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
     from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
     from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
     from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
@@ -108,6 +128,8 @@ def main() -> None:
     out = {}
 
     def k1(name, a, b, R, L, is_local, dirs, cols):
+        if not wanted(name):
+            return
         s1, s2 = padded(a, R, 0xFE), padded(b, L, PAD_S2)
         top = global_boundary_top(0, L, sc, device=dev)
         run = lambda: rb.launch(s1, s2, top, None, len(a), len(b), 0, 0, sc, is_local,  # noqa: E731
@@ -131,6 +153,8 @@ def main() -> None:
     top = global_boundary_top(T4, T4, sc, device=dev)
     left = global_boundary_left(T4, T4, sc, device=dev)
     for is_local in (False, True):
+        if not wanted(f"K5 P=4 tile local={is_local}"):
+            continue
         run = lambda: gp.gotoh_tile_pallas(s1, s2, top, left, len(a30), len(b30), T4, T4,  # noqa: E731
                                            sc, is_local, emit_dirs=False, emit_bottom=True,
                                            emit_right=True)
@@ -146,13 +170,145 @@ def main() -> None:
 
     pair = (padded(a30, round_up(len(a30), 128), 0xFE)[None],
             padded(b30, L30, PAD_S2)[None], np.array([len(a30)]), np.array([len(b30)]))
-    cases = (("K9 29.9 kb pair", gp.gotoh_scores_pallas_batch, pair),
-             ("K3 132 x 8192", gs.gotoh_scores_stream, batch(132, 8192)),
-             ("K7 528 x 2048", gseg.gotoh_scores_segmented, batch(528, 2048)))
-    for name, fn, args in cases:
-        for is_local in (False, True):
-            run = lambda: fn(*args, sc, is_local)  # noqa: E731
+    # The 1,078,175 bp planted pair of chip_smoke.py (phases 17 and 25), cut
+    # to its first 300 kb; K16's batch of phase 30.
+    import chip_smoke
+
+    mrng = np.random.default_rng(12_2048)
+    genome = acgt[mrng.integers(0, 4, chip_smoke.GENOME_BP)].tobytes().decode()
+    while True:
+        planted, _ = chip_smoke.planted_copy(mrng, genome, sc)
+        if len(planted) <= len(genome):
+            break
+    pre = 300_000
+    g3 = np.frombuffer(genome[:pre].encode(), np.uint8)
+    p3 = np.frombuffer(planted[:pre].encode(), np.uint8)
+    prefix = (padded(g3, pre, 0xFE)[None], padded(p3, pre, PAD_S2)[None], np.array([pre]),
+              np.array([pre]))
+    brng = np.random.default_rng(3030)
+    bgen = acgt[brng.integers(0, 4, chip_smoke.BLOCKED_LEN)].tobytes().decode()
+    bcopies = [chip_smoke.planted_copy(brng, bgen, sc)[0] for _ in range(chip_smoke.BLOCKED_B)]
+    Lk1, Lk2 = round_up(len(bgen), 128), round_up(max(len(c) for c in bcopies), 128)
+    blocked = (torch.stack([padded(np.frombuffer(bgen.encode(), np.uint8), Lk1, 0xFE)] * 4),
+               torch.stack([padded(np.frombuffer(c.encode(), np.uint8), Lk2, PAD_S2)
+                            for c in bcopies]),
+               np.full(4, len(bgen)), np.array([len(c) for c in bcopies]))
+    cases = [("K9 29.9 kb pair", gp.gotoh_scores_pallas_batch, pair, (False, True)),
+             ("K9 300 kb prefix", gp.gotoh_scores_pallas_batch, prefix, (False,)),
+             ("K16 4 x 155 kb R=4096", gp.gotoh_scores_blocked, blocked, (False,))]
+    for r in (128, 256, 512):
+        cases.append((f"K9 29.9 kb pair rows={r}", lambda *a, r=r: gp._pallas_cuda(
+            *a, rows_per_strip=r), pair, (False, True)))
+        cases.append((f"K16 4 x 155 kb R={r}", lambda *a, r=r: gp.gotoh_scores_blocked(
+            *a, R=r), blocked, (False,)))
+    # One warp at a time (a grid of one block): the step time of the sweep.
+    cases.append(("K9 29.9 kb pair rows=256 blocks=1", lambda *a: gp._pallas_cuda(
+        *a, rows_per_strip=256, max_blocks=1), pair, (False,)))
+    # Phase 31's slice: the K16 batch's first 300 rows, at each strip height
+    # (1, 2 or 3 strips a pair) and one warp at a time.
+    SLICE_ROWS = 300
+    Lc = round_up(SLICE_ROWS, 128)
+    k16_cut = (blocked[0][:, :Lc].contiguous(), blocked[1], np.minimum(blocked[2], SLICE_ROWS),
+               blocked[3])
+    for r in (128, 256, 512):
+        cases.append((f"K16 300 rows x 155 kb R={r}", lambda *a, r=r: gp.gotoh_scores_blocked(
+            *a, R=r), k16_cut, (False,)))
+    for r in (256, 512):
+        cases.append((f"K16 300 rows x 155 kb R={r} blocks=1", lambda *a, r=r: gp._pallas_cuda(
+            *a, rows_per_strip=gp.blocked_rows(r), max_blocks=1), k16_cut, (False,)))
+    # The whole 1,078,175 bp planted pair (phase 25's), at the card's ring
+    # budget and at 2 GiB (the attribute a build's K9 plans its ring by).
+    g1 = np.frombuffer(genome.encode(), np.uint8)
+    p1 = np.frombuffer(planted.encode(), np.uint8)
+    whole = (padded(g1, round_up(len(g1), 128), 0xFE)[None],
+             padded(p1, round_up(len(p1), 128), PAD_S2)[None], np.array([len(g1)]),
+             np.array([len(p1)]))
+    ring_attr = "PIPE_RING_BYTES" if hasattr(gp, "PIPE_RING_BYTES") else "RING_BYTES"
+
+    def ring_2g(*a):
+        old = getattr(gp, ring_attr)
+        setattr(gp, ring_attr, 2 << 30)
+        try:
+            return gp.gotoh_scores_pallas_batch(*a)
+        finally:
+            setattr(gp, ring_attr, old)
+
+    cases += [("K9 1 Mb pair", gp.gotoh_scores_pallas_batch, whole, (False,)),
+              ("K9 1 Mb pair ring=2GiB", ring_2g, whole, (False,))]
+    cases += [("K3 132 x 8192", gs.gotoh_scores_stream, batch(132, 8192), (False, True)),
+              ("K7 528 x 2048", gseg.gotoh_scores_segmented, batch(528, 2048), (False, True))]
+    for name, fn, inputs, modes in cases:
+        for is_local in modes:
+            if not wanted(f"{name} local={is_local}"):
+                continue
+            run = lambda: fn(*inputs, sc, is_local)  # noqa: E731
             out[f"{name} local={is_local}"] = {"ms": cuda_ms(run), "sum": checksum(*run())}
+
+    # The banded fills: K10 on the 29.9 kb pair, K12 on 16 mutated copies,
+    # both at band 2048; the checksum reads the codes of true in-band cells.
+    V = 2048
+
+    def band_sum(score, dirs, ms, ns, M, N) -> int:
+        total = int(score.long().sum())
+        v = torch.arange(V, device=dev)[None, :]
+        for p in range(len(ms)):
+            for r0 in range(0, int(ms[p]), 4096):
+                r = np.arange(r0, min(int(ms[p]), r0 + 4096))
+                off = torch.from_numpy(gb.band_offset(r + 1, M, N, V)).to(dev)[:, None]
+                rows = torch.from_numpy(r).to(dev)
+                codes = (dirs[p][rows // 16].long() >> (2 * (rows % 16))[:, None]) & 3
+                total += int((codes * (off + v + 1 <= int(ns[p]))).sum())
+        return total
+
+    s1b, s2b = padded(a30, round_up(len(a30), 128), 0xFE), padded(b30, max(L30, V), PAD_S2)
+    if wanted("K10 29.9 kb V=2048"):
+        run = lambda: gb.gotoh_banded(s1b, s2b, len(a30), len(b30), sc, V)  # noqa: E731
+        score, dirs = run()
+        out["K10 29.9 kb V=2048"] = {"ms": cuda_ms(run), "sum": band_sum(
+            torch.tensor([score]), dirs[None], [len(a30)], [len(b30)], len(a30), len(b30))}
+    if wanted("K10 1 Mb V=2048"):
+        g1b = padded(g1, round_up(len(g1), 128), 0xFE)
+        p1b = padded(p1, max(round_up(len(p1), 128), V), PAD_S2)
+        run = lambda: gb.gotoh_banded(g1b, p1b, len(g1), len(p1), sc, V)  # noqa: E731
+        score, _ = run()
+        out["K10 1 Mb V=2048"] = {"ms": cuda_ms(run), "sum": score}
+    if wanted("align_banded 1 Mb wall"):
+        from genomics_rs_tpu_torch.models.banded import align_banded
+        from genomics_rs_tpu_torch.sequence import Sequence
+
+        gs_, ps_ = Sequence("g", genome), Sequence("p", planted)
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aln = align_banded(gs_, ps_, sc, band=V, device="cuda")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["align_banded 1 Mb wall"] = {"ms": walls[1:], "sum": aln.score}
+    # One warp of the band sweep at a time (a grid of one block; a build
+    # whose fill takes it).
+    one_block = "max_blocks" in inspect.signature(gb.fill_cuda).parameters
+    if one_block and wanted("K10 29.9 kb V=2048 blocks=1"):
+        run = lambda: gb.fill_cuda(s1b[None], s2b[None], [len(a30)], [len(b30)], sc, V,  # noqa: E731
+                                   {"kernel": 0}, max_blocks=1)
+        score, dirs = run()
+        out["K10 29.9 kb V=2048 blocks=1"] = {"ms": cuda_ms(run), "sum": band_sum(
+            score, dirs, [len(a30)], [len(b30)], len(a30), len(b30))}
+    copies = []
+    for _ in range(16):  # 1%-mutated copies of a30, 0-39 bp shorter than b30
+        c = a30[: len(b30) - int(rng.integers(0, 40))].copy()
+        snp = rng.random(len(c)) < 0.01
+        c[snp] = acgt[rng.integers(0, 4, int(snp.sum()))]
+        copies.append(c)
+    if wanted("K12 16 x 29.9 kb V=2048"):
+        bms = np.full(16, len(a30))
+        bns = np.array([len(c) for c in copies])
+        k1b = torch.stack([s1b] * 16)
+        k2b = torch.stack([padded(c, max(L30, V), PAD_S2) for c in copies])
+        run = lambda: gbb.gotoh_banded_batch(k1b, k2b, bms, bns, sc, V)  # noqa: E731
+        groups = run()
+        out["K12 16 x 29.9 kb V=2048"] = {"ms": cuda_ms(run), "sum": band_sum(
+            torch.cat([g.score for g in groups]), torch.cat([g.dirs for g in groups]), bms, bns,
+            groups[0].M, groups[0].N)}
 
     mx = blosum62()
     aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
@@ -161,6 +317,8 @@ def main() -> None:
     p2 = torch.from_numpy(aa[rng.integers(0, 20, (B, L))]).to(dev)
     ms = ns = np.full(B, L)
     for is_local in (False, True):
+        if not wanted(f"K14 8192 x 383 aa local={is_local}"):
+            continue
         run = lambda: gm.gotoh_matrix_fill(p1, p2, ms, ns, mx, -1, -11, is_local,  # noqa: E731
                                            route="stream")
         res = run()
@@ -172,6 +330,8 @@ def main() -> None:
     from genomics_rs_tpu_torch.sequence import PAD_S1
 
     for P in (1, 4):
+        if not wanted(f"sharded_gotoh_score P={P} wall"):
+            continue
         R, Ln = round_up(len(a30), 128 * P) // P, round_up(len(b30), 128 * P)
         s1e = torch.from_numpy(np.full(R * P, PAD_S1, np.uint8))
         s1e[: len(a30)] = torch.from_numpy(a30)
