@@ -26,9 +26,11 @@ Phases, one line each:
   5  kernel and plain-version times at the main path's shapes (K1's three
      fills at 128, 256 and 512 rows a strip), and the wall time of the
      29,903 bp ``align``
-  6  K3 (batched fill) kernel == its plain version, on the card: small
-     mixed-length batches (global/local, classic/kimura, B = 1, empty
-     sequences, dirs at every true cell), the full 55-pair corpus of 10
+  6  K3 (batched fill on the warp-strip pipeline) kernel == its plain
+     version, on the card: small mixed-length batches (global/local,
+     classic/kimura, B = 1, empty sequences, dirs at every true cell; at
+     the path's strip height and at every compiled one on 3 blocks), the
+     full 55-pair corpus of 10
      x 29,900 bp genomes (bench.py's synthetic recipe) in global mode and
      a 4-genome subset in local mode
   7  ``allpairs_scores(device="cuda")`` on the corpus, global and local,
@@ -61,8 +63,8 @@ Phases, one line each:
      (>= 49 recovered, no false call); K6, ``walk_rows16``, K3 and K4
      launched, no plain version; then ``call``'s first K3 + K4 round
      (4,096 reads, 256 x 384, local) is replayed from its recorded inputs:
-     K3 dirs == plain (codes at every true cell) and the diag16 walks
-     (K4) == plain
+     K3 dirs == plain (codes at every true cell), 64 reads' scores == the
+     C++ oracle, and the diag16 walks (K4) == plain
  14  K6 / ``walk_rows16`` / call-round K3 and K4 kernel times (median of 3,
      CUDA events), plain times and bounds, and K4's device and host time on
      that round from one ``torch.profiler`` capture and from its launch alone
@@ -100,7 +102,8 @@ Phases, one line each:
  20  the matrix fill (K13 and K14; one kernel) == its plain version: the
      small batches global and local (zero lengths, B = 1, codes at every
      true cell), 256 pairs of the 383 aa batch global and local with dirs,
-     and the ``dna_matrix`` bridge == K3 (classic/kimura, dirs)
+     every compiled strip height on 3 blocks, and the ``dna_matrix``
+     bridge == K3's plain version (classic/kimura, dirs)
  21  the protein path at real size (launch counters reset just before it),
      BLOSUM62 at h = -11, g = -1: ``gotoh_scores_matrix`` on bench.py's
      1,024 x 192-384 aa and 32,768 x 383 aa batches (global and local; 512
@@ -123,24 +126,26 @@ Phases, one line each:
      grid, so tickets and ring slots cycle, and on a ring of five slots,
      which splits the batch into launches of two or more slots a pair),
      then a sweep of B in {1, 8, 32, 132, 528} x L in {512, 2048, 8192},
-     global and local: K3, the warp-strip kernel and the pipeline on every
-     bucket, all equal, each one's time (median of 3, CUDA events), cells/s
-     and bound
+     global and local: K3 and K9 (both on the pipeline) == the warp-strip
+     kernel on every pair and == the C++ oracle on each bucket's first and
+     last pairs, each one's time (median of 3, CUDA events), cells/s and
+     bound
  24  the main path of this slice from here to phase 26 (launch counters
      reset just before it; each call of the path must launch exactly the
      routes its buckets take, and the kernels' launches are the sum of
      those calls'): ``align-matrix`` (auto) on 128 seeded random genomes of
-     300-8,000 bp (8,256 pairs, every bucket on K7 or K8): its TSV ==
-     ``allpairs_scores(engine="stream")`` (K3); ``allpairs_scores`` local
-     (auto: K7) == K3's; 64 sampled scores == the C++ oracle; auto against
-     K3 end to end (``allpairs_scores`` walls)
+     300-8,000 bp (8,256 pairs, every bucket on K7 or K8) and
+     ``allpairs_scores`` local (auto: K7): 128 sampled pairs a mode, auto's
+     and K3's (``engine="stream"``) scores, == the C++ oracle, and auto ==
+     K3 on every pair; auto against K3 end to end (``allpairs_scores``
+     walls)
  25  K9 at size: phase 4's 29,903 x 29,892 bp pair through ``score_pairs``
      (auto at B = 1: "pallas") == the C++ oracle and K1;
      ``align-matrix --engine pallas`` on the 10 x 29.9 kb corpus == phase
      8's TSV; phase 17's 1,078,175 bp planted pair == its closed form;
-     then, off the path, K9 == K3 on the 29.9 kb pair (global/local), also
-     at strips of 128, 256 and 512 rows on the whole grid and on 7 blocks,
-     and each timed at B = 1
+     then, off the path, K9 and K3 == the C++ oracle on the 29.9 kb pair
+     (global/local), K9 also at strips of 128, 256 and 512 rows on the
+     whole grid and on 7 blocks, and each timed at B = 1
  26  ``reads -a global|local --engine segmented|stream8|pallas`` on phase
      10's 16,384 x 152 bp batch == ``--engine auto``'s TSV (K6); the path's
      launches by route, no plain version; then each route (K7, K8, K9) ==
@@ -206,6 +211,9 @@ TEST_SCORES = (1, -2, -2, -5)
 N_GENOMES, GENOME_LEN = 10, 29_900
 #: genomes of the local-mode K3 comparison (10 pairs).
 LOCAL_SUBSET = 4
+#: K3's compiled strip heights (32 x RT rows), each held against the plain
+#: version in phase 6 (the matrix fill's in phase 20).
+K3_ROWS = (32, 64, 128, 256, 512)
 #: the mixed-length CLI corpus: MIXED_N genomes of MIXED_MIN..MIXED_MAX bp.
 MIXED_N, MIXED_MIN, MIXED_MAX = 12, 1_000, 5_000
 #: The read workloads at the sizes of bench.py's read rows: the
@@ -483,13 +491,17 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
             sck = Scores(2, -3, -2, -4, st)
             for group in (small, small[:1]):
                 args = batch_of(group, 640, 640)
-                got = gs.gotoh_stream_fill(*args, sck, is_local, emit_dirs=True)
                 want = gs.gotoh_stream_plain(*args, sck, is_local, emit_dirs=True)
-                err = stream_err(got, want, args[2], args[3])
-                k3_err = max(k3_err, err)
-                n_small += 1
-                check(err == 0, f"K3 kernel != plain (B={len(group)}, local={is_local}, "
-                                f"st={st}): max |err| {err}")
+                # The path's strip height, then every compiled one on 3
+                # blocks (multi-strip pairs; tickets and ring slots cycle).
+                runs = [gs.gotoh_stream_fill(*args, sck, is_local, emit_dirs=True)]
+                runs += [gs._stream_cuda(*args, sck, is_local, True, r, 3) for r in K3_ROWS]
+                for rows, got in zip((None,) + K3_ROWS, runs):
+                    err = max(stream_err(got, want, args[2], args[3]), int(got.err))
+                    k3_err = max(k3_err, err)
+                    n_small += 1
+                    check(err == 0, f"K3 kernel != plain (B={len(group)}, local={is_local}, "
+                                    f"st={st}, rows={rows}): max |err| {err}")
 
     genomes = corpus_genomes()
     seqs = [Sequence(n, s) for n, s in genomes]
@@ -512,7 +524,8 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
     del want
     print(f"[phase 6] K3 kernel == plain on {n_small} small fills (640 x 640 bucket, "
           f"global/local, classic/kimura, B = 1, empty sequences, dirs at every true "
-          f"cell), the {len(all_pairs)}-pair {N} x {GENOME_LEN} bp corpus global "
+          f"cell; the path's strip height and strips of {', '.join(map(str, K3_ROWS))} rows "
+          f"on 3 blocks), the {len(all_pairs)}-pair {N} x {GENOME_LEN} bp corpus global "
           f"(plain {k3_plain_ms:.0f} ms) and {len(sub_pairs)} pairs local (plain "
           f"{k3_plain_local_ms:.0f} ms); max |err| {k3_err} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
@@ -1129,6 +1142,15 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         check(k3_call_err == 0, f"K3 dirs kernel != plain on call's first round ({CB} reads, "
                                 f"{CL1} x {CL2}): max |err| {k3_call_err}")
         del want
+        # ... and its scores and start cells == the C++ oracle on 64 of its reads.
+        pick = np.linspace(0, CB - 1, 64).astype(int)
+        with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+            oracle = list(pool.map(lambda t: native.gotoh_score_cpu(
+                s1c[t, : ms_c[t]].tobytes().decode(), s2c[t, : ns_c[t]].tobytes().decode(),
+                sc_c, loc_c), pick))
+        got3 = [tuple(int(x[t]) for x in k3_call[:3]) for t in pick]
+        bad = [(int(t), g, tuple(o)) for t, g, o in zip(pick, got3, oracle) if g != tuple(o)]
+        check(not bad, f"K3 on call's first round != the C++ oracle: {bad[:3]}")
         si_c, sj_c = (x.cpu().numpy().astype(np.int64) for x in k3_call[1:3])
         walk_c = lambda: tb.walk_batch(k3_call.dirs, si_c, sj_c, sc_c, loc_c,  # noqa: E731
                                        "diag16", steps_c)
@@ -1142,7 +1164,8 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         del want
         print(f"[phase 13] call's first round replayed ({CB} reads, {CL1} x {CL2}, "
               f"local={loc_c}): K3 dirs == plain (scores, starts, codes at every true cell; "
-              f"plain {k3_call_plain_ms:.0f} ms), {CB} diag16 walks ({k4_call_moves} moves) "
+              f"plain {k3_call_plain_ms:.0f} ms), 64 reads' scores and starts == the C++ "
+              f"oracle, {CB} diag16 walks ({k4_call_moves} moves) "
               f"K4 == plain (plain {k4_call_plain_ms:.0f} ms); max |err| 0", flush=True)
         print(f"[phase 13] read path CLI on cuda ({t_data:.1f} s to make the data): reads "
               f"{SR_B} x {SR_LEN} bp scores == K6 and 16 SAM records == PairwiseAligner.align; "
@@ -1743,10 +1766,66 @@ def protein_family(rng, n: int, length: int) -> list[tuple[str, str]]:
     return out
 
 
+class FillLaunchRecorder:
+    """Record every launch of K3 and the matrix fill until ``stop()``: its
+    device time (CUDA events around the launch itself, read later), pairs,
+    padded shape, true cells and characters, mode, codes and route. The
+    launches still count where they count."""
+
+    def __init__(self, torch, gm, gs):
+        from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+
+        self.rows, self._pending, ctx = [], [], {}
+        self._undo = [(gm, "run_matrix", gm.run_matrix), (gs, "run_stream", gs.run_stream),
+                      (gp, "launch_groups", gp.launch_groups)]
+        real_matrix, real_stream, real_groups = (x[2] for x in self._undo)
+
+        def run_matrix(lib, code1, prof, ms_h, ns_h, g, h, is_local, emit_dirs, route, *a):
+            ctx.update(route=route, local=is_local, dirs=emit_dirs, Lm=code1.shape[1],
+                       Ln=prof.shape[2])
+            return real_matrix(lib, code1, prof, ms_h, ns_h, g, h, is_local, emit_dirs, route, *a)
+
+        def run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, *a):
+            ctx.update(route="stream", local=is_local, dirs=emit_dirs, Lm=s1eb.shape[1],
+                       Ln=s2eb.shape[1])
+            return real_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, *a)
+
+        def launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what):
+            if what not in ("gotoh_matrix", "gotoh_stream"):
+                return real_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what)
+
+            def timed_launch(lo, hi, *rest):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = launch(lo, hi, *rest)
+                e1.record()
+                m = np.asarray(ms_h[lo:hi], np.float64)
+                n = np.asarray(ns_h[lo:hi], np.float64)
+                self._pending.append((e0, e1, dict(
+                    ctx, what=what, B=hi - lo, rows=rows, cells=float(np.sum(m * n)),
+                    chars=float(np.sum(m + n)))))
+                return out
+
+            return real_groups(timed_launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what)
+
+        gm.run_matrix, gs.run_stream, gp.launch_groups = run_matrix, run_stream, launch_groups
+
+    def stop(self) -> None:
+        """Put the wrappers back and read the events."""
+        for mod, name, fn in self._undo:
+            setattr(mod, name, fn)
+        for e0, e1, row in self._pending:
+            e1.synchronize()
+            self.rows.append(dict(row, ms=e0.elapsed_time(e1)))
+        self._pending.clear()
+
+
 def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     """Phases 19-22: the protein path (``--matrix``) and ``msa`` on the
     query-profile kernel (K15) and the matrix fill (K13/K14). Returns their
     rows of the summary line."""
+    from collections import Counter
+
     from genomics_rs_tpu_torch import cli, native
     from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
     from genomics_rs_tpu_torch.config import Scores
@@ -1893,18 +1972,34 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     for is_local in (False, True):
         for st in (None, -1):
             sck = Scores(2, -3, -2, -4, st)
-            want = gs.gotoh_stream_fill(d1, d2, dms, dns, sck, is_local, emit_dirs=True)
+            want = gs.gotoh_stream_plain(d1, d2, dms, dns, sck, is_local, emit_dirs=True)
             got = gm.gotoh_matrix_fill(d1, d2, dms, dns, subst.dna_matrix(sck), sck.g, sck.h,
                                        is_local, emit_dirs=True)
             err = fill_err(got, want, dms, dns)
             fill_errs.append(err)
-            check(err == 0, f"dna_matrix bridge != K3 (local={is_local}, st={st}): {err}")
+            check(err == 0, f"dna_matrix bridge != K3's plain version (local={is_local}, "
+                            f"st={st}): {err}")
+    # Every compiled strip height on 3 blocks, on the 383-aa pairs and the
+    # zero-length batch, with dirs.
+    for rows in K3_ROWS:
+        for is_local in (False, True):
+            for s1, s2, ms, ns in ((a1[:16], a2[:16], ams[:16], ams[:16]), small["blosum62"]):
+                code1, prof = gm.row_codes(s1, b62), gm.matrix_profile_plain(s2, ns, b62)
+                got = gm._matrix_cuda(code1, prof, ms, ns, PROT_G, PROT_H, is_local, True,
+                                      "stream", rows, 3)
+                want = gm.matrix_fill_plain(code1, prof, ms, ns, PROT_G, PROT_H, is_local, True)
+                err = max(fill_err(got, want, ms, ns), int(got.err))
+                fill_errs.append(err)
+                n_small += 1
+                check(err == 0, f"matrix fill at {rows} rows a strip (3 blocks) != plain "
+                                f"(local={is_local}): max |err| {err}")
     fill_err_max = max(fill_errs)
     print(f"[phase 20] matrix fill kernel == plain on {n_small} small fills ({len(mats)} "
           f"matrices, global/local, zero lengths, B = 1, codes at every true cell) and on "
           f"{PROT_ALIGN_B} x {PROT_STREAM_L} aa global and local with dirs (plain "
-          f"{plain_ms[False]:.0f} / {plain_ms[True]:.0f} ms); the dna_matrix bridge == K3 "
-          f"(classic/kimura, global/local, dirs); max |err| {fill_err_max} "
+          f"{plain_ms[False]:.0f} / {plain_ms[True]:.0f} ms), at every strip height "
+          f"({', '.join(map(str, K3_ROWS))} rows, 3 blocks); the dna_matrix bridge == K3's "
+          f"plain version (classic/kimura, global/local, dirs); max |err| {fill_err_max} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # ---- phase 21: the protein path at real size ----
@@ -1914,6 +2009,7 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
         for key in mod.COUNTS:
             mod.COUNTS[key] = 0
     walls = {}
+    fill_launches = FillLaunchRecorder(torch, gm, gs)
     p1, p2 = on_card(data["p1"], data["p2"])
     pms, pns = data["pms"], data["pns"]
     results = {}
@@ -1985,9 +2081,13 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
             walls[f"cli {name}"] = time.perf_counter() - t0
             check(rc == 0, f"the CLI {name} exited {rc}")
             stdout[name] = out.getvalue()
+        fill_launches.stop()
         launches = {k: v for k, v in gm.COUNTS.items() if k.endswith("kernel")}
         launches.update(walk_many=tw.COUNTS["many_kernel"], traceback_walk=tw.COUNTS["kernel"],
                         gotoh_stream=gs.COUNTS["kernel"])
+        check(sum(1 for r in fill_launches.rows if r["what"] == "gotoh_matrix")
+              == launches["pallas_kernel"] + launches["stream_kernel"],
+              "the recorder missed a matrix fill launch")
         plain = (sum(v for k, v in gm.COUNTS.items() if k.endswith("plain"))
                  + gs.COUNTS["plain"] + gsr.COUNTS["plain"] + tw.COUNTS["many_plain"]
                  + td.COUNTS["plain"] + tb.COUNTS["plain"])
@@ -2120,11 +2220,11 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     fill_ms = {}
     for is_local in (False, True):
         fill_ms["stream", is_local] = cuda_ms(lambda: gm.matrix_fill(
-            code_u1, prof_big, uns, uns, PROT_G, PROT_H, is_local, route="stream"), 3)
+            code_u1, prof_big, uns, uns, PROT_G, PROT_H, is_local, route="stream"), 5)
         fill_ms["batch", is_local] = cuda_ms(lambda: gm.matrix_fill(
-            code_p1, prof_p, pms, pns, PROT_G, PROT_H, is_local), 3)
+            code_p1, prof_p, pms, pns, PROT_G, PROT_H, is_local), 5)
     fill_ms["dirs"] = cuda_ms(lambda: gm.matrix_fill(
-        code_a1, prof_a, ams, ams, PROT_G, PROT_H, False, True, "stream"), 3)
+        code_a1, prof_a, ams, ams, PROT_G, PROT_H, False, True, "stream"), 5)
     k4_ms = cuda_ms(lambda: tw.walk_many(flat, *wargs), 3)
     sub_ms = {}
     for is_local in (False, True):
@@ -2151,6 +2251,30 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     k4_bound = bound(4 * k4_words + k4_moves / 4 + 36 * PROT_ALIGN_B, OPS_PER_MOVE * k4_moves,
                      rate)
     rate_of = lambda cells, ts: cells / med(ts) * 1e3  # noqa: E731
+    # Every fill launch of phase 21's path, timed where it ran (CUDA events
+    # around the launch), against its own bound: launches x (time - bound).
+    per_route = {}
+    for r in fill_launches.rows:
+        key = (r["what"], r["route"])
+        if r["what"] == "gotoh_matrix":
+            b = fill_bound(r["B"], r["Lm"], r["Ln"], r["cells"],
+                           "local" if r["local"] else "global", r["dirs"])
+        else:
+            b = bound(r["chars"] + 12 * r["B"] + (r["cells"] / 4 if r["dirs"] else 0),
+                      r["cells"] * (OPS_PER_CELL["local" if r["local"] else "global"]
+                                    + (OPS_PER_CELL["dirs"] if r["dirs"] else 0)), rate)
+        agg = per_route.setdefault(key, [0, 0.0, 0.0, Counter()])
+        agg[0] += 1
+        agg[1] += r["ms"]
+        agg[2] += b[0]
+        agg[3][(r["B"], r["Lm"], r["Ln"], r["dirs"], r["local"])] += 1
+    launch_line = "; ".join(
+        f"{what} {route}: {n} launches, {t:.3f} ms against a bound of {bd:.3f} ms "
+        f"(launches x (time - bound) {t - bd:.3f} ms; (B, Lm, Ln, dirs, local) x count "
+        + ", ".join(f"{k} x {c}" for k, c in shapes.most_common(6)) + ")"
+        for (what, route), (n, t, bd, shapes) in sorted(per_route.items()))
+    print(f"[phase 22] card {card} | phase 21's fill launches, each timed where it ran: "
+          f"{launch_line}", flush=True)
     print(f"[phase 22] card {card} | K15 profile {PROT_STREAM_B} x {PROT_STREAM_L} aa "
           f"(A = {A}): [{fmt(k15_ms)}] ms (plain {k15_plain_ms:.3f} ms, table[s2] "
           f"[{fmt(lib_ms)}] ms, bound {k15_bound[0]:.4f} ms by {k15_bound[1]}); {PROT_B} x "
@@ -2199,8 +2323,8 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
 SWEEP_B, SWEEP_L = (1, 8, 32, 132, 528), (512, 2048, 8192)
 #: phase 24's corpus: MID_N seeded random genomes of MID_MIN..MID_MAX bp
 #: (MID_N (MID_N + 1) / 2 pairs i <= j), every bucket on K7 or K8; the
-#: C++ oracle checks MID_ORACLE sampled pairs.
-MID_N, MID_MIN, MID_MAX, MID_ORACLE = 128, 300, 8_000, 64
+#: C++ oracle checks MID_ORACLE sampled pairs in each mode.
+MID_N, MID_MIN, MID_MAX, MID_ORACLE = 128, 300, 8_000, 128
 #: rows kept of a long input where a kernel is held against its plain
 #: version at the path's shape (two strips of 256 rows, every column).
 SLICE_ROWS = 300
@@ -2338,29 +2462,47 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             err["pipe"] = max(err["pipe"], e)
             check(e == 0, f"K9 (tight ring, 3 blocks) != plain (local={is_local}, st={st}): {e}")
             n_small += 1
-    sweep = []
+    # The sweep's independent side is the C++ oracle on each bucket's first
+    # and last pairs; on every pair the pipeline's K3 and K9 are held to K7's
+    # warp strips (csrc/gotoh_segmented.cu, another kernel).
+    sweep, sampled = [], []
+    kernels = (("K3", gs.gotoh_scores_stream), ("K7", gseg.gotoh_scores_segmented),
+               ("K9", gp.gotoh_scores_pallas_batch))
     for L in SWEEP_L:
         for B in SWEEP_B:
             args = random_bucket(rng, B, L, L, int(0.9 * L))
+            host = [x.cpu().numpy() for x in args[:2]]
             for is_local in (False, True):
-                ref = gs.gotoh_scores_stream(*args, sc, is_local)
-                kernels = (("K3", gs.gotoh_scores_stream), ("K7", gseg.gotoh_scores_segmented),
-                           ("K9", gp.gotoh_scores_pallas_batch))
-                for name, fn in kernels[1:]:
+                outs = {k: [x.cpu() for x in f(*args, sc, is_local)] for k, f in kernels}
+                for name in ("K3", "K9"):
                     key = "pipe" if name == "K9" else "seg"
-                    e = err_of(fn(*args, sc, is_local), ref)
+                    e = err_of(outs[name], outs["K7"])
                     err[key] = max(err[key], e)
-                    check(e == 0, f"{name} != K3 on the {B} x {L} bucket (local={is_local}): {e}")
+                    check(e == 0, f"{name} != K7 on the {B} x {L} bucket (local={is_local}): {e}")
+                for t in sorted({0, B - 1}):
+                    pair = (host[0][t, : args[2][t]].tobytes().decode(),
+                            host[1][t, : args[3][t]].tobytes().decode())
+                    sampled.append((pair, is_local, {k: tuple(int(x[t]) for x in o)
+                                                     for k, o in outs.items()}, (B, L)))
                 ts = {k: med(cuda_ms(lambda f=f: f(*args, sc, is_local), 3)) for k, f in kernels}
                 c = cells(args[2], args[3])
                 b = bound_of(args[2], args[3], is_local)
                 sweep.append((L, B, is_local, c, ts, b))
+    with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(lambda c: native.gotoh_score_cpu(*c[0], sc, c[1]), sampled))
+    for (_, is_local, got, (B, L)), o in zip(sampled, oracle):
+        for name, g in got.items():
+            e = max(abs(x - y) for x, y in zip(g, o))
+            err["pipe" if name == "K9" else "seg"] = max(err["pipe" if name == "K9" else "seg"], e)
+            check(e == 0, f"{name} != the C++ oracle on the {B} x {L} bucket "
+                          f"(local={is_local}): {g} != {tuple(o)}")
     print(f"[phase 23] card {card} | warp strips (R = {gseg.ROWS_PER_LANE}) and the warp-strip "
           f"pipeline (strips of {gp.PIPE_ROWS} rows) == plain on {n_small} small batches "
           f"(8 x 512 with empty and "
           f"one-base pairs, global/local, classic/kimura; K9 also at 32-row strips on 3 "
-          f"blocks, 4 x 1,024, and on a five-slot ring, 7 x 1,024) and == K3 on every sweep "
-          f"bucket; max |err| K7 {err['seg']}, K8 {err['s8']}, K9 {err['pipe']} "
+          f"blocks, 4 x 1,024, and on a five-slot ring, 7 x 1,024); on every sweep bucket "
+          f"K3 == K9 == K7 and {len(sampled)} sampled pairs == the C++ oracle; max |err| K7 "
+          f"{err['seg']}, K8 {err['s8']}, K9 {err['pipe']} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     for L, B, is_local, c, ts, b in sweep:
         print(f"[phase 23] {'local ' if is_local else 'global'} B {B:>3} x L {L:>4} "
@@ -2420,20 +2562,26 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             if engine == "stream":
                 ref_g = out
         ref_l = allpairs_scores(container, sc, is_local=True, engine="stream", device="cuda")
+    # The independent side: the C++ oracle on MID_ORACLE sampled pairs of
+    # each mode, for auto (K7/K8) and K3 alike; then auto == K3 on every pair.
+    pick = rng.choice(len(pairs), MID_ORACLE, replace=False)
+    sample = [(pairs[k], is_local) for k in pick for is_local in (False, True)]
+    with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
+        oracle = list(pool.map(lambda c: native.gotoh_score_cpu(
+            seqs[c[0][0]].sequence, seqs[c[0][1]].sequence, sc, c[1])[0], sample))
+    for ((i, j), is_local), o in zip(sample, oracle):
+        auto = loc.matrix[j, i] if is_local else int(mrows[j][1 + i])
+        k3 = (ref_l if is_local else ref_g).matrix[j, i]
+        e = max(abs(int(auto) - o), abs(int(k3) - o))
+        err["seg" if is_local else "s8"] = max(err["seg" if is_local else "s8"], e)
+        check(e == 0, f"mid corpus pair ({i}, {j}) local={is_local}: auto {auto}, K3 {k3} != "
+                      f"oracle {o}")
     e = max(abs(int(mrows[j][1 + i]) - int(ref_g.matrix[j, i])) for i, j in pairs)
     err["s8"] = max(err["s8"], e)
     check(e == 0, f"align-matrix (auto) TSV != K3's allpairs_scores: max |err| {e}")
     e = int(np.abs(loc.matrix - ref_l.matrix).max())
     err["seg"] = max(err["seg"], e)
     check(e == 0, f"allpairs_scores local (auto) != K3's: max |err| {e}")
-    pick = rng.choice(len(pairs), MID_ORACLE, replace=False)
-    sample = [(pairs[k], k % 4 == 0) for k in pick]
-    with ThreadPoolExecutor(8) as pool:  # ctypes drops the GIL
-        oracle = list(pool.map(lambda c: native.gotoh_score_cpu(
-            seqs[c[0][0]].sequence, seqs[c[0][1]].sequence, sc, c[1])[0], sample))
-    for ((i, j), is_local), o in zip(sample, oracle):
-        got = (loc if is_local else ref_g).matrix[j, i]
-        check(int(got) == o, f"mid corpus pair ({i}, {j}) local={is_local}: {got} != oracle {o}")
     # The largest bucket, for the K7 (local) and K8 (global) times.
     key = max(buckets, key=lambda k: (k, len(buckets[k])))
     bp = [pairs[k] for k in buckets[key]]
@@ -2444,10 +2592,10 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
            np.array([len(seqs[i]) for i, _ in bp]), np.array([len(seqs[j]) for _, j in bp]))
     print(f"[phase 24] align-matrix (auto) on {N} random genomes of {MID_MIN}-{MID_MAX} bp "
           f"({len(pairs)} pairs, {len(buckets)} buckets): {walls['align-matrix mid']:.3f} s wall, "
-          f"launches K7 {by_route[False]['K7']}, K8 {by_route[False]['K8']}; TSV == K3's "
-          f"allpairs_scores; allpairs_scores local (auto: K7 {by_route[True]['K7']}) "
-          f"{walls['allpairs_scores mid local']:.3f} s == K3's; {MID_ORACLE} sampled scores == "
-          f"C++ oracle | allpairs_scores global, auto [{fmt(timings['auto'])}] s vs engine="
+          f"launches K7 {by_route[False]['K7']}, K8 {by_route[False]['K8']}; allpairs_scores "
+          f"local (auto: K7 {by_route[True]['K7']}) {walls['allpairs_scores mid local']:.3f} s; "
+          f"{MID_ORACLE} sampled pairs a mode, auto and K3, == the C++ oracle; auto == K3 on "
+          f"every pair | allpairs_scores global, auto [{fmt(timings['auto'])}] s vs engine="
           f"stream (K3) [{fmt(timings['stream'])}] s ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
 
@@ -2498,24 +2646,34 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
         {"K9": k9_launches(mb[2], mb[0].shape[1], mb[1].shape[1])}))
     check(int(got[0][0]) == planted_score,
           f"1 Mb planted pair on K9: {int(got[0][0])} != planted {planted_score}")
-    # Outside the path: K9 == K3 on the 29.9 kb pair, and the times.
+    # Outside the path: K9 and K3 == the C++ oracle on the 29.9 kb pair
+    # (global: phase 4's; local: computed here), and the times.
     one_d = tuple(torch.from_numpy(x).to(dev) for x in one[:2]) + one[2:]
-    for is_local in (False, True):
-        e = err_of(gp.gotoh_scores_pallas_batch(*one_d, sc, is_local),
-                   gs.gotoh_scores_stream(*one_d, sc, is_local))
+    with ThreadPoolExecutor(1) as pool:
+        local_oracle = pool.submit(native.gotoh_score_cpu, a, b, sc, True)
+        oracle_of = {False: tuple(main["oracle"])}
+        got_of = {(k, is_local): [x.cpu() for x in fn(*one_d, sc, is_local)]
+                  for k, fn in (("K9", gp.gotoh_scores_pallas_batch),
+                                ("K3", gs.gotoh_scores_stream)) for is_local in (False, True)}
+        oracle_of[True] = tuple(local_oracle.result())
+    for (k, is_local), got_k in got_of.items():
+        g = tuple(int(x[0]) for x in got_k)
+        e = max(abs(x - y) for x, y in zip(g, oracle_of[is_local]))
         err["pipe"] = max(err["pipe"], e)
-        check(e == 0, f"K9 != K3 on the 29.9 kb pair (local={is_local}): {e}")
+        check(e == 0, f"{k} on the 29.9 kb pair (local={is_local}): {g} != the C++ oracle "
+                      f"{oracle_of[is_local]}")
     k9_one = cuda_ms(lambda: gp.gotoh_scores_pallas_batch(*one_d, sc, False), 3)
     k3_one = cuda_ms(lambda: gs.gotoh_scores_stream(*one_d, sc, False), 3)
     # The pipeline at each timed strip height (16 rows a lane down to 4),
     # on the whole grid and on 7 blocks (tickets and ring slots cycle).
     k9_rows = {}
-    k3_ref = gs.gotoh_scores_stream(*one_d, sc, False)
+    oracle_t = [torch.tensor([x], dtype=torch.int32) for x in oracle_of[False]]
     for r in (128, 256, 512):
         for blocks in (None, 7):
-            e = err_of(gp._pallas_cuda(*one_d, sc, False, r, blocks), k3_ref)
+            e = err_of(gp._pallas_cuda(*one_d, sc, False, r, blocks), oracle_t)
             err["pipe"] = max(err["pipe"], e)
-            check(e == 0, f"K9 at {r} rows a strip (grid {blocks}) != K3 on the 29.9 kb pair: {e}")
+            check(e == 0, f"K9 at {r} rows a strip (grid {blocks}) != the C++ oracle on the "
+                          f"29.9 kb pair: {e}")
         k9_rows[r] = cuda_ms(lambda r=r: gp._pallas_cuda(*one_d, sc, False, r), 3)
     rows_mb = gp.pipe_rows(mb[0].shape[1])
     strips_mb = (GENOME_BP + rows_mb) // rows_mb
@@ -2523,11 +2681,11 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     b_one = bound_of(one[2], one[3], False)
     print(f"[phase 25] card {card} | K9 on the {len(a)} x {len(b)} bp pair (auto at B = 1: "
           f"score_pairs {walls['score_pairs 29.9 kb']:.1f} ms wall) == C++ oracle and K1 "
-          f"({main['k1_score']}), global/local == K3: K9 [{fmt(k9_one)}] ms = "
+          f"({main['k1_score']}), K9 and K3 global/local == the C++ oracle: K9 [{fmt(k9_one)}] ms = "
           f"{c_one / med(k9_one) * 1e3:.4g} cells/s vs K3 at B = 1 [{fmt(k3_one)}] ms (bound "
           f"{b_one[0]:.4f} ms by {b_one[1]}); K9 at strips of "
           + ", ".join(f"{r} rows [{fmt(t)}] ms" for r, t in k9_rows.items())
-          + f" (each == K3, also on 7 blocks) | align-matrix --engine pallas on {N_GENOMES} x "
+          + f" (each == the oracle, also on 7 blocks) | align-matrix --engine pallas on {N_GENOMES} x "
           f"{GENOME_LEN} bp: TSV == phase 8's, {walls['align-matrix --engine pallas']:.3f} s "
           f"wall, {want} launch(es) | 1 Mb planted pair {GENOME_BP} x {len(planted)} "
           f"({strips_mb} strips of {rows_mb} rows): score {int(got[0][0])} == planted, "

@@ -19,16 +19,20 @@
 // genomics_rs_tpu/ops/gotoh_matrix.py (K13, scores and starts under a full
 // matrix from an int8 sheared stream) and _mstream_fill in
 // genomics_rs_tpu/ops/gotoh_matrix_stream.py (K14, the 2-D packed stream:
-// scores, starts and diag16 dirs). It is K3's body (gotoh_stream_body.cuh:
-// one block per pair, skewed row-strip wavefront, true cells only) with the
-// substitution s(i, j) = prof[p, code(s1[i-1]), j-1], read one int16 a cell
-// along the row's profile line (prefetched one column ahead, as K3 prefetches
-// its s2 character). Outputs and codes are K3's, so K4 and K2 walk them.
-// What bounds it: as K3, each block's dependent step (a few integer ops and
-// one barrier a column); protein rows are a few hundred, so a block is a
-// single strip and several blocks share an SM.
+// scores, starts and diag16 dirs). It is K3's warp-strip pipeline
+// (gotoh_warp_pipe.cuh, FullRows: a strip of 32*RT rows a warp, RT rows a
+// lane in registers, a pair's strips on many SMs, codes filled in
+// registers) with the substitution s(i, j) = prof[p, code(s1[i-1]), j-1]
+// (ProfileSub): each lane holds its rows' profile lines and loads, one
+// column ahead, the entries of its RT rows for its next column. Outputs and
+// codes are K3's, so K4 and K2 walk them; the wrapper reads the error word
+// where it reads the scores.
+// What bounds it: integer issue (10 ops a cell global, 17 local, +9 with
+// codes) and one profile load a cell from L1/L2 (the profile of a launch's
+// pairs is a few MB); a 383-aa pair is one or two strips, so a launch of a
+// thousand pairs keeps every SM's warps busy.
 
-#include "gotoh_stream_body.cuh"
+#include "gotoh_warp_pipe.cuh"
 
 namespace {
 
@@ -59,29 +63,44 @@ matrix_profile_kernel(const uint8_t* __restrict__ s2,
   }
 }
 
-// The matrix fill's substitution: one profile line per row.
+// The matrix fill's substitution in the warp strip's lane form: each row
+// reads its profile line, prof[p, code(s1[i-1]), :], one column ahead.
 struct ProfileSub {
   const int* code1;     // (B, Lm) alphabet code of each s1 character
   const int16_t* prof;  // (B, A, Ln)
   int Lm, Ln, A;
 
-  struct Row {
-    const int16_t* line;  // prof[p, code(s1[i-1]), :]
-    int v;                // s(i, j) of the next column, prefetched
+  static constexpr bool COLS = false;  // nothing travels with the columns
+  template <int RT>
+  struct Lane {
+    const int16_t* pp;  // the pair's profile
+    int line[RT];       // each row's line offset, code * Ln
+    int nx[RT];         // each row's s(i, j) of the lane's next column
   };
 
-  __device__ __forceinline__ Row row(int p, int i, int m, int n) const {
-    Row r;
-    const int c = (i <= m && i >= 1) ? code1[(size_t)p * Lm + i - 1] : 0;
-    r.line = prof + ((size_t)p * A + c) * Ln;
-    r.v = n > 0 ? r.line[0] : 0;
-    return r;
+  template <int RT>
+  __device__ __forceinline__ void lane(Lane<RT>& L, int p, int i0, int kreal) const {
+    L.pp = prof + (size_t)p * A * Ln;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int i = i0 + k;
+      L.line[k] = ((k < kreal && i >= 1) ? __ldg(code1 + (size_t)p * Lm + i - 1) : 0) * Ln;
+      L.nx[k] = 0;
+    }
   }
-
-  __device__ __forceinline__ int next(Row& r, int j, int n) const {
-    const int v = r.v;
-    r.v = j < n ? r.line[j] : 0;
-    return v;
+  template <int RT>
+  __device__ __forceinline__ int col(const Lane<RT>&, int) const {
+    return 0;
+  }
+  template <int RT>
+  __device__ __forceinline__ int at(const Lane<RT>& L, int k, int) const {
+    return L.nx[k];
+  }
+  // After column j: s(i, j+1) = prof[line, j] for j < n (a predicated load).
+  template <int RT>
+  __device__ __forceinline__ void next(Lane<RT>& L, int, int j, int n) const {
+#pragma unroll
+    for (int k = 0; k < RT; ++k) L.nx[k] = j < n ? (int)__ldg(L.pp + L.line[k] + j) : 0;
   }
 };
 
@@ -105,12 +124,32 @@ extern "C" int matrix_profile_launch(const void* s2, const void* ns,
   return (int)cudaGetLastError();
 }
 
+// One-warp blocks an SM holds at `rows_per_lane` rows a lane.
+extern "C" int gotoh_matrix_blocks_per_sm(int rows_per_lane, int is_local, int dirs) {
+  return full_rows_blocks_per_sm<ProfileSub>(rows_per_lane, is_local, dirs);
+}
+
+// code1: (B, Lm) int32; prof: (B, A, Ln) int16; plan, work and ring as
+// gotoh_stream_launch's; dirs: zeroed (B, KW, V) or null.
 extern "C" int gotoh_matrix_launch(
-    const void* code1, const void* prof, const void* ms, const void* ns,
-    void* dirs, void* res, void* scratch, int B, int Lm, int Ln, int A, int V,
-    int KW, int g, int h, int is_local, int threads, void* stream) {
-  const ProfileSub sub{(const int*)code1, (const int16_t*)prof, Lm, Ln, A};
-  return launch_stream(sub, (const int*)ms, (const int*)ns, (unsigned*)dirs,
-                       (int*)res, (int*)scratch, B, Ln, V, KW, g, h, is_local,
-                       threads, (cudaStream_t)stream);
+    const void* code1, const void* prof, const void* plan, void* work, void* ring,
+    void* dirs, void* res, int B, int Lm, int Ln, int A, int V, int KW, int nlevels,
+    int total, int g, int h, int is_local, int rows_per_lane, int blocks, long long spin_ns,
+    void* stream) {
+  if (B < 1 || nlevels < 1 || total < 1 || blocks < 1 || spin_ns < 1)
+    return (int)cudaErrorInvalidValue;
+  WarpPipe<FullRows, ProfileSub> a{};
+  a.sub = ProfileSub{(const int*)code1, (const int16_t*)prof, Lm, Ln, A};
+  a.plan = pipe_plan_of((const int*)plan, B, nlevels, total);
+  a.work = PipeWork::of((int*)work, total, B);
+  a.ring = (int*)ring;
+  a.slotw = Ln + 1;
+  a.g = g;
+  a.h = h;
+  a.bound = (unsigned long long)spin_ns;
+  a.res = (int*)res;
+  a.dirs = (unsigned*)dirs;
+  a.KW = KW;
+  a.DV = V;
+  return full_rows_launch(a, rows_per_lane, is_local, blocks, (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-// Batched Gotoh fill for Hopper (sm_90a), one thread block per pair, bound
+// Batched Gotoh fill for Hopper (sm_90a) on the warp-strip pipeline, bound
 // by ctypes.
 //
 // Replaces: genomics_rs_tpu/ops/gotoh_stream.py, _stream_call (body
@@ -17,38 +17,59 @@
 //                    STOP), in its own slice of a (B, KW, V) array:
 //                    code(i, j) = (dirs[(p*KW + (i+j)/16) * V + i]
 //                                  >> 2*((i+j)%16)) & 3
-//
-// The body (recurrence, codes, argmax) and its character substitution
-// (CharSub) are gotoh_stream_body.cuh, shared with the matrix fill
-// (gotoh_matrix.cu), K9's strip pipeline (gotoh_pallas.cu) and the
-// warp-strip kernel (gotoh_segmented.cu); this file is K3's launcher.
+//                    words with no true cell stay zero (the wrapper zeroes)
 //
 // Design. The TPU kernel lays every pair end to end along one V-lane
 // vector and re-injects column 0 at each seam, so its lanes do not idle
 // through each pair's diagonal ramp. That answers a TPU constraint (one
-// core, one wide vector). Hopper has 132 SMs and K1 (gotoh_rowblock.cu)
-// already fills one table per SM, so here grid = B: block p runs K1's
-// skewed row-strip wavefront over pair p alone, rows 0..m_p and columns
-// 0..n_p, with its own global scratch rows. No padded cell is computed, so
-// the local argmax needs no padding mask and every pair needs no seam, probe
-// chunk or drift guard: the wrapper has no fallback.
+// core, one wide vector). On Hopper each row strip of 32*RT rows is one
+// warp's work in gotoh_warp_pipe.cuh's sweep (FullRows, CharSub): lane l
+// holds RT rows in registers, the lanes run one column apart, a pair's
+// strips run on many SMs at once, fed through K9's ring, tickets and error
+// word (gotoh_pallas.cu has the same sweep without codes). With dirs, each
+// lane fills its rows' code words in registers and stores each once: a
+// word holds 16 columns of one row, and a row is one lane's. A pair that
+// one strip holds takes no ring slot. The launch does not wait: the
+// wrapper returns the error word with the result and the caller raises
+// where it reads the scores. RT is a launch argument (1, 2, 4, 8 or 16;
+// each its own compiled kernel, with and without codes).
 //
-// What bounds it: as K1, one block is a dependency chain along both axes,
-// latency-bound on its SM: ceil((m+1)/T) strips of n + T steps, each step a
-// handful of integer max/add ops plus one block barrier. A batch runs
-// min(B, 132) blocks at once, so a bucket of up to 132 equal pairs takes
-// about one pair's time. Device memory traffic is small (one char load per
-// cell, 2 bits of dirs per cell).
+// What bounds it: integer issue (12 ops a cell global, 19 local, +9 with
+// codes) over the strips in flight, and for a lone pair a warp's step of RT
+// chained cells; device memory traffic is one character a cell, 8 bytes a
+// boundary cell and 2 bits of dirs a cell.
 
-#include "gotoh_stream_body.cuh"
+#include "gotoh_warp_pipe.cuh"
 
+// One-warp blocks an SM holds at `rows_per_lane` rows a lane.
+extern "C" int gotoh_stream_blocks_per_sm(int rows_per_lane, int is_local, int dirs) {
+  return full_rows_blocks_per_sm<CharSub>(rows_per_lane, is_local, dirs);
+}
+
+// plan: int32 [ms(B), ns(B), strip0(B+1), level_start(nlevels+1),
+// by_strips(B), slot0(B), slots(B)] at strips of 32 * rows_per_lane rows;
+// work: zeroed int32 [PIPE_WORK_HEAD + 5*total + B] (PipeWork's order);
+// ring: the plan's slots of 2 * (Ln + 1) ints; dirs: zeroed (B, KW, V) or
+// null; spin_ns > 0 bounds a wait that sees nothing move.
 extern "C" int gotoh_stream_launch(
-    const void* s1c, const void* s2c, const void* ms, const void* ns,
-    void* dirs, void* res, void* scratch, int B, int Lm, int Ln, int V,
-    int KW, int sm, int sx, int st, int kimura, int g, int h, int is_local,
-    int threads, void* stream) {
-  const CharSub sub{(const int*)s1c, (const int*)s2c, Lm, Ln, sm, sx, st, kimura};
-  return launch_stream(sub, (const int*)ms, (const int*)ns, (unsigned*)dirs,
-                       (int*)res, (int*)scratch, B, Ln, V, KW, g, h, is_local,
-                       threads, (cudaStream_t)stream);
+    const void* s1c, const void* s2c, const void* plan, void* work, void* ring,
+    void* dirs, void* res, int B, int Lm, int Ln, int V, int KW, int nlevels, int total,
+    int sm, int sx, int st, int kimura, int g, int h, int is_local, int rows_per_lane,
+    int blocks, long long spin_ns, void* stream) {
+  if (B < 1 || nlevels < 1 || total < 1 || blocks < 1 || spin_ns < 1)
+    return (int)cudaErrorInvalidValue;
+  WarpPipe<FullRows> a{};
+  a.sub = CharSub{(const int*)s1c, (const int*)s2c, Lm, Ln, sm, sx, st, kimura};
+  a.plan = pipe_plan_of((const int*)plan, B, nlevels, total);
+  a.work = PipeWork::of((int*)work, total, B);
+  a.ring = (int*)ring;
+  a.slotw = Ln + 1;
+  a.g = g;
+  a.h = h;
+  a.bound = (unsigned long long)spin_ns;
+  a.res = (int*)res;
+  a.dirs = (unsigned*)dirs;
+  a.KW = KW;
+  a.DV = V;
+  return full_rows_launch(a, rows_per_lane, is_local, blocks, (cudaStream_t)stream);
 }

@@ -1,47 +1,50 @@
-// The batched Gotoh fill's body, shared by K3 (gotoh_stream.cu: the
-// substitution compares two characters, classic or kimura), the matrix
-// fill (gotoh_matrix.cu: the substitution is read from a query profile),
-// the row-block pipeline of K1 and K5 (gotoh_rowblock.cu: the strip sweep
-// and the hand-off under its own boundaries and outputs), the warp-strip
-// kernel K7/K8 (gotoh_segmented.cu) and the warp-strip pipeline of K9, K16,
-// K10 and K12 (gotoh_warp_pipe.cuh), which take the cell recurrence,
-// CharSub, GlobalEdge and the hand-off's waits. A
-// substitution policy `Sub` supplies s(i, j); the recurrence, the
-// direction codes and the strip hand-off are this file's, once.
+// The Gotoh fill's shared body: the cell recurrence (gotoh_cell), the
+// character substitution (CharSub), the global boundary (GlobalEdge), the
+// strip sweep of K1's row-block pipeline and its tile form K5
+// (strip_sweep, block_best: gotoh_rowblock.cu), and the pipelines' hand-off
+// (wait_geq and the acquire/release stores). The warp-strip kernel K7/K8
+// (gotoh_segmented.cu) takes the cell and CharSub; the warp-strip pipeline
+// of K9, K16, K3, the matrix fill (K13/K14), K10 and K12
+// (gotoh_warp_pipe.cuh) takes the cell, a substitution policy (CharSub, or
+// the matrix fill's ProfileSub in gotoh_matrix.cu), GlobalEdge and the
+// waits.
 //
-// Contract, for every pair p of a padded batch (true lengths m_p, n_p): the
-// affine-gap (Gotoh) table over rows 0..m_p and columns 0..n_p with the
-// global boundary (corner 0, I(0, j) = h + j*g, D(i, 0) = h + i*g, the rest
-// -inf), global or local (reference zero floor inside every predecessor
-// max). Outputs:
-//   res[3p .. 3p+2]  global: (score at (m_p, n_p), m_p, n_p);
-//                    local: the keep-last row-major argmax (v, i, j) over
-//                    the pair's true cells (larger v, then larger i, then
-//                    that row's larger j)
-//   dirs (optional)  the pair's 2-bit codes packed like K1's (S > I > D >
-//                    STOP), in its own slice of a (B, KW, V) array:
-//                    code(i, j) = (dirs[(p*KW + (i+j)/16) * V + i]
-//                                  >> 2*((i+j)%16)) & 3
+// The table, for every pair p of a padded batch (true lengths m_p, n_p):
+// the affine-gap (Gotoh) recurrence over rows 0..m_p and columns 0..n_p
+// with the global boundary (corner 0, I(0, j) = h + j*g, D(i, 0) = h + i*g,
+// the rest -inf), global or local (reference zero floor inside every
+// predecessor max). Its 2-bit direction codes (S > I > D > STOP) are
+// packed diagonal-major by K1, K3 and the matrix fill (diag16):
+//   code(i, j) = (dirs[(p*KW + (i+j)/16) * V + i] >> 2*((i+j)%16)) & 3
 //
-// Design: a strip of T rows is swept by T threads, thread t owning row
+// strip_sweep: a strip of T rows is swept by T threads, thread t owning row
 // s*T + t and stepping one column a barrier (a skewed wavefront); the
-// strip's last thread hands its row's A and M to the next strip through
-// global scratch rows. No padded cell is computed, so the local argmax
-// needs no padding mask and no pair needs a seam, probe or drift guard.
-// stream_kernel: one block a pair sweeps its strips in order (K3, the
-// matrix fill); K1's pipeline runs the same sweep with a strip a block.
+// strip's last thread hands its row's A and M to the next strip. K1's
+// pipeline runs it with a strip a block.
 //
-// A policy is a struct with a nested `Row` and two device methods:
-//   Row row(int p, int i, int m, int n) const    state for row i of pair p
-//                                                 (i may be 0 or past m:
-//                                                 then nothing is read)
-//   int next(Row& r, int j, int n) const          s(i, j) for the row's next
-//                                                 column j (1 <= j <= n),
-//                                                 then prefetch column j+1
+// A substitution policy gives s(i, j) two ways:
+//   strip_sweep's row form (K1):
+//     Row row(int p, int i, int m, int n) const    state for row i of pair p
+//                                                   (i may be 0 or past m:
+//                                                   then nothing is read)
+//     int next(Row& r, int j, int n) const          s(i, j) for the row's next
+//                                                   column j (1 <= j <= n),
+//                                                   then prefetch column j+1
+//   the warp strip's lane form (gotoh_warp_pipe.cuh), lane state for the
+//   RT rows i0 .. i0+RT-1 of one lane:
+//     COLS                                          true when a value travels
+//                                                   down the lanes with each
+//                                                   column (s2's character)
+//     void lane(Lane<RT>& L, int p, int i0, int kreal) const
+//     int col(const Lane<RT>& L, int c) const       column c's travelling value
+//     int at(const Lane<RT>& L, int k, int c2) const   s(i0+k, j), the lane's
+//                                                   column j, c2 its value
+//     void next(Lane<RT>& L, int p, int j, int n) const   after the lane's
+//                                                   column j: prefetch j+1
 // The sweep takes two more policies. An edge (GlobalEdge here; K1's given
 // top row and streamed left column in gotoh_rowblock.cu) gives I/S/D on
-// row 0 and column 0. An output (PairOut here; K1's in gotoh_rowblock.cu)
-// sees every true cell once, after its codes, as cell(i, j, I, S, D, M).
+// row 0 and column 0. An output (K1's in gotoh_rowblock.cu) sees every true
+// cell once, after its codes, as cell(i, j, I, S, D, M).
 
 #pragma once
 
@@ -56,7 +59,7 @@ constexpr int MAX_T = 1024;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
-// The character substitution of K3, K7/K8 and K9: equal codes score sm;
+// The character substitution of K1, K3, K7/K8, K9 and K10: equal codes score sm;
 // kimura (codes classed so that a transition differs by XOR 2) scores st
 // for a transition; anything else sx.
 struct CharSub {
@@ -89,9 +92,35 @@ struct CharSub {
     r.c2 = j < n ? r.b[j] : 0;
     return v;
   }
+
+  // The lane form: each lane holds its rows' s1 characters; s2's travel
+  // down the lanes with the columns.
+  static constexpr bool COLS = true;
+  template <int RT>
+  struct Lane {
+    int c1[RT];
+    const int* s2p;  // the pair's s2 characters
+  };
+  template <int RT>
+  __device__ __forceinline__ void lane(Lane<RT>& L, int p, int i0, int kreal) const {
+    const int* s1p = s1c + (size_t)p * Lm;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) L.c1[k] = (k < kreal && i0 + k >= 1) ? __ldg(s1p + i0 + k - 1) : 0;
+    L.s2p = s2c + (size_t)p * Ln;
+  }
+  template <int RT>
+  __device__ __forceinline__ int col(const Lane<RT>& L, int c) const {
+    return c >= 1 ? __ldg(L.s2p + c - 1) : 0;
+  }
+  template <int RT>
+  __device__ __forceinline__ int at(const Lane<RT>& L, int k, int c2) const {
+    return score(L.c1[k], c2);
+  }
+  template <int RT>
+  __device__ __forceinline__ void next(Lane<RT>&, int, int, int) const {}
 };
 
-// The table's global boundary (K3, K7/K8, K9, the matrix fill): corner 0,
+// The table's global boundary (K7/K8 and the warp-strip pipeline's FullRows): corner 0,
 // I(0, j) = h + j*g, D(i, 0) = h + i*g, the rest -inf.
 struct GlobalEdge {
   __device__ __forceinline__ void top(int j, int g, int h, int& I, int& S, int& D) const {
@@ -176,28 +205,6 @@ __device__ __forceinline__ void block_best(int* rv, int* ri, int* rj, int bv,
       }
   }
 }
-
-// The outputs of K3 at a pair's true cell: local, the thread's keep-last
-// best (a thread's cells come in row-major order, so >= keeps the last);
-// global, the score at (m, n).
-template <bool LOCAL>
-struct PairOut {
-  int* res;
-  int p, m, n;
-  int bv = INT_MIN_V, bi = -1, bj = 0;
-
-  __device__ __forceinline__ void cell(int i, int j, int, int, int, int M) {
-    if (LOCAL) {
-      if (M >= bv) {
-        bv = M;
-        bi = i;
-        bj = j;
-      }
-    } else if (i == m && j == n) {
-      res[3 * p] = M;
-    }
-  }
-};
 
 // ---- the pipelines' hand-off (K1's strips, the warp strips of K9 and K10) ----
 
@@ -357,68 +364,6 @@ __device__ __forceinline__ bool strip_sweep(
     if (PIPE && (q % PIPE_CHUNK) == 0 && *(volatile int*)ln.abort) return false;
   }
   return true;
-}
-
-template <bool LOCAL, class Sub>
-__global__ void __launch_bounds__(MAX_T, 1)
-stream_kernel(Sub sub, const int* __restrict__ ms, const int* __restrict__ ns,
-              unsigned* __restrict__ dirs, int* __restrict__ res,
-              int* __restrict__ scratch, int Ln, int V, int KW, int g, int h) {
-  __shared__ int sA[2][MAX_T];
-  __shared__ int sM[2][MAX_T];
-  __shared__ int rv[MAX_T], ri[MAX_T], rj[MAX_T];
-
-  const int p = blockIdx.x;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const int m = ms[p];
-  const int n = ns[p];
-  const int W = n + 1;  // scratch row width
-  unsigned* dp = dirs == nullptr ? nullptr : dirs + (size_t)p * KW * V;
-  int* scr = scratch + (size_t)p * 4 * (Ln + 1);
-  const int nstrips = (m + 1 + T - 1) / T;
-  const StripLinks none{};
-
-  PairOut<LOCAL> out{res, p, m, n};  // with this thread's keep-last best
-  int cur = 0;
-  for (int s = 0; s < nstrips; ++s) {
-    const int* up = scr + ((s + 1) & 1) * 2 * W;  // written by strip s-1
-    int* down = scr + (s & 1) * 2 * W;
-    const bool writes_down = (t == T - 1) && (s + 1 < nstrips);
-    strip_sweep<LOCAL, false>(sub, GlobalEdge{}, out, p, s, m, n, g, h, sA, sM, cur, up,
-                              down, writes_down, dp, V, none);
-  }
-
-  // Thread 0 owns row 0, whose cells are all >= 0, so the merge always
-  // finds a true cell.
-  if (LOCAL) {
-    int v, ii, jj;
-    block_best(rv, ri, rj, out.bv, out.bi, out.bj, v, ii, jj);
-    if (t == 0) {
-      res[3 * p] = v;
-      res[3 * p + 1] = ii;
-      res[3 * p + 2] = jj;
-    }
-  } else if (t == 0) {
-    res[3 * p + 1] = m;
-    res[3 * p + 2] = n;
-  }
-}
-
-// Launch the body over B pairs; returns cudaGetLastError().
-template <class Sub>
-int launch_stream(const Sub& sub, const int* ms, const int* ns, unsigned* dirs,
-                  int* res, int* scratch, int B, int Ln, int V, int KW, int g,
-                  int h, int is_local, int threads, cudaStream_t s) {
-  if (threads < 1 || threads > MAX_T || B < 1) return (int)cudaErrorInvalidValue;
-  if (is_local) {
-    stream_kernel<true, Sub><<<B, threads, 0, s>>>(sub, ms, ns, dirs, res, scratch,
-                                                   Ln, V, KW, g, h);
-  } else {
-    stream_kernel<false, Sub><<<B, threads, 0, s>>>(sub, ms, ns, dirs, res, scratch,
-                                                    Ln, V, KW, g, h);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,14 +1,21 @@
-// The warp-strip pipeline sweep, shared by K9 and K16 (gotoh_pallas.cu:
-// every column of every row) and K10 and K12 (gotoh_banded.cu: a band of V
-// columns a row). Cell recurrence, substitution (CharSub), global boundary
-// (GlobalEdge) and the pipeline's waits (wait_geq) are gotoh_stream_body.cuh's.
+// The warp-strip pipeline sweep, shared by K9 and K16 (gotoh_pallas.cu),
+// K3 (gotoh_stream.cu) and the matrix fill K13/K14 (gotoh_matrix.cu): every
+// column of every row; and by K10 and K12 (gotoh_banded.cu: a band of V
+// columns a row). Cell recurrence, the substitution policies' contract
+// (CharSub; the matrix fill's ProfileSub), global boundary (GlobalEdge) and
+// the pipeline's waits (wait_geq) are gotoh_stream_body.cuh's.
 //
 // Contract, per pair p of a batch (true lengths m_p, n_p), over the cells the
 // geometry policy gives:
-//   FullRows  rows 0..m_p x columns 0..n_p (K9, K16): res[3p .. 3p+2] is the
-//             global (score at (m_p, n_p), m_p, n_p), or the local keep-last
-//             row-major argmax (v, i, j) (larger v, then larger i, then that
-//             row's larger j);
+//   FullRows  rows 0..m_p x columns 0..n_p (K9, K16, K3, the matrix fill):
+//             res[3p .. 3p+2] is the global (score at (m_p, n_p), m_p, n_p),
+//             or the local keep-last row-major argmax (v, i, j) (larger v,
+//             then larger i, then that row's larger j); with DIAG16 (K3 and
+//             the matrix fill with dirs) also the diag16 codes of every true
+//             cell, dirs[(p*KW + (i+j)/16) * DV + i] bits 2*((i+j)%16)
+//             (S > I > D > STOP; STOP where the local cell max is below 0,
+//             and at row 0 off the corner in local mode); words with no true
+//             cell stay as the caller left them (zero);
 //   BandRows  rows 1..m_p, row i's band columns off(i)+1 .. off(i)+V (off
 //             planned by the host, int32, rising by 0 or 1 a row), every
 //             other cell -inf, column 0 and row 0 the global boundary (K10,
@@ -54,6 +61,13 @@
 //     lane's step is straight-line code (band edges by selects, rows past m
 //     computed and never read, row 0 computed from -inf fed from above), so
 //     a warp rarely runs both forms of the step at once.
+//   - Diag16 codes (FullRows): a code word holds 16 consecutive columns of
+//     one row, and a row is one lane's for the whole sweep, so each lane
+//     fills one word a row in a register, a funnel shift a cell (the code
+//     enters at the top, so 16 cells later the word is whole and older
+//     codes are gone: no reset), and stores it where (i+j) % 16 == 15, at
+//     most one row of a lane a step (a predicated store in the one step
+//     form, no staging), or at j = n_p shifted down; rows past m_p never.
 //   - Local mode: a row's cells come in column order, so each row keeps its
 //     own keep-last best (>=); once a strip, the rows are merged into the
 //     lane's best by (v, i, j) (`better`), the lanes by a warp reduction,
@@ -71,9 +85,10 @@
 //     rest at the strip's end.
 //
 // What bounds it: integer issue (12 ops a cell global, 19 local, +9 with
-// codes) in aggregate; for one pair, a warp that is nearly alone on its SM
-// issuing one step of RT chained cells (A and M pass down the rows), six
-// shuffles and the lane-31 hand-off: ~0.3 us a step at RT = 8 on the H100
+// codes; the profile substitution one L1/L2 load a cell) in aggregate; for
+// one pair, a warp that is nearly alone on its SM issuing one step of RT
+// chained cells (A and M pass down the rows), six shuffles and the lane-31
+// hand-off: ~0.3 us a step at RT = 8 on the H100
 // (PERF.md). A pair's strips start about 31 + 2*WARP_CHUNK steps apart (the
 // lane skew and the lookahead), and a band strip another H*n/m steps (the
 // band moves right as it goes down).
@@ -153,9 +168,9 @@ struct PipeWork {
   }
 };
 
-template <class Geom>
+template <class Geom, class Sub = CharSub>
 struct WarpPipe {
-  CharSub sub;      // the batch's encoded characters and scores
+  Sub sub;          // the substitution: encoded characters and scores, or a profile
   Geom geom;
   PipePlan plan;
   PipeWork work;
@@ -164,18 +179,20 @@ struct WarpPipe {
   int g, h;
   unsigned long long bound;  // wait_geq's bound (ns)
   int* res;         // FullRows: (score, i, j) a pair
-  unsigned* dirs;   // BandRows: code words (B, KW, V)
+  unsigned* dirs;   // code words: BandRows (B, KW, V); FullRows with DIAG16 (B, KW, DV)
   int* score;       // BandRows: M at (m_p, n_p)
   int KW;
+  int DV;           // FullRows: a code word row's lanes
 };
 
 // Sweep strip s of pair p. False when a wait failed (every lane returns).
-template <bool LOCAL, int RT, class Geom>
-__device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s,
+template <bool LOCAL, int RT, bool DIAG16, class Geom, class Sub>
+__device__ __forceinline__ bool warp_strip(const WarpPipe<Geom, Sub>& a, int p, int s,
                                            unsigned* stage) {
   constexpr int H = 32 * RT;
   constexpr bool BAND = Geom::BAND;
   static_assert(!BAND || RT == 4, "the band sweep holds 4 rows a lane (BAND_RT)");
+  static_assert(!(BAND && DIAG16), "the band's codes have their own layout");
   constexpr int G = BAND ? 16 / RT : 1;  // lanes that share a code word
   static_assert(!(BAND && LOCAL), "the band fill is global");
   const int l = threadIdx.x & 31;
@@ -204,20 +221,22 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
   const int need_hi = min(hi, phi);
   const int i0 = first + l * RT;           // this lane's first row
   const int kreal = min(RT, m - i0 + 1);   // its rows in the pair (<= 0: none)
-  const int* s1p = a.sub.s1c + (size_t)p * a.sub.Lm;
-  const int* s2p = a.sub.s2c + (size_t)p * a.sub.Ln;
 
-  int c1[RT], Il[RT], Pl[RT], dM[RT], rv[RT], rj[RT], off[RT];
+  typename Sub::template Lane<RT> sl;      // the rows' substitution state
+  a.sub.lane(sl, p, i0, kreal);
+  int Il[RT], Pl[RT], dM[RT], rv[RT], rj[RT], off[RT];
+  unsigned acc[RT];  // DIAG16: each row's code word in flight
 #pragma unroll
   for (int k = 0; k < RT; ++k) {
     const int i = i0 + k;
     const bool real = k < kreal;
-    c1[k] = (real && i >= 1) ? __ldg(s1p + i - 1) : 0;
     Il[k] = Pl[k] = dM[k] = NEG_INF;
     rv[k] = INT_MIN_V;
     rj[k] = 0;
+    acc[k] = 0;
     off[k] = (BAND && real) ? a.geom.off(i) : 0;
   }
+  unsigned* const dq = DIAG16 ? a.dirs + (size_t)p * a.KW * a.DV : nullptr;
   const int off_last = (BAND && kreal > 0) ? a.geom.off(i0 + kreal - 1) : 0;
   // BAND: this lane's code words (its group of G lanes shares them), the
   // group's staging column, the rows' bit base in a word, and whether this
@@ -259,7 +278,7 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
       } else {  // above row 0: -inf, so the interior step gives row 0 itself
         A = M = NEG_INF;
       }
-      C = c >= 1 ? __ldg(s2p + c - 1) : 0;
+      if constexpr (Sub::COLS) C = a.sub.col(sl, c);
     }
     if (reads_up && c0 + WARP_CHUNK > need_hi) {  // the slot above is read: free it
       __syncwarp();
@@ -283,17 +302,30 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
       curC = nxtC;
       if (!load(lo + q + WARP_CHUNK, nxtA, nxtM, nxtC)) return false;
     }
+    // The column's travelling value (s2's character) shuffles beside A and
+    // M, in this order: the first row's S waits on it.
+    int tC = 0, inC = 0;
     const int tA = __shfl_sync(WFULL, curA, q & 31);
     const int tM = __shfl_sync(WFULL, curM, q & 31);
-    const int tC = __shfl_sync(WFULL, curC, q & 31);
+    if constexpr (Sub::COLS) tC = __shfl_sync(WFULL, curC, q & 31);
     const int inA = __shfl_up_sync(WFULL, lastA, 1);
     const int inM = __shfl_up_sync(WFULL, lastM, 1);
-    const int inC = __shfl_up_sync(WFULL, myC, 1);
+    if constexpr (Sub::COLS) inC = __shfl_up_sync(WFULL, myC, 1);
     const int j = lo + q - l;
     int uA = l == 0 ? tA : inA;
     int uM = l == 0 ? tM : inM;
     const int c2 = l == 0 ? tC : inC;
     myC = c2;
+    // DIAG16: the lane's row that completes a word this step, the one with
+    // (i+j) % 16 == 15 (at most one of RT <= 16 consecutive rows; -1 if none
+    // or past m), and that word row's first word, for the straight-line step.
+    int kst = -1;
+    unsigned* wrow = nullptr;
+    if constexpr (DIAG16) {
+      kst = 15 - ((i0 + j) & 15);
+      if (kst >= kreal) kst = -1;
+      wrow = dq + (size_t)((i0 + j) >> 4) * a.DV + i0;
+    }
     auto rows = [&](auto interior) {
       constexpr bool IN = decltype(interior)::value;
 #pragma unroll
@@ -315,7 +347,7 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
               x = upA;
               y = upM;
             },
-            [&] { return a.sub.score(c1[k], c2); }, Il[k], Pl[k], dM[k], I, S, D, M, A);
+            [&] { return a.sub.at(sl, k, c2); }, Il[k], Pl[k], dM[k], I, S, D, M, A);
         // The corner's I must not extend along row 0 (I(0, j) = h + j*g):
         // then the interior step, fed -inf from above, computes row 0.
         if (!IN && i == 0 && j == 0) Il[k] = NEG_INF;
@@ -329,6 +361,37 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
         }
         uA = A;
         uM = M;
+        if constexpr (DIAG16) {
+          // Tested against the pre-floor max M0: ptxas (CUDA 12.9, -O1 and
+          // up) miscompiled K1's `M == D` after the fused max-with-zero in
+          // local mode, found only on the card. In the straight-line step
+          // M0 is one of S, I, D (and >= I >= 0 in local mode), so only
+          // row 0 can stop there: it comes from -inf fed from above, where
+          // the local floor makes I = 0, and its code is the boundary's
+          // STOP (I(0, j) = h + j*g < 0), as the corner's is S.
+          unsigned code;
+          if (IN) {
+            code = M0 == S ? 0u : M0 == I ? 1u : 2u;
+            if (LOCAL && k == 0 && i0 == 0) code = 3u;
+          } else {
+            code = (LOCAL && (M0 < 0 || (i == 0 && j != 0))) ? 3u
+                   : (M0 == S)                                 ? 0u
+                   : (M0 == I)                                 ? 1u
+                   : (M0 == D)                                 ? 2u
+                                                               : 3u;
+          }
+          // The word fills from the top: after the cell with (i+j) % 16 ==
+          // 15 the last 16 codes sit at bits 2*((i+j)%16), older ones
+          // shifted out (a row's first word fills from the zeroed start).
+          acc[k] = __funnelshift_r(acc[k], code, 2);
+          if (IN) {
+            if (k == kst) wrow[k] = acc[k];  // rows past m never match kst
+          } else {
+            const int d = i + j, sp = d & 15;
+            if (sp == 15 || j == n)  // the row's last word may end early
+              dq[(size_t)(d >> 4) * a.DV + i] = acc[k] >> (2 * (15 - sp));
+          }
+        }
         if constexpr (LOCAL) {
           if (M >= rv[k]) {  // a row's cells come in column order: keep-last
             rv[k] = M;
@@ -364,6 +427,7 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
         rows(std::false_type{});
       lastA = uA;
       lastM = uM;
+      a.sub.next(sl, p, j, n);  // the next column's substitution, ahead
     }
     if (writes_down && act) {  // lane 31 of a strip with a successor (a full one)
       down[j - lo] = uA;
@@ -449,8 +513,8 @@ __device__ __forceinline__ bool warp_strip(const WarpPipe<Geom>& a, int p, int s
 
 // Persistent one-warp blocks: each takes a ticket, sweeps that strip and
 // takes the next, until the tickets run out or the error word is set.
-template <bool LOCAL, int RT, class Geom>
-__global__ void __launch_bounds__(32) warp_pipe_kernel(const WarpPipe<Geom> a) {
+template <bool LOCAL, int RT, bool DIAG16, class Geom, class Sub>
+__global__ void __launch_bounds__(32) warp_pipe_kernel(const WarpPipe<Geom, Sub> a) {
   __shared__ unsigned stage[Geom::BAND ? 32 * 32 : 1];  // [v mod 32][lane]
   const int l = threadIdx.x;
   for (;;) {
@@ -465,24 +529,72 @@ __global__ void __launch_bounds__(32) warp_pipe_kernel(const WarpPipe<Geom> a) {
       else top = mid;
     }
     const int p = __ldg(a.plan.by_strips + tk - __ldg(a.plan.level_start + lv));
-    if (!warp_strip<LOCAL, RT>(a, p, lv, stage)) return;
+    if (!warp_strip<LOCAL, RT, DIAG16>(a, p, lv, stage)) return;
   }
 }
 
 // One-warp blocks of the kernel an SM holds (the wrappers size the
 // persistent grid and the ring from it); a negative cudaError on failure.
-template <bool LOCAL, int RT, class Geom>
+template <bool LOCAL, int RT, class Geom, class Sub = CharSub, bool DIAG16 = false>
 int warp_pipe_blocks_per_sm() {
   int nb = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, warp_pipe_kernel<LOCAL, RT, Geom>, 32, 0);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, warp_pipe_kernel<LOCAL, RT, DIAG16, Geom, Sub>, 32, 0);
   return e == cudaSuccess ? nb : -(int)e;
 }
 
-template <bool LOCAL, int RT, class Geom>
-int warp_pipe_launch(const WarpPipe<Geom>& a, int blocks, cudaStream_t s) {
-  warp_pipe_kernel<LOCAL, RT, Geom><<<blocks, 32, 0, s>>>(a);
+template <bool LOCAL, int RT, bool DIAG16 = false, class Geom, class Sub>
+int warp_pipe_launch(const WarpPipe<Geom, Sub>& a, int blocks, cudaStream_t s) {
+  warp_pipe_kernel<LOCAL, RT, DIAG16, Geom, Sub><<<blocks, 32, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// FullRows at a run-time strip height (rows_per_lane in 1, 2, 4, 8, 16),
+// mode and output: the kernels of K3 and the matrix fill, each policy with
+// its 20 compiled forms.
+template <class Sub, bool LOCAL, bool DIAG16>
+int full_rows_blocks_per_sm_(int rt) {
+  switch (rt) {
+    case 1: return warp_pipe_blocks_per_sm<LOCAL, 1, FullRows, Sub, DIAG16>();
+    case 2: return warp_pipe_blocks_per_sm<LOCAL, 2, FullRows, Sub, DIAG16>();
+    case 4: return warp_pipe_blocks_per_sm<LOCAL, 4, FullRows, Sub, DIAG16>();
+    case 8: return warp_pipe_blocks_per_sm<LOCAL, 8, FullRows, Sub, DIAG16>();
+    case 16: return warp_pipe_blocks_per_sm<LOCAL, 16, FullRows, Sub, DIAG16>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+template <class Sub>
+int full_rows_blocks_per_sm(int rt, int is_local, int diag16) {
+  if (is_local)
+    return diag16 ? full_rows_blocks_per_sm_<Sub, true, true>(rt)
+                  : full_rows_blocks_per_sm_<Sub, true, false>(rt);
+  return diag16 ? full_rows_blocks_per_sm_<Sub, false, true>(rt)
+                : full_rows_blocks_per_sm_<Sub, false, false>(rt);
+}
+
+template <bool LOCAL, bool DIAG16, class Sub>
+int full_rows_launch_(const WarpPipe<FullRows, Sub>& a, int rt, int blocks, cudaStream_t s) {
+  switch (rt) {
+    case 1: return warp_pipe_launch<LOCAL, 1, DIAG16>(a, blocks, s);
+    case 2: return warp_pipe_launch<LOCAL, 2, DIAG16>(a, blocks, s);
+    case 4: return warp_pipe_launch<LOCAL, 4, DIAG16>(a, blocks, s);
+    case 8: return warp_pipe_launch<LOCAL, 8, DIAG16>(a, blocks, s);
+    case 16: return warp_pipe_launch<LOCAL, 16, DIAG16>(a, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch with diag16 codes when a.dirs is set.
+template <class Sub>
+int full_rows_launch(const WarpPipe<FullRows, Sub>& a, int rt, int is_local, int blocks,
+                     cudaStream_t s) {
+  const bool diag16 = a.dirs != nullptr;
+  if (is_local)
+    return diag16 ? full_rows_launch_<true, true>(a, rt, blocks, s)
+                  : full_rows_launch_<true, false>(a, rt, blocks, s);
+  return diag16 ? full_rows_launch_<false, true>(a, rt, blocks, s)
+                : full_rows_launch_<false, false>(a, rt, blocks, s);
 }
 
 // The plan's int32 array [ms(B), ns(B), strip0(B+1), level_start(nlevels+1),

@@ -10,13 +10,13 @@ exceed ``DIRS_BYTE_BUDGET`` goes to the checkpointed path
 (``models/longalign``), which gives the same result in linear space.
 
 ``align_batch`` gives the same alignments for many pairs at once: one
-batched fill with dirs per group of pairs (``ops/gotoh_stream``, one
-thread block per pair) and one batched walk (K4, through
+batched fill with dirs per group of pairs (``ops/gotoh_stream``, K3 on
+the warp-strip pipeline) and one batched walk (K4, through
 ``ops/traceback_batch.walk_batch``), in :func:`stream_walk_group`,
 which ``models/reads.align_reads`` shares for reads too wide for K6.
 
 Under a substitution matrix (``matrix=``, protein) both fill with the
-matrix fill (``ops/gotoh_matrix``: query profile, then K3's body):
+matrix fill (``ops/gotoh_matrix``: query profile, then K3's pipeline):
 ``PairwiseAligner`` one pair with dirs, walked by K2, with no
 checkpointed route (as in the JAX package); :func:`matrix_align_batch`
 one fill with dirs per group and one K4 walk.
@@ -36,6 +36,7 @@ from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_matrix import gotoh_matrix_fill
 from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import gotoh_matrix_stream_fill_dirs
+from genomics_rs_tpu_torch.ops.gotoh_pallas import raise_on_err as raise_pipe_err
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
 from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
@@ -71,7 +72,9 @@ def _fill(s1e, s2e, m: int, n: int, scores: Scores, is_local: bool,
     if matrix is not None:
         f = gotoh_matrix_fill(s1e[None], s2e[None], [m], [n], matrix, scores.g, scores.h,
                               is_local, emit_dirs, route="stream")
-        score, si, sj = torch.stack([f.score[0], f.start_i[0], f.start_j[0]]).tolist()
+        score, si, sj, err = torch.stack(
+            [f.score[0], f.start_i[0], f.start_j[0], f.err]).tolist()
+        raise_pipe_err(err, "gotoh_matrix")
         return FillResult(dirs=None if f.dirs is None else f.dirs[0], score=score,
                           start_i=si, start_j=sj)
     res = gotoh_rowblock(

@@ -124,7 +124,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_rowblock_launch.restype = i
     lib.traceback_walk_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
     lib.traceback_walk_launch.restype = i
-    lib.gotoh_stream_launch.argtypes = [vp] * 7 + [i] * 13 + [vp]
+    lib.gotoh_stream_blocks_per_sm.argtypes = [i, i, i]
+    lib.gotoh_stream_blocks_per_sm.restype = i
+    lib.gotoh_stream_launch.argtypes = [vp] * 7 + [i] * 16 + [ctypes.c_longlong, vp]
     lib.gotoh_stream_launch.restype = i
     lib.walk_many_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
     lib.walk_many_launch.restype = i
@@ -140,7 +142,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.walk_banded_launch.restype = i
     lib.matrix_profile_launch.argtypes = [vp] * 5 + [i] * 3 + [vp]
     lib.matrix_profile_launch.restype = i
-    lib.gotoh_matrix_launch.argtypes = [vp] * 7 + [i] * 10 + [vp]
+    lib.gotoh_matrix_blocks_per_sm.argtypes = [i, i, i]
+    lib.gotoh_matrix_blocks_per_sm.restype = i
+    lib.gotoh_matrix_launch.argtypes = [vp] * 7 + [i] * 13 + [ctypes.c_longlong, vp]
     lib.gotoh_matrix_launch.restype = i
     lib.gotoh_segmented_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
     lib.gotoh_segmented_launch.restype = i

@@ -15,8 +15,9 @@ shear:
   ``X`` (:func:`_ext_matrix`), ``code`` the byte -> alphabet index map
   (:func:`_alpha_code`). Row ``a`` is s1's character, column s2's.
 * :func:`matrix_fill` (K13's and K14's counterpart, one kernel): K3's
-  fill (``ops/gotoh_stream``) with ``s(i, j) = prof[p, code(s1[i-1]),
-  j-1]``; same outputs, same per-pair ``(B, KW, V)`` dirs.
+  warp-strip pipeline (``ops/gotoh_stream``) with ``s(i, j) = prof[p,
+  code(s1[i-1]), j-1]``; same outputs, same per-pair ``(B, KW, V)`` dirs,
+  the same unread error word in the result.
 
 A CUDA tensor launches the kernels, a CPU tensor runs
 :func:`matrix_profile_plain` and :func:`matrix_fill_plain`. Launches are
@@ -36,9 +37,15 @@ import torch
 
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops import _build
-from genomics_rs_tpu_torch.ops.gotoh_stream import StreamFill, _lengths, dirs_shape, wavefront_plain
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+from genomics_rs_tpu_torch.ops.gotoh_stream import (
+    StreamFill,
+    _lengths,
+    dirs_shape,
+    stream_rows,
+    wavefront_plain,
+)
 from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
-from genomics_rs_tpu_torch.sequence import round_up
 
 #: launches of the two kernels and calls of their plain versions, the
 #: fill's by route.
@@ -171,7 +178,14 @@ def gotoh_matrix_fill(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix, g:
     return matrix_fill(row_codes(s1eb, matrix), prof, ms, ns, g, h, is_local, emit_dirs, route)
 
 
-def _matrix_cuda(code1, prof, ms, ns, g, h, is_local, emit_dirs, route) -> StreamFill:
+def _matrix_cuda(code1, prof, ms, ns, g, h, is_local, emit_dirs, route, rows_per_strip=None,
+                 max_blocks=None, spin_ns=None) -> StreamFill:
+    """Launch the matrix fill on K3's warp-strip pipeline at strips of
+    ``rows_per_strip`` rows (default ``gotoh_stream.stream_rows``), one
+    launch for each of ``gotoh_pallas.pipeline_groups``' pair ranges,
+    each adding one to ``COUNTS[f"{route}_kernel"]``; ``max_blocks`` and
+    ``spin_ns`` as K3's. Does not synchronise: the error word comes back
+    in the result."""
     dev = code1.device
     if dev.type != "cuda":
         raise ValueError(f"the matrix fill kernel takes CUDA tensors, not {dev}")
@@ -180,29 +194,47 @@ def _matrix_cuda(code1, prof, ms, ns, g, h, is_local, emit_dirs, route) -> Strea
     _build.require(code1, "code1", torch.int32, dev, (B, Lm))
     _build.require(prof, "prof", torch.int16, dev, (B, A, Ln))
     ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
-    KW, V = dirs_shape(Lm, Ln)
-    i32 = dict(dtype=torch.int32, device=dev)
-    ms_d = torch.as_tensor(ms_h, dtype=torch.int32).to(dev)
-    ns_d = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)
-    dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
-    res = torch.empty((B, 3), **i32)
-    threads = min(1024, round_up(Lm + 1, 32))
-    # Strips past the first hand rows down through scratch; a pair that
-    # fits one strip never touches it.
-    scratch = torch.empty((B, 4 * (Ln + 1)) if Lm + 1 > threads else (1,), **i32)
-    if B == 0:
-        return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs)
+    rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
+            else int(rows_per_strip))
+    gp.check_rows(rows, "gotoh_matrix")
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.gotoh_matrix_launch(
-            _build.ptr(code1), _build.ptr(prof), _build.ptr(ms_d), _build.ptr(ns_d),
-            _build.ptr(dirs), _build.ptr(res), _build.ptr(scratch),
-            B, Lm, Ln, A, V, KW, g, h, int(is_local), threads,
-            _build.stream_handle(dev),
+        per_sm = gp.blocks_per_sm(lib.gotoh_matrix_blocks_per_sm, rows // 32, int(is_local),
+                                  int(emit_dirs))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return run_matrix(lib, code1, prof, ms_h, ns_h, g, h, is_local, emit_dirs, route, rows,
+                          gp.resident_blocks(per_sm, sms, max_blocks),
+                          gp.SPIN_NS if spin_ns is None else spin_ns,
+                          _build.stream_handle(dev))
+
+
+def run_matrix(lib, code1, prof, ms_h, ns_h, g, h, is_local, emit_dirs, route, rows, resident,
+               spin_ns, stream) -> StreamFill:
+    """Plan and launch the matrix fill over the batch's tensors
+    (``gotoh_pallas.launch_groups``); returns the fill with its error
+    word unread."""
+    dev = code1.device
+    B, Lm = code1.shape
+    A, Ln = prof.shape[1], prof.shape[2]
+    KW, V = dirs_shape(Lm, Ln)
+    i32 = dict(dtype=torch.int32, device=dev)
+    dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
+    res = torch.empty((B, 3), **i32)
+    if B == 0:
+        return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs, torch.zeros((), **i32))
+
+    def launch(lo, hi, plan, work, ring, nlevels, total, blocks):
+        return lib.gotoh_matrix_launch(
+            _build.ptr(code1[lo:hi]), _build.ptr(prof[lo:hi]), _build.ptr(plan),
+            _build.ptr(work), _build.ptr(ring), _build.ptr(None if dirs is None else dirs[lo:hi]),
+            _build.ptr(res[lo:hi]), hi - lo, Lm, Ln, A, V, KW, nlevels, total, g, h,
+            int(is_local), rows // 32, blocks, int(spin_ns), stream,
         )
-    _build.check(err, "gotoh_matrix")
-    COUNTS[f"{route}_kernel"] += 1
-    return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs)
+
+    counts = {"kernel": 0}
+    err = gp.launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, "gotoh_matrix")
+    COUNTS[f"{route}_kernel"] += counts["kernel"]
+    return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs, err)
 
 
 def matrix_fill_plain(code1, prof, ms, ns, g: int, h: int, is_local: bool = False,
@@ -301,4 +333,11 @@ def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool
             out = gotoh_scores_matrix_stream(s1, s2, ms, ns, matrix, g, h, is_local)
         if out is not None:
             return out
-    return tuple(gotoh_matrix_fill(s1, s2, ms, ns, matrix, g, h, is_local)[:3])
+    return checked_scores(gotoh_matrix_fill(s1, s2, ms, ns, matrix, g, h, is_local))
+
+
+def checked_scores(fill: StreamFill):
+    """``(score, start_i, start_j)`` of a fill, after reading its error
+    word (on the card, one synchronisation)."""
+    gp.raise_on_err(fill.err, "gotoh_matrix")
+    return fill.score, fill.start_i, fill.start_j

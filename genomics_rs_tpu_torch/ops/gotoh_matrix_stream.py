@@ -4,9 +4,10 @@
 The JAX module packs many pairs into one TPU lane vector along both
 axes (K14, ``_mstream_fill``) and builds that stream's substitution
 input with an assembler kernel (K15, ``_mstream_build_fast``). The port
-fills one pair per thread block, so these entries are the matrix fill
-of ``ops/gotoh_matrix`` (profile kernel, then fill kernel) under the
-``"stream"`` route, with the JAX contracts:
+fills each pair's row strips on their own warps (K3's warp-strip
+pipeline), so these entries are the matrix fill of ``ops/gotoh_matrix``
+(profile kernel, then fill kernel) under the ``"stream"`` route, with
+the JAX contracts:
 
 * :func:`gotoh_scores_matrix_stream` and its grouped form, ``(score,
   start_i, start_j)``;
@@ -27,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genomics_rs_tpu_torch.ops.gotoh_matrix import _ext_matrix, gotoh_matrix_fill
+from genomics_rs_tpu_torch.ops.gotoh_matrix import _ext_matrix, checked_scores, gotoh_matrix_fill
+from genomics_rs_tpu_torch.ops.gotoh_pallas import raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_stream import StreamDirsResult
 
 
@@ -50,8 +52,8 @@ def gotoh_scores_matrix_stream(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, m
     ``s1eb`` picks the kernels or their plain versions."""
     if not _applicable(ms, ns, matrix):
         return None
-    return tuple(gotoh_matrix_fill(s1eb, s2eb, ms, ns, matrix, g, h, is_local,
-                                   route="stream")[:3])
+    return checked_scores(gotoh_matrix_fill(s1eb, s2eb, ms, ns, matrix, g, h, is_local,
+                                            route="stream"))
 
 
 def gotoh_scores_matrix_stream_grouped(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix,
@@ -63,12 +65,11 @@ def gotoh_scores_matrix_stream_grouped(s1eb: torch.Tensor, s2eb: torch.Tensor, m
     if not _applicable(ms, ns, matrix):
         return None
     ms, ns = _host(ms), _host(ns)
-    outs = []
-    for g0 in range(0, len(ms), group_size):
-        sl = slice(g0, g0 + group_size)
-        outs.append(gotoh_matrix_fill(s1eb[sl], s2eb[sl], ms[sl], ns[sl], matrix, g, h,
-                                      is_local, route="stream")[:3])
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    fills = [gotoh_matrix_fill(s1eb[sl], s2eb[sl], ms[sl], ns[sl], matrix, g, h, is_local,
+                               route="stream")
+             for sl in (slice(g0, g0 + group_size) for g0 in range(0, len(ms), group_size))]
+    raise_on_err(torch.stack([f.err for f in fills]).max(), "gotoh_matrix")
+    return tuple(torch.cat(parts) for parts in zip(*(f[:3] for f in fills)))
 
 
 class MatrixStreamDirsResult(StreamDirsResult):

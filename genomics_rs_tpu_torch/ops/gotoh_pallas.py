@@ -40,7 +40,7 @@ import torch
 from genomics_rs_tpu_torch.ops import _build
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN, FillResult
-from genomics_rs_tpu_torch.ops.gotoh_stream import _lengths, wavefront_plain
+from genomics_rs_tpu_torch.ops import gotoh_stream as gs  # imports this module too
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
 
 #: sublane count of the JAX flat layout (kept for the modules that import
@@ -142,7 +142,7 @@ def gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local: bool = False,
     dev = s1eb.device
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
-    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    ms_h, ns_h = gs._lengths(ms, ns, B, Lm, Ln)
     i32 = dict(dtype=torch.int32, device=dev)
     st = scores.s_transition if kimura_active(scores) else None
     s1c = encode_chars(s1eb, scores)
@@ -172,7 +172,7 @@ def gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local: bool = False,
             return sub_score(s1m, s2j, scores.s_match, scores.s_mismatch, st)
 
         last = s == nstrips - 1
-        out = wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, scores.g, scores.h, is_local,
+        out = gs.wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, scores.g, scores.h, is_local,
                               False, dev, i0=i0, V=V, top=top, emit_bottom=not last)
         fill, top = (out, None) if last else out
         if is_local:
@@ -209,6 +209,8 @@ def pipeline_groups(ms_h, Ln: int, rows: int, ring_bytes: int | None = None
     budget = ring_budget(Ln, ring_bytes)
     if budget < int(need.max(initial=0)):
         raise ValueError(f"gotoh_pallas: two ring slots of {Ln + 1} columns pass PIPE_RING_BYTES")
+    if int(need.sum()) <= budget:  # the common case: one launch
+        return [(0, len(need))]
     groups, lo, used = [], 0, 0
     for p, k in enumerate(need.tolist()):
         if used + k > budget:
@@ -286,20 +288,37 @@ def _pallas_cuda(s1eb, s2eb, ms, ns, scores, is_local, rows_per_strip=PIPE_ROWS,
     Ln = s2eb.shape[1]
     _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
     _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
-    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    ms_h, ns_h = gs._lengths(ms, ns, B, Lm, Ln)
     if B == 0:
         return tuple(torch.empty((0,), dtype=torch.int32, device=dev) for _ in range(3))
     lib = _build.library()
     rows = pipe_rows(Lm, rows_per_strip)
-    if rows % 32 or rows // 32 not in LANE_ROWS:
-        raise ValueError(f"gotoh_pallas: {rows} rows a strip is not 32 x {LANE_ROWS}")
+    check_rows(rows, "gotoh_pallas")
     with torch.cuda.device(dev):
-        per_sm = lib.gotoh_pallas_blocks_per_sm(rows // 32, int(is_local))
+        per_sm = blocks_per_sm(lib.gotoh_pallas_blocks_per_sm, rows // 32, int(is_local))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         res = run_pipeline(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, rows,
                            resident_blocks(per_sm, sms, max_blocks), counts, spin_ns,
                            _build.stream_handle(dev))
     return res
+
+
+def check_rows(rows: int, what: str) -> None:
+    """Raise unless ``rows`` is a compiled strip height (32 x RT)."""
+    if rows % 32 or rows // 32 not in LANE_ROWS:
+        raise ValueError(f"{what}: {rows} rows a strip is not 32 x {LANE_ROWS}")
+
+
+_PER_SM: dict = {}
+
+
+def blocks_per_sm(query, *args) -> int:
+    """``query(*args)``, a library's occupancy query for one compiled
+    kernel, asked once a process (the answer does not change)."""
+    key = (query.__name__, *args)
+    if key not in _PER_SM:
+        _PER_SM[key] = query(*args)
+    return _PER_SM[key]
 
 
 def resident_blocks(per_sm: int, sms: int, max_blocks=None) -> int:
@@ -318,35 +337,58 @@ def run_pipeline(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, rows, resident, 
     (on the card), one launch for each of :func:`pipeline_groups`' pair
     ranges; returns ``(score, start_i, start_j)`` after reading the
     launches' error words."""
-    dev = s1eb.device
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
-    i32 = dict(dtype=torch.int32, device=dev)
     kim = kimura_active(scores)
     s1c = encode_chars(s1eb, scores).contiguous()
     s2c = encode_chars(s2eb, scores).contiguous()
-    res = torch.empty((B, 3), **i32)
-    errs = []
-    for lo, hi in pipeline_groups(ms_h, Ln, rows):
-        plan_h, nlevels, total, blocks, nslots = pipeline_plan(
-            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident,
-            inflight=strips_in_flight(np.asarray(ns_h[lo:hi]) + 1, 0))
-        plan = torch.from_numpy(plan_h).to(dev)
-        work = torch.zeros(WORK_HEAD + 5 * total + (hi - lo), **i32)
-        ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
-        err = lib.gotoh_pallas_launch(
+    res = torch.empty((B, 3), dtype=torch.int32, device=s1eb.device)
+
+    def launch(lo, hi, plan, work, ring, nlevels, total, blocks):
+        return lib.gotoh_pallas_launch(
             _build.ptr(s1c[lo:hi]), _build.ptr(s2c[lo:hi]), _build.ptr(plan),
             _build.ptr(work), _build.ptr(ring), _build.ptr(res[lo:hi]), hi - lo, Lm, Ln,
             nlevels, total, scores.s_match, scores.s_mismatch,
             scores.s_transition if kim else 0, int(kim), scores.g, scores.h,
             int(is_local), rows // 32, blocks, int(spin_ns), stream,
         )
-        _build.check(err, "gotoh_pallas")
+
+    raise_on_err(launch_groups(launch, ms_h, ns_h, Ln, rows, resident, s1eb.device, counts,
+                               "gotoh_pallas"))
+    return res[:, 0], res[:, 1], res[:, 2]
+
+
+def launch_groups(launch, ms_h, ns_h, Ln: int, rows: int, resident: int, dev, counts,
+                  what: str) -> torch.Tensor:
+    """Plan each of :func:`pipeline_groups`' pair ranges ``[lo, hi)`` and
+    launch it by ``launch(lo, hi, plan, work, ring, nlevels, total,
+    blocks)`` (a CUDA launch that returns its cudaError; ``work`` is the
+    zeroed workspace, ``ring`` the range's slots), adding one to
+    ``counts["kernel"]`` a launch. Returns the launches' largest error
+    word as a 0-d int32 tensor on ``dev``, not read: the caller reads it
+    where it reads the results (:func:`raise_on_err`)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    errs = []
+    for lo, hi in pipeline_groups(ms_h, Ln, rows):
+        plan_h, nlevels, total, blocks, nslots = pipeline_plan(
+            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident,
+            inflight=strips_in_flight(np.asarray(ns_h[lo:hi]) + 1, 0))
+        plan = torch.from_numpy(plan_h)
+        if dev.type == "cuda":  # a pinned copy does not wait for the stream's earlier work
+            plan = plan.pin_memory().to(dev, non_blocking=True)
+        work = torch.zeros(WORK_HEAD + 5 * total + (hi - lo), **i32)
+        ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
+        _build.check(launch(lo, hi, plan, work, ring, nlevels, total, blocks), what)
         counts["kernel"] += 1
         errs.append(work[1])
-    if int(torch.stack(errs).max()) != 0:  # the launches' error words (synchronises)
-        raise RuntimeError("gotoh_pallas: a strip pipeline wait passed its bound")
-    return res[:, 0], res[:, 1], res[:, 2]
+    return errs[0] if len(errs) == 1 else torch.stack(errs).max()
+
+
+def raise_on_err(err, what: str = "gotoh_pallas") -> None:
+    """Raise if a warp-strip pipeline's error word (a tensor or an int;
+    reading a card tensor synchronises) is set."""
+    if int(err) != 0:
+        raise RuntimeError(f"{what}: a strip pipeline wait passed its bound")
 
 
 def blocked_rows(R: int, Lm: int | None = None) -> int:

@@ -1,4 +1,4 @@
-"""Batched Gotoh fill, one pair per thread block (kernel K3; counterpart
+"""Batched Gotoh fill on the warp-strip pipeline (kernel K3; counterpart
 of ``genomics_rs_tpu/ops/gotoh_stream.py``).
 
 :func:`gotoh_scores_stream` and :func:`gotoh_stream_fill_dirs` keep the
@@ -6,13 +6,16 @@ contracts of their JAX namesakes: for a padded batch ``s1eb`` (B, Lm),
 ``s2eb`` (B, Ln) of uint8 byte codes with true lengths ``ms``/``ns``,
 each pair's global score at ``(m, n)`` or its local keep-last row-major
 argmax ``(v, i, j)``, and optionally each pair's packed direction codes.
-On a CUDA tensor they launch ``csrc/gotoh_stream.cu``; on a CPU tensor
-they run :func:`gotoh_stream_plain`.
+On a CUDA tensor they launch ``csrc/gotoh_stream.cu``: every row strip of
+:func:`stream_rows` rows is one warp's work in K9's warp-strip pipeline
+(``csrc/gotoh_warp_pipe.cuh``), a pair's strips on many SMs, planned and
+launched by ``gotoh_pallas.launch_groups``; on a CPU tensor they run
+:func:`gotoh_stream_plain`.
 
 The JAX kernel streams every pair through one V-lane wavefront and
-keeps one global (Kp/16, V) word array; the port fills each pair in its
-own thread block and its own bitmap. So the layouts differ and the
-contracts do not:
+keeps one global (Kp/16, V) word array; the port fills each pair's
+strips on their own warps and keeps one bitmap a pair. So the layouts
+differ and the contracts do not:
 
 * ``dirs`` int32 ``(B, KW, V)``, ``KW = (Lm + Ln)/16 + 1``,
   ``V = lane_count(Lm)``: the code at cell ``(i, j)`` of pair ``p`` is
@@ -22,6 +25,8 @@ contracts do not:
   plain version.
 * The kernel computes only true cells, so it needs none of the JAX
   wrapper's fallbacks (B < 2, zero lengths, probe collisions, drift).
+* The launch does not synchronise: :class:`StreamFill` carries the
+  pipeline's error word, and the readers of the scores raise on it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.ops import _build
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp  # imports this module too
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import PACK, _wrap_int32, lane_count
 from genomics_rs_tpu_torch.ops.gotoh_scan import (
     DIR_DEL,
@@ -47,21 +53,30 @@ from genomics_rs_tpu_torch.ops.subst import (
     sentinel,
     sub_score,
 )
-from genomics_rs_tpu_torch.sequence import round_up
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
+#: the strip height (32 x RT rows) of K3 and the matrix fill, but for
+#: short buckets and scores-only buckets that fill twice as many rows
+#: (:func:`stream_rows`); ``tools/time_fills.py --only sweep`` times every
+#: height on the card (PERF.md).
+STREAM_ROWS = 256
 
 
 class StreamFill(NamedTuple):
     """Per-pair results, int32 tensors of shape (B,) on the fill's device:
     the global score at (m, n) with ``start = (m, n)``, or the local
-    best with its start cell; ``dirs`` (B, KW, V) or None."""
+    best with its start cell; ``dirs`` (B, KW, V) or None; ``err`` the
+    kernel's error word (0-d int32, zero from the plain version), not
+    read by the fill: whoever reads the scores calls
+    ``gotoh_pallas.raise_on_err(err)`` (:class:`StreamDirsResult` and
+    :func:`gotoh_scores_stream` do)."""
 
     score: torch.Tensor
     start_i: torch.Tensor
     start_j: torch.Tensor
     dirs: torch.Tensor | None
+    err: torch.Tensor
 
 
 def dirs_shape(Lm: int, Ln: int) -> tuple[int, int]:
@@ -95,8 +110,10 @@ def gotoh_stream_fill(
 
 
 def gotoh_scores_stream(s1eb, s2eb, ms, ns, scores, is_local: bool = False):
-    """``(score, start_i, start_j)``, int32 tensors of shape (B,)."""
+    """``(score, start_i, start_j)``, int32 tensors of shape (B,), after
+    reading the fill's error word (on the card, one synchronisation)."""
     out = gotoh_stream_fill(s1eb, s2eb, ms, ns, scores, is_local)
+    gp.raise_on_err(out.err, "gotoh_stream")
     return out.score, out.start_i, out.start_j
 
 
@@ -107,13 +124,14 @@ class StreamDirsResult:
     ``t`` with ``device_walk(res.segment_dirs(t), start_i[t],
     start_j[t], 0, max_steps)``, or every pair at once with
     ``walk_many`` over ``res.dirs.view(B * KW, V)`` at word-row offsets
-    ``t * KW``."""
+    ``t * KW``. Raises if the fill's error word is set."""
 
     def __init__(self, fill: StreamFill):
         self.dirs = fill.dirs
         self.score = fill.score.cpu().numpy()
         self.start_i = fill.start_i.cpu().numpy()
         self.start_j = fill.start_j.cpu().numpy()
+        gp.raise_on_err(fill.err, "batched fill")
         self.KW = fill.dirs.shape[1]
 
     def segment_dirs(self, t: int) -> torch.Tensor:
@@ -131,7 +149,37 @@ def gotoh_stream_fill_dirs(
     )
 
 
-def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False) -> StreamFill:
+def stream_rows(ms_h, ns_h, Lm: int, emit_dirs: bool) -> int:
+    """The strip height (32 x RT rows) of K3 and the matrix fill for a
+    bucket of padded ``Lm`` rows and true lengths ``ms_h``/``ns_h``:
+    :data:`STREAM_ROWS`, or the least compiled height that holds the
+    bucket's ``Lm + 1`` rows if that is lower; a scores-only bucket
+    takes twice :data:`STREAM_ROWS` where the step model says its strips
+    cost less there. The model, from the strip-height sweep on the card
+    (PERF.md): a strip sweeps ``n + 32`` steps and a step costs ``4 + RT``
+    (the shuffles and the hand-off, then RT cells), so a pair of ``s``
+    strips costs ``s (n + 32) (4 + RT)``. With codes every bucket the
+    sweep took was fastest at :data:`STREAM_ROWS`."""
+    rows = gp.pipe_rows(Lm, STREAM_ROWS)
+    if emit_dirs or rows < STREAM_ROWS or len(ms_h) == 0:
+        return rows
+    cols = np.asarray(ns_h, np.float64) + 32
+
+    def cost(h: int) -> float:
+        return float(np.sum(gp.strip_counts(ms_h, h) * cols)) * (4 + h // 32)
+
+    return 2 * rows if cost(2 * rows) < cost(rows) else rows
+
+
+def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False, rows_per_strip=None,
+                 max_blocks=None, spin_ns=None) -> StreamFill:
+    """Launch K3 on the warp-strip pipeline at strips of ``rows_per_strip``
+    rows (a compiled height; default :func:`stream_rows`'s), one launch for
+    each of ``gotoh_pallas.pipeline_groups``' pair ranges, each adding
+    one to ``COUNTS["kernel"]``; ``max_blocks`` caps the persistent grid
+    (the card tests cycle tickets and ring slots with it), ``spin_ns``
+    bounds a wait that sees nothing of the launch move. Does not
+    synchronise: the error word comes back in the result."""
     dev = s1eb.device
     if dev.type != "cuda":
         raise ValueError(f"the K3 kernel takes CUDA tensors, not {dev}")
@@ -140,31 +188,48 @@ def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False) -> Strea
     _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
     _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
     ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+    rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
+            else int(rows_per_strip))
+    gp.check_rows(rows, "gotoh_stream")
     lib = _build.library()
+    with torch.cuda.device(dev):
+        per_sm = gp.blocks_per_sm(lib.gotoh_stream_blocks_per_sm, rows // 32, int(is_local),
+                                  int(emit_dirs))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows,
+                          gp.resident_blocks(per_sm, sms, max_blocks),
+                          gp.SPIN_NS if spin_ns is None else spin_ns,
+                          _build.stream_handle(dev))
+
+
+def run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows, resident,
+               spin_ns, stream) -> StreamFill:
+    """Plan and launch K3 over the batch's tensors (``gotoh_pallas.
+    launch_groups``); returns the fill with its error word unread."""
+    dev = s1eb.device
+    B, Lm = s1eb.shape
+    Ln = s2eb.shape[1]
     KW, V = dirs_shape(Lm, Ln)
     i32 = dict(dtype=torch.int32, device=dev)
-    s1c = encode_chars(s1eb, scores).contiguous()
-    s2c = encode_chars(s2eb, scores).contiguous()
-    ms_d = torch.as_tensor(ms_h, dtype=torch.int32).to(dev)
-    ns_d = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)
     dirs = torch.zeros((B, KW, V), **i32) if emit_dirs else None
     res = torch.empty((B, 3), **i32)
-    scratch = torch.empty((B, 4 * (Ln + 1)), **i32)
-    threads = min(1024, round_up(Lm + 1, 32))
+    if B == 0:
+        return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs, torch.zeros((), **i32))
     kim = kimura_active(scores)
-    with torch.cuda.device(dev):
-        err = lib.gotoh_stream_launch(
-            _build.ptr(s1c), _build.ptr(s2c), _build.ptr(ms_d), _build.ptr(ns_d),
-            _build.ptr(dirs), _build.ptr(res), _build.ptr(scratch),
-            B, Lm, Ln, V, KW,
-            scores.s_match, scores.s_mismatch,
-            scores.s_transition if kim else 0, int(kim),
-            scores.g, scores.h, int(is_local), threads,
-            _build.stream_handle(dev),
+    s1c = encode_chars(s1eb, scores).contiguous()
+    s2c = encode_chars(s2eb, scores).contiguous()
+
+    def launch(lo, hi, plan, work, ring, nlevels, total, blocks):
+        return lib.gotoh_stream_launch(
+            _build.ptr(s1c[lo:hi]), _build.ptr(s2c[lo:hi]), _build.ptr(plan),
+            _build.ptr(work), _build.ptr(ring), _build.ptr(None if dirs is None else dirs[lo:hi]),
+            _build.ptr(res[lo:hi]), hi - lo, Lm, Ln, V, KW, nlevels, total,
+            scores.s_match, scores.s_mismatch, scores.s_transition if kim else 0, int(kim),
+            scores.g, scores.h, int(is_local), rows // 32, blocks, int(spin_ns), stream,
         )
-    _build.check(err, "gotoh_stream")
-    COUNTS["kernel"] += 1
-    return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs)
+
+    err = gp.launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, COUNTS, "gotoh_stream")
+    return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs, err)
 
 
 def gotoh_stream_plain(
@@ -304,12 +369,14 @@ def wavefront_plain(sub_at, B: int, Lm: int, Ln: int, ms_h, ns_h, g: int, h: int
             bottom[1][:, k - (V - 1)] = Mn[:, V - 1]
         I, P, A, M, SM = In, torch.maximum(Sn, Dn), An, Mn, SMn
 
+    no_err = torch.zeros((), **i32)
     if not is_local:
-        fill = StreamFill(fin, m_col[:, 0] + i0, n_col[:, 0].clone(), dirs)
+        fill = StreamFill(fin, m_col[:, 0] + i0, n_col[:, 0].clone(), dirs, no_err)
     else:
         vmax = bv.max(1).values
         tied = bv == vmax[:, None]
         i_best = torch.where(tied, iv, -1).max(1).values
         j_best = torch.where(tied & (iv == i_best[:, None]), bk, -1).max(1).values
-        fill = StreamFill(vmax, (i_best + i0).to(torch.int32), j_best.to(torch.int32), dirs)
+        fill = StreamFill(vmax, (i_best + i0).to(torch.int32), j_best.to(torch.int32), dirs,
+                          no_err)
     return (fill, bottom) if emit_bottom else fill

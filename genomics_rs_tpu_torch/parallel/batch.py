@@ -6,8 +6,8 @@ Five engines, each a kernel on a CUDA device and its plain version on the
 CPU: ``"shortread"`` (K6, one warp a pair, up to 256 bytes),
 ``"segmented"`` and ``"stream8"`` (K7 and K8: the warp-strip kernel, one
 warp a pair at any length, each route with its own launch count),
-``"stream"`` (K3, one thread block a pair) and ``"pallas"`` (K9, one
-pair's row strips pipelined over many blocks). ``"auto"`` tiers a bucket
+``"stream"`` (K3) and ``"pallas"`` (K9; both one pair's row strips
+pipelined over many warps, K3's launch returning its error word unread). ``"auto"`` tiers a bucket
 by padded length as the JAX router does on its device
 (:func:`route_engine`). ``"scan"`` is not ported (ROADMAP Queue A item
 3).
@@ -27,10 +27,10 @@ import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.device import resolve_device
-from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_scores_pallas_batch
+from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_scores_pallas_batch, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_segmented import gotoh_scores_segmented
 from genomics_rs_tpu_torch.ops.gotoh_shortread import SHORTREAD_MAX_LEN, gotoh_scores_shortread
-from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream
+from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream, gotoh_stream_fill
 from genomics_rs_tpu_torch.ops.gotoh_stream8 import gotoh_scores_stream8
 from genomics_rs_tpu_torch.parallel.mesh import DATA_AXIS, axis_devices
 
@@ -76,12 +76,26 @@ def route_engine(B: int, Lm: int, Ln: int, is_local: bool, ms, ns) -> str:
 
 def _kernel_scores(engine: str, s1b, s2b, ms, ns, scores, is_local: bool):
     """Dispatch one named engine on tensors already on their device;
-    returns (score, start_i, start_j) int32 tensors of shape (B,)."""
+    returns (score, start_i, start_j) int32 tensors of shape (B,) and
+    K3's unread error word (None from the other engines, which read
+    their own): the caller reads it with the scores (:func:`_read`)."""
     if engine == "scan":
         raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    return _ENGINES[engine](s1b, s2b, ms, ns, scores, is_local)
+    if engine == "stream":
+        fill = gotoh_stream_fill(s1b, s2b, ms, ns, scores, is_local)
+        return fill.score, fill.start_i, fill.start_j, fill.err
+    return (*_ENGINES[engine](s1b, s2b, ms, ns, scores, is_local), None)
+
+
+def _read(outs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Numpy (score, start_i, start_j) of :func:`_kernel_scores` results,
+    concatenated, after their error words are read."""
+    for o in outs:
+        if o[3] is not None:
+            raise_on_err(o[3], "gotoh_stream")
+    return tuple(np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
 
 
 def score_pairs(s1b, s2b, ms, ns, scores, is_local: bool = False,
@@ -96,8 +110,7 @@ def score_pairs(s1b, s2b, ms, ns, scores, is_local: bool = False,
         engine = route_engine(s1b.shape[0], s1b.shape[1], s2b.shape[1], is_local, ms, ns)
     s1 = torch.as_tensor(np.ascontiguousarray(s1b), dtype=torch.uint8).to(dev)
     s2 = torch.as_tensor(np.ascontiguousarray(s2b), dtype=torch.uint8).to(dev)
-    out = _kernel_scores(engine, s1, s2, ms, ns, scores, is_local)
-    return tuple(x.cpu().numpy() for x in out)
+    return _read([_kernel_scores(engine, s1, s2, ms, ns, scores, is_local)])
 
 
 def pad_batch(arrs, batch: int, multiple: int, pad_values=None):
@@ -183,7 +196,7 @@ def batch_scores_sharded(mesh, s1eb, s2eb, ms, ns, scores, is_local: bool,
         outs.append(_kernel_scores(e, s1, s2, ms[sl], ns[sl], scores, is_local))
         f = np.float32
         cells.append(np.sum((ms[sl].astype(f) + f(1)) * (ns[sl].astype(f) + f(1)), dtype=f))
-    sc, si, sj = (np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
+    sc, si, sj = _read(outs)
     return BatchScores(score=sc, start_i=si, start_j=sj, max_score=int(sc.max()),
                        total_cells=np.sum(np.array(cells, np.float32), dtype=np.float32))
 
@@ -206,4 +219,4 @@ def device_loop_scores(devices, s1b, s2b, ms, ns, scores, is_local: bool,
         s1 = torch.as_tensor(np.ascontiguousarray(s1p[sl]), dtype=torch.uint8).to(d)
         s2 = torch.as_tensor(np.ascontiguousarray(s2p[sl]), dtype=torch.uint8).to(d)
         outs.append(_kernel_scores(engine, s1, s2, mp[sl], np_[sl], scores, is_local))
-    return tuple(np.concatenate([o[x].cpu().numpy() for o in outs])[:B] for x in range(3))
+    return tuple(x[:B] for x in _read(outs))

@@ -9,10 +9,12 @@ strip pipeline of K9 and its K16 entry, and K1's tile form K5 with a
 two-shard pipeline on one card) equal to the plain versions, bit for
 bit; K1 and K5 also at the edges of their strip pipeline (strip counts,
 chunk widths, capped grids, a tight ring) and with a set error word; the
-warp-strip pipeline of K9, K16, K10 and K12 at its edges (strips that end
-mid-lane, one-row and empty pairs, local ties, capped grids, a tight ring
-under a short wait bound, bands at column 0 and bands that slide, every
-band width that had its own compiled form, mixed batches).
+warp-strip pipeline of K9, K16, K3, the matrix fill, K10 and K12 at its
+edges (strips that end mid-lane, one-row and empty pairs, local ties,
+capped grids, a tight ring under a short wait bound, every strip height
+with and without diag16 codes, an error word that comes back unread,
+bands at column 0 and bands that slide, every band width that had its own
+compiled form, mixed batches).
 """
 
 import numpy as np
@@ -601,8 +603,8 @@ def _matrix(kind):
 MATRIX_CASES = [
     ([300, 0, 17, 250], [280, 40, 0, 260], 384, 384),  # zero lengths
     ([383], [383], 384, 384),  # B = 1
-    ([1000, 990], [1000, 1000], 1024, 1024),  # 1,000 aa: one strip of 1,024 threads
-    ([1500, 700], [1400, 1500], 1536, 1536),  # two strips (scratch rows)
+    ([1000, 990], [1000, 1000], 1024, 1024),  # 1,000 aa: four strips of 256 rows
+    ([1500, 700], [1400, 1500], 1536, 1536),  # six and three strips
 ]
 
 
@@ -674,6 +676,121 @@ def test_matrix_aligners_cuda_match_cpu(cuda, is_local):
     one = PairwiseAligner(Scores(0, 0, -1, -11), is_local, device="cuda", matrix=mx)
     assert (one.align(*pairs[3]).alignment, one.score_only(*pairs[3])) == (
         want[3].alignment, want[3].score)
+
+
+def _same_fill(got, want, ms, ns):
+    """Scores, start cells, a clear error word and, where the plain fill
+    has dirs, the codes at every true cell."""
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert int(got.err) == 0
+    if want.dirs is not None:
+        gd, wd = got.dirs.cpu().numpy(), want.dirs.cpu().numpy()
+        for p in range(len(ms)):
+            assert np.array_equal(_codes_at(gd[p], ms[p], ns[p]), _codes_at(wd[p], ms[p], ns[p]))
+
+
+#: K3's and the matrix fill's pipeline edges: empty sequences, one row
+#: and one column, m + 1 not a multiple of any strip height, multi-strip
+#: pairs at every height (rows past 32 x 16).
+PIPE_MS, PIPE_NS = [700, 0, 1, 130, 545, 17, 1100], [650, 33, 1, 0, 700, 1, 1000]
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("rows", [32 * r for r in gp.LANE_ROWS])
+@pytest.mark.parametrize("dirs", [False, True])
+def test_stream_pipeline_every_strip_height(cuda, is_local, rows, dirs):
+    """K3 on the warp-strip pipeline at every compiled strip height, on
+    the whole grid and on 3 blocks (tickets and ring slots cycle),
+    kimura, == the plain version (codes at every true cell)."""
+    rng = np.random.default_rng(70 + rows)
+    s1, s2, ms, ns = _stream_batch(rng, PIPE_MS, PIPE_NS, 1152, 1024)
+    sc = Scores(2, -3, -2, -4, -1)
+    want = gs.gotoh_stream_plain(s1, s2, ms, ns, sc, is_local, emit_dirs=dirs)
+    for max_blocks in (None, 3):
+        before = gs.COUNTS["kernel"]
+        got = gs._stream_cuda(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local, dirs, rows,
+                              max_blocks)
+        _same_fill(got, want, ms, ns)
+        assert gs.COUNTS["kernel"] == before + 1
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_stream_pipeline_one_pair_and_tight_ring(cuda, monkeypatch, is_local):
+    """B = 1 of 29 strips, and a ring of five slots for the ragged batch
+    on 3 blocks: three launches, two or more slots a multi-strip pair,
+    scores and codes == the plain version."""
+    rng = np.random.default_rng(73)
+    s1, s2, ms, ns = _stream_batch(rng, [3700], [2100], 3712, 2176)
+    want = gs.gotoh_stream_plain(s1, s2, ms, ns, Scores(), is_local, emit_dirs=True)
+    _same_fill(gs._stream_cuda(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local, True, 128),
+               want, ms, ns)
+    s1, s2, ms, ns = _stream_batch(rng, STRIP_MS, STRIP_NS, 768, 768)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 5 * 8 * 769)
+    want = gs.gotoh_stream_plain(s1, s2, ms, ns, Scores(), is_local, emit_dirs=True)
+    before = gs.COUNTS["kernel"]
+    got = gs._stream_cuda(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local, True, 64, 3)
+    _same_fill(got, want, ms, ns)
+    assert gs.COUNTS["kernel"] == before + len(gp.pipeline_groups(ms, 768, 64)) == before + 3
+
+
+@pytest.mark.parametrize("rows", [32, 256])
+def test_stream_pipeline_local_ties_and_stops(cuda, rows):
+    """Local ties across a lane's rows and across strips keep the
+    row-major last best, and an all-mismatch batch's codes (STOP on row 0
+    and column 0, the floor inside) equal the plain version's."""
+    unit = np.frombuffer(b"ACGTTGCA", np.uint8)
+    s1 = torch.from_numpy(np.stack([np.tile(unit, 80)[:600], np.tile(unit[::-1], 80)[:600]]))
+    s2 = torch.from_numpy(np.stack([np.tile(unit, 20)[:150]] * 2))
+    ties = (s1, s2, np.array([600, 599]), np.array([150, 149]))
+    for a1, a2, m, n in (ties, _mismatch_batch([120, 600, 1, 333], [100, 150, 7, 1], 640)):
+        want = gs.gotoh_stream_plain(a1, a2, m, n, Scores(), True, emit_dirs=True)
+        got = gs._stream_cuda(a1.to(cuda), a2.to(cuda), m, n, Scores(), True, True, rows, 3)
+        _same_fill(got, want, m, n)
+
+
+def test_stream_pipeline_error_word_comes_back(cuda, monkeypatch):
+    """A 1 ns wait bound trips: the launch returns, its error word is set
+    in the result, and each reader raises."""
+    from genomics_rs_tpu_torch.parallel.batch import _read
+
+    rng = np.random.default_rng(74)
+    s1, s2, ms, ns = _stream_batch(rng, [1279], [9000], 1280, 9000)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 2 * 8 * 9001)
+    c1, c2 = s1.to(cuda), s2.to(cuda)
+    got = gs._stream_cuda(c1, c2, ms, ns, Scores(), False, True, 32, 2, spin_ns=1)
+    assert int(got.err) != 0
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        gs.StreamDirsResult(got)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        _read([(got.score, got.start_i, got.start_j, got.err)])
+    ok = gs._stream_cuda(c1, c2, ms, ns, Scores(), False, True, 32, 2, spin_ns=1_000_000)
+    _same_fill(ok, gs.gotoh_stream_plain(s1, s2, ms, ns, Scores(), False, emit_dirs=True), ms, ns)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("rows", [32 * r for r in gp.LANE_ROWS])
+def test_matrix_pipeline_every_strip_height(cuda, is_local, rows):
+    """The matrix fill at every compiled strip height, whole grid and 3
+    blocks, scores and codes == the plain version: zero lengths, B = 1,
+    multi-strip pairs, an asymmetric matrix; the route counts its
+    launches."""
+    rng = np.random.default_rng(80 + rows)
+    for kind in ("blosum62", "asymmetric"):
+        mx = _matrix(kind)
+        s1, s2, ms, ns = _prot_batch(rng, [383, 0, 17, 700, 1], [383, 40, 0, 650, 1], 768, 768)
+        code1, prof = gm.row_codes(s1, mx), gm.matrix_profile_plain(s2, ns, mx)
+        for sel in (slice(None), slice(3, 4)):
+            c, pf, m, n = code1[sel].contiguous(), prof[sel].contiguous(), ms[sel], ns[sel]
+            for dirs in (False, True):
+                want = gm.matrix_fill_plain(c, pf, m, n, -1, -11, is_local, dirs)
+                for max_blocks in (None, 3):
+                    before = gm.COUNTS["stream_kernel"]
+                    got = gm._matrix_cuda(c.to(cuda), pf.to(cuda), m, n, -1, -11, is_local, dirs,
+                                          "stream", rows, max_blocks)
+                    _same_fill(got, want, m, n)
+                    assert gm.COUNTS["stream_kernel"] == before + 1
 
 
 #: a ragged batch for the strip kernels: empty sequences, one-base pairs,

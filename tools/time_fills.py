@@ -325,6 +325,99 @@ def main() -> None:
         out[f"K14 8192 x 383 aa local={is_local}"] = {
             "ms": cuda_ms(run), "sum": checksum(res[0], res[1], res[2])}
 
+    # K3 and the matrix fill at the paths' shapes: K3 on the 55-pair corpus
+    # of 10 x 29,900 bp genomes (global), on its first --alignments-out group
+    # of 9 pairs with dirs, and on call's round (4,096 reads of 150 bp
+    # against 380 bp windows, 256 x 384, local, dirs); the matrix fill on
+    # 32,768 x 383 aa (route "stream", one launch), 1,024 x 192-384 aa
+    # (route "pallas") and 256 x 383 aa with dirs; then, where the build's
+    # wrappers take a strip height, each of them at every compiled one.
+    sweep = "rows_per_strip" in inspect.signature(gs._stream_cuda).parameters
+
+    def fill_sum(res) -> int:
+        total = checksum(res.score, res.start_i, res.start_j)
+        return total + (0 if res.dirs is None else int(res.dirs.sum(dtype=torch.int64)))
+
+    enc = [np.frombuffer(x.encode(), np.uint8) for _, x in chip_smoke.corpus_genomes()]
+    Lg = round_up(chip_smoke.GENOME_LEN, 128)
+
+    def genome_batch(pairs):
+        return (torch.stack([padded(enc[i], Lg, 0xFE) for i, _ in pairs]),
+                torch.stack([padded(enc[j], Lg, PAD_S2) for _, j in pairs]),
+                np.array([len(enc[i]) for i, _ in pairs]), np.array([len(enc[j]) for _, j in pairs]))
+
+    N = len(enc)
+    corpus = genome_batch([(i, j) for j in range(N) for i in range(N) if i <= j])
+    group9 = genome_batch([(i, j) for j in range(N) for i in range(N) if i < j][:9])
+    wins = acgt[rng.integers(0, 4, (4096, 380))]
+    reads = wins[:, 100:250].copy()
+    snp = rng.random(reads.shape) < 0.01
+    reads[snp] = acgt[rng.integers(0, 4, int(snp.sum()))]
+    call = (torch.stack([padded(r, 256, 0xFE) for r in reads]),
+            torch.stack([padded(w, 384, PAD_S2) for w in wins]), np.full(4096, 150),
+            np.full(4096, 380))
+    k3_cases = [("K3 55 x 29.9 kb corpus", corpus, False, False),
+                ("K3 dirs group of 9 x 29.9 kb", group9, False, True),
+                ("K3 call round 4096 x 256 x 384", call, True, True)]
+    prot = chip_smoke.protein_bench_data()
+    u1, u2 = (torch.from_numpy(prot[k]).to(dev) for k in ("u1", "u2"))
+    q1, q2 = (torch.from_numpy(prot[k]).to(dev) for k in ("p1", "p2"))
+    uns = np.full(u1.shape[0], u1.shape[1])
+    code_u, prof_u = gm.row_codes(u1, mx), gm.matrix_profile(u2, uns, mx)
+    code_q, prof_q = gm.row_codes(q1, mx), gm.matrix_profile(q2, prot["pns"], mx)
+    m_cases = [("matrix 32768 x 383 aa stream", (code_u, prof_u, uns, uns), False, "stream"),
+               ("matrix 1024 x 192-384 aa pallas", (code_q, prof_q, prot["pms"], prot["pns"]),
+                False, "pallas"),
+               ("matrix dirs 256 x 383 aa", (code_u[:256], prof_u[:256], uns[:256], uns[:256]),
+                True, "stream")]
+    heights = [None] + ([32 * r for r in gp.LANE_ROWS] if sweep else [])
+    for rows in heights:
+        tag = "" if rows is None else f" sweep rows={rows}"
+        kw = {} if rows is None else {"rows_per_strip": rows}
+        for name, inputs, is_local, dirs in k3_cases:
+            if not wanted(name + tag):
+                continue
+            if rows is None:
+                run = lambda: gs.gotoh_stream_fill(*inputs, sc, is_local, dirs)  # noqa: E731
+            else:
+                run = lambda: gs._stream_cuda(*inputs, sc, is_local, dirs, **kw)  # noqa: E731
+            out[name + tag] = {"ms": cuda_ms(run), "sum": fill_sum(run())}
+        for name, inputs, dirs, route in m_cases:
+            if not wanted(name + tag):
+                continue
+            if rows is None:
+                run = lambda: gm.matrix_fill(*inputs, -1, -11, False, dirs, route)  # noqa: E731
+            else:
+                run = lambda: gm._matrix_cuda(*inputs, -1, -11, False, dirs, route,  # noqa: E731
+                                              **kw)
+            out[name + tag] = {"ms": cuda_ms(run), "sum": fill_sum(run())}
+
+    # The walls of the two batch aligners that run K3's and the matrix
+    # fill's dirs: align_batch on the corpus's first 9 pairs (one dirs
+    # group, as align-matrix --alignments-out runs it), matrix_align_batch
+    # on the first 256 pairs of 383 aa.
+    from genomics_rs_tpu_torch.models.aligner import align_batch, matrix_align_batch
+    from genomics_rs_tpu_torch.sequence import Sequence
+
+    gpairs = [(Sequence(f"a{i}", enc[i].tobytes().decode()),
+               Sequence(f"b{j}", enc[j].tobytes().decode()))
+              for j in range(N) for i in range(N) if i < j][:9]
+    ppairs = [(Sequence(f"p{t}", prot["u1"][t].tobytes().decode()),
+               Sequence(f"q{t}", prot["u2"][t].tobytes().decode())) for t in range(256)]
+    for name, fn in (("align_batch 9 x 29.9 kb wall", lambda: align_batch(gpairs, sc)),
+                     ("matrix_align_batch 256 x 383 aa wall",
+                      lambda: matrix_align_batch(ppairs, mx, -1, -11))):
+        if not wanted(name):
+            continue
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alns = fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"ms": walls[1:], "sum": sum(a.score for a in alns)}
+
     from genomics_rs_tpu_torch.parallel.longseq import sharded_gotoh_score
     from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
     from genomics_rs_tpu_torch.sequence import PAD_S1
