@@ -8,7 +8,8 @@ It needs a CUDA device, ``nvcc`` (it builds the kernels from
 
 Phases, one line each:
   0  the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1
-  1  build the kernels and the oracle
+  1  build the kernels and the oracle; measure the staged walks' chain
+     floor (one dependent shared-memory load, ``tools/smem_chase.cu``)
   2  K1 (row-block fill: a strip pipeline over many SMs) kernel == its
      plain version, on the card: small fills, the pipeline's edges
      (ragged and short strips, top rows of 63-65 columns, grids of 1-3
@@ -24,8 +25,8 @@ Phases, one line each:
      replayed with every fill and walk recorded, and each is held
      against its plain version on the same inputs
   5  kernel and plain-version times at the main path's shapes (K1's three
-     fills at 128, 256 and 512 rows a strip), and the wall time of the
-     29,903 bp ``align``
+     fills at 128, 256 and 512 rows a strip; K2 through its wrapper and
+     its launch alone), and the wall time of the 29,903 bp ``align``
   6  K3 (batched fill on the warp-strip pipeline) kernel == its plain
      version, on the card: small mixed-length batches (global/local,
      classic/kimura, B = 1, empty sequences, dirs at every true cell; at
@@ -38,12 +39,15 @@ Phases, one line each:
      show K3 ran and no plain version did
   8  ``align-matrix --alignments-out`` (the CLI) on the corpus: K3 and K4
      launched, no plain version; one group's K3 dirs fill == plain and
-     every walk of it K4 == plain; three pairs equal the per-pair
+     every walk of it K4 == plain, as on ``tests/walk_stage_cases.py``'s
+     edge paths (word-row boundaries, a stop cell, lane offsets, 300-move
+     gaps, li held at 0); three pairs equal the per-pair
      ``PairwiseAligner.align`` (moves, score, stats, written FASTA); a
      mixed 1–5 kb corpus through the CLI, global and local, every pair's
      file equal to the per-pair aligner's
-  9  K3/K4 kernel times (median of 3, CUDA events), plain times, and the
-     wall times of ``allpairs_scores`` and ``align-matrix``
+  9  K3/K4 kernel times (median of 3, CUDA events; K4 through its wrapper
+     and its launch alone), plain times, and the wall times of
+     ``allpairs_scores`` and ``align-matrix``
  10  K6 (short-read fill) kernel == its plain version, on the card: ragged
      fills of 1–256 bp (global/local, classic/kimura, codes at every true
      cell) and bench.py's 16,384 x 152 bp batch (padded 256)
@@ -67,8 +71,9 @@ Phases, one line each:
      C++ oracle, and the diag16 walks (K4) == plain
  14  K6 / ``walk_rows16`` / call-round K3 and K4 kernel times (median of 3,
      CUDA events), plain times and bounds, and K4's device and host time on
-     that round from one ``torch.profiler`` capture and from its launch alone
-     (CUDA events); the walls of ``reads``,
+     that round from one ``torch.profiler`` capture and from its launch
+     alone (CUDA events); ``walk_rows16``'s launch alone; the walls of
+     ``reads``,
      ``map`` (seeding and extension) and ``call``; ``map``'s device-busy
      share from ``torch.profiler``
  15  the banded fill (K10 one pair, K12 a batch; one kernel) == its plain
@@ -81,8 +86,11 @@ Phases, one line each:
      mixed batch, each on the whole grid and on two blocks; codes at every
      true in-band cell
  16  K11 (banded walker) == its plain version over phase 15's bitmaps,
-     resumed past 1,000 moves, and the batch walks in one launch with the
-     shared geometry; an all-INS bitmap raises
+     resumed past 1,000 moves, the batch walks in one launch with the
+     shared geometry, and ``tests/walk_stage_cases.py``'s paths (gaps wider
+     than the lane window both ways, both band edges, starts on rows 16k,
+     16k+1, 16k+15) whole and resumed at 1, 15, 16, 17 and 1,000 moves a
+     launch; an all-INS bitmap raises
  17  the banded path at real size (launch counters reset just before it):
      ``align_banded`` of a seeded 1,078,175 bp genome with itself (score ==
      length) and with its planted copy (score == the planted optimum) at
@@ -94,7 +102,9 @@ Phases, one line each:
      pair's walk and the 16 batch walks, and each of those paths, rescored
      from its strings, runs end to end at a cost <= its score
  18  K10 / K11 / K12 times (median of 3, CUDA events) at 1 Mb and 29,903 bp,
-     plain times and bounds, and the banded walls
+     plain times and bounds, and the banded walls; K11 through its wrapper
+     (also cut into 65,536-move launches) and its launch alone on the 29.9
+     kb, the 1 Mb planted and self walks and the 16-walk batch
  19  K15 (the query profile) kernel == its plain version, on the card: small
      mixed batches under four matrices (BLOSUM62, asymmetric, |v| near 200,
      no X; zero lengths, unknown bytes) and every entry of the 32,768 x 383
@@ -117,7 +127,8 @@ Phases, one line each:
      spell their sequences, the center is the argmax of the summed
      scores); the profile kernel, both fill routes, K4, K2 and K3 launched,
      no plain version; then the 256-pair group's walks, K4 == plain
- 22  profile, fill and K4 times (median of 3, CUDA events), the one
+ 22  profile, fill and K4 times (median of 3, CUDA events; K4 through its
+     wrapper and its launch alone), the one
      PyTorch call that computes the profile (a (256, A) byte table indexed
      by the batch), plain times, bounds, and the walls of phase 21's calls
  23  the warp-strip kernel (K7 and K8 routes) and the warp-strip pipeline
@@ -242,6 +253,9 @@ WIDE_FILLS = ((8_192, 8_600, 8_500), (16_384, 17_000, 16_900), (32_768, 33_100, 
 PREFIX_ROWS = 32_768
 #: device memory rate, H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
+#: ns of one dependent shared-memory load on this card (the staged walks'
+#: chain floor, a move each), measured in phase 1 with tools/smem_chase.cu.
+CHAIN_NS: float | None = None
 #: integer ops per DP cell, counted from the recurrence in
 #: csrc/gotoh_rowblock.cu and csrc/gotoh_stream.cu: I 3 (two adds, max),
 #: S 3 (compare, select, add), Q 1, M 1, A 3 (two adds, max), P 1; local
@@ -361,6 +375,59 @@ def words_read(moves, counts, si, sj, layout: str) -> int:
     return int((live & first & (word >= 0)).sum())
 
 
+def chain_floor(moves: float) -> str:
+    """``moves`` x one dependent shared-memory load, in ms."""
+    return "not measured" if CHAIN_NS is None else f"{moves * CHAIN_NS * 1e-6:.4f} ms"
+
+
+def k11_alone(torch, gb, dirs, ms, ns, V, geom, cuda_ms) -> list[float]:
+    """CUDA-event ms of one K11 launch alone (the C launcher on tensors made
+    beforehand) carrying the walks of ``dirs`` (B, KW, V) from ``(ms, ns)``
+    whole, under the window geometry ``geom``."""
+    from genomics_rs_tpu_torch.ops import _build
+    from genomics_rs_tpu_torch.ops.walk_stage import slide_words
+
+    B, KW, _ = dirs.shape
+    ms, ns = np.asarray(ms, np.int64), np.asarray(ns, np.int64)
+    off, deltas, _ = gb.plan_streams(*geom, V)
+    slides = torch.from_numpy(slide_words(deltas, geom[0])).to(dirs.device)
+    cap = gb.whole_walk_steps(ms, ns)
+    nw = -(-cap // 16)
+    starts = torch.from_numpy(np.stack([ms, ns, off[ms - 1], np.arange(B) * KW], 1)
+                              .astype(np.int32)).to(dirs.device)
+    words = torch.empty((B, nw), dtype=torch.int32, device=dirs.device)
+    meta = torch.empty((B, 6), dtype=torch.int32, device=dirs.device)
+    lib, stream = _build.library(), _build.stream_handle(dirs.device)
+    return cuda_ms(lambda: _build.check(lib.walk_banded_launch(
+        _build.ptr(dirs), _build.ptr(slides), _build.ptr(starts), _build.ptr(words),
+        _build.ptr(meta), B, KW, V, B * KW, int(deltas.size), nw, cap, stream), "walk_banded"), 3)
+
+
+def same_walks(got, want) -> bool:
+    return all(np.array_equal(np.asarray(a, np.int64), np.asarray(b, np.int64))
+               for a, b in zip(got, want))
+
+
+def k4_alone(torch, tw, flat, wargs, cuda_ms) -> list[float]:
+    """CUDA-event ms of one K4 launch alone (the C launcher on tensors made
+    beforehand) carrying ``walk_many``'s walks ``wargs`` over ``flat``."""
+    from genomics_rs_tpu_torch.ops import _build
+
+    si, sj, koffs, KW, max_steps = wargs
+    W = len(si)
+    KWT, V = flat.shape
+    nw = -(-max_steps // tw.MPW)
+    starts = torch.from_numpy(np.stack([np.asarray(si, np.int64), np.asarray(sj, np.int64),
+                                        np.asarray(koffs, np.int64), np.zeros(W, np.int64)], 1)
+                              .astype(np.int32)).to(flat.device)
+    words = torch.zeros((W, nw), dtype=torch.int32, device=flat.device)
+    meta = torch.empty((W, 5), dtype=torch.int32, device=flat.device)
+    lib, stream = _build.library(), _build.stream_handle(flat.device)
+    return cuda_ms(lambda: _build.check(lib.walk_many_launch(
+        _build.ptr(flat), _build.ptr(starts), _build.ptr(words), _build.ptr(meta), W, KW, KWT,
+        V, nw, max_steps, stream), "walk_many"), 3)
+
+
 def int32_ops_per_s(torch) -> float:
     """Peak int32 rate: SMs x 64 INT32 lanes per SM (Hopper) x the
     card's maximum SM clock as ``nvidia-smi`` reports it."""
@@ -422,6 +489,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
     from genomics_rs_tpu_torch.ops import traceback_batch as tb
     from genomics_rs_tpu_torch.ops import traceback_device as td
     from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from walk_stage_cases import diag_edge_walks
     from genomics_rs_tpu_torch.config import Scores
     from genomics_rs_tpu_torch.parallel.allpairs import allpairs_scores, bucketize_pairs
     from genomics_rs_tpu_torch.sequence import (
@@ -630,6 +698,12 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
                           for a, b in zip(walked, want)) else 1
         check(k4_err == 0 and all(walked[4]), "K4 kernel != plain on the group's walks")
         k4_moves = int(np.sum(walked[1]))
+        # K4 on the edge paths (word-row boundaries, a stop cell, lane
+        # offsets, 300-move gaps, li held at 0).
+        for name, edirs, *eargs in diag_edge_walks():
+            got = tw.walk_many(edirs.to(dev), *eargs[:5], eargs[5])
+            check(same_walks(got, tw.walk_many_plain(edirs, *eargs[:5], eargs[5])),
+                  f"K4 != plain on the edge path {name!r}")
         k4_words = words_read(tb._unpack(walked[0], np.asarray(walked[1], np.int64), max_steps),
                               walked[1], wargs[0], wargs[1], "diag16")
 
@@ -649,7 +723,8 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
         print(f"[phase 8] align-matrix --alignments-out on cuda: {len(idx)} alignments in "
               f"groups of {G} ({t_cli:.3f} s wall); launches {main_launches}, plain calls "
               f"{main_plain}; a group's K3 dirs fill == plain ({k3_plain_dirs_ms:.0f} ms plain) "
-              f"and its {G} walks ({k4_moves} moves) K4 == plain; {len(three)} pairs == "
+              f"and its {G} walks ({k4_moves} moves) K4 == plain (and on "
+              f"{len(diag_edge_walks())} edge paths); {len(three)} pairs == "
               f"PairwiseAligner.align (moves, score, stats, file)", flush=True)
 
         # The same CLI run again under torch.profiler: device time by
@@ -709,6 +784,7 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
     k3_l = cuda_ms(lambda: gs.gotoh_stream_fill(*corpus, sc, True), 3)
     k3_d = cuda_ms(lambda: gs.gotoh_stream_fill(*gargs, sc, False, emit_dirs=True), 3)
     k4 = cuda_ms(lambda: tw.walk_many(flat, *wargs), 3)
+    k4_a = k4_alone(torch, tw, flat, wargs, cuda_ms)
     c_all, c_grp = cells(corpus[2], corpus[3]), cells(gargs[2], gargs[3])
     nb = len(all_pairs)
     k3_bytes = seq_bytes(corpus[2], corpus[3]) + nb * 20
@@ -727,7 +803,10 @@ def align_matrix_phases(torch, dev, card, sc, cuda_ms, codes_at, rate):
           f"{k3_plain_dirs_ms:.1f} ms, bound {k3_bound_d[0]:.3f} ms by {k3_bound_d[1]}) | "
           f"K4 {G} walks, {k4_moves} moves reading {k4_words} words: [{fmt(k4)}] ms = "
           f"{med(k4) * 1e6 / max(k4_moves // G, 1):.1f} ns per move of one walk (plain "
-          f"{k4_plain_ms:.1f} ms, bound {k4_bound[0]:.6f} ms by {k4_bound[1]}) | wall: "
+          f"{k4_plain_ms:.1f} ms, bound {k4_bound[0]:.6f} ms by {k4_bound[1]}, chain floor "
+          f"{chain_floor(k4_moves / G)}; alone [{fmt(k4_a)}] ms = "
+          f"{med(k4_a) * 1e6 / max(k4_moves // G, 1):.1f} ns per move of one walk) "
+          f"| wall: "
           f"allpairs_scores global {t_ap_g:.3f} s, local {t_ap_l:.3f} s; align-matrix "
           f"--alignments-out {t_cli:.3f} s | {profile_line}", flush=True)
     return [
@@ -1186,6 +1265,15 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         k6_d = cuda_ms(lambda: gsr.gotoh_scores_shortread(*mp, sc, True, emit_dirs=True), 3)
         _, si, sj, codes = fill_m
         wr = cuda_ms(lambda: tb.walk_batch(codes, si, sj, sc, True, "rows16", 385), 3)
+        lib, stream = _build.library(), _build.stream_handle(dev)
+        Br, L1r, Wr = codes.shape
+        starts_r = torch.stack([torch.as_tensor(si), torch.as_tensor(sj)], 1).to(
+            device=dev, dtype=torch.int32).contiguous()
+        words_r = torch.zeros((Br, -(-385 // 16)), dtype=torch.int32, device=dev)
+        meta_r = torch.empty((Br, 5), dtype=torch.int32, device=dev)
+        wr_alone = cuda_ms(lambda: _build.check(lib.walk_rows16_launch(
+            _build.ptr(codes), _build.ptr(starts_r), _build.ptr(words_r), _build.ptr(meta_r), Br,
+            L1r, Wr, words_r.shape[1], 385, sc.h, sc.g, 1, stream), "walk_rows16"), 3)
         k3_c = cuda_ms(lambda: gs.gotoh_stream_fill(*cr, sc_c, loc_c, emit_dirs=True), 3)
         k4_c = cuda_ms(walk_c, 3)
         # interior cells only: row 0 and column 0 are closed forms
@@ -1225,10 +1313,9 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
                                             1).astype(np.int32)).to(dev)
         words4 = torch.zeros((B4, nw4), dtype=torch.int32, device=dev)
         meta4 = torch.empty((B4, 5), dtype=torch.int32, device=dev)
-        lib = _build.library()
         k4_alone = cuda_ms(lambda: _build.check(lib.walk_many_launch(
             _build.ptr(k3_call.dirs), _build.ptr(starts4), _build.ptr(words4), _build.ptr(meta4),
-            B4, KW4, B4 * KW4, V4, nw4, steps_c, _build.stream_handle(dev)), "walk_many"), 3)
+            B4, KW4, B4 * KW4, V4, nw4, steps_c, stream), "walk_many"), 3)
 
         # map split into seeding and extension, and its device-busy share
         genome_seq = SequenceContainer().from_fasta(path("genome.fasta")).sequences
@@ -1252,16 +1339,18 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
           f"[{fmt(k6_l)}] ms (plain {k6_plain_ms[True]:.1f} ms, bound {k6_bound_l[0]:.4f} ms) | "
           f"K6 dirs at the map shape ({MB} x 128 x 256, local): [{fmt(k6_d)}] ms (plain "
           f"{k6_plain_dirs_ms:.1f} ms, bound {k6_bound_d[0]:.4f} ms by {k6_bound_d[1]}) | "
-          f"walk_rows16 {MB} walks, {m_moves} moves reading {wr_words} words: [{fmt(wr)}] ms "
-          f"(plain {walk_plain_ms[walk_cases[0][0]]:.1f} ms, bound {wr_bound[0]:.6f} ms by "
-          f"{wr_bound[1]}) | call's round ({CB} reads, {CL1} x {CL2}): K3 dirs [{fmt(k3_c)}] "
+          f"walk_rows16 {MB} walks, {m_moves} moves reading {wr_words} words: wrapper "
+          f"[{fmt(wr)}] ms, kernel alone [{fmt(wr_alone)}] ms (plain "
+          f"{walk_plain_ms[walk_cases[0][0]]:.1f} ms, bound {wr_bound[0]:.6f} ms by "
+          f"{wr_bound[1]}, chain floor {chain_floor(m_moves / MB)}) | call's round ({CB} reads, {CL1} x {CL2}): K3 dirs [{fmt(k3_c)}] "
           f"ms (plain {k3_call_plain_ms:.1f} ms, bound {k3_call_bound[0]:.4f} ms by "
           f"{k3_call_bound[1]}, {c_call:.4g} cells), K4 diag16 walks [{fmt(k4_c)}] ms (plain "
           f"{k4_call_plain_ms:.1f} ms, bound {k4_call_bound[0]:.6f} ms by {k4_call_bound[1]}, "
           f"{k4_call_moves} moves reading {k4_call_words} words; profiled: wall "
           f"{t_k4_prof:.3f} ms, walk_many_kernel {k4_dev:.3f} ms on the device, all device "
-          f"{sum(dev4.values()):.3f} ms, host {t_k4_prof - sum(dev4.values()):.3f} ms; the "
-          f"kernel alone by CUDA events [{fmt(k4_alone)}] ms)", flush=True)
+          f"{sum(dev4.values()):.3f} ms, host {t_k4_prof - sum(dev4.values()):.3f} ms; chain "
+          f"floor {chain_floor(k4_call_moves / CB)}; the kernel alone by CUDA events "
+          f"[{fmt(k4_alone)}] ms)", flush=True)
     print(f"[phase 14] walls: reads scores {walls['reads']:.3f} s, reads --align sam "
           f"{walls['reads --align']:.3f} s, map {walls['map']:.3f} s (CLI: {stdout['map']}; "
           f"library: index {t_index:.3f} s, seeding only {t_seed:.3f} s), map -2 "
@@ -1339,6 +1428,7 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     from genomics_rs_tpu_torch.ops import gotoh_banded as gb
     from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
     from genomics_rs_tpu_torch.ops.traceback import classify_moves
+    from walk_stage_cases import BAND_EDGE_SPECS, band_edge_walk
     from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
 
     med = lambda ts: float(np.median(ts))  # noqa: E731
@@ -1506,6 +1596,16 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
             k11_err = max(k11_err, 0 if same else 1)
             check(same, f"K11 batch walk {p} (W={W}, geom {geom}) != plain")
             n_batch_walks += 1
+    # walk_stage's edge paths: gaps wider than the lane window both ways,
+    # both band edges, starts on rows 16k, 16k+1 and 16k+15; carried whole
+    # and resumed at 1, 15, 16, 17 and 1,000 moves a launch.
+    for k in range(len(BAND_EDGE_SPECS)):
+        name, edirs, em, en = band_edge_walk(k)
+        want = gb.walk_banded_plain(edirs, em, en, 1024)
+        for cap in (None, 1, 15, 16, 17, 1000):
+            same = np.array_equal(gb.walk_banded(edirs.to(dev), em, en, 1024, max_steps=cap), want)
+            k11_err = max(k11_err, 0 if same else 1)
+            check(same, f"K11 != plain on the edge path {name!r} (max_steps {cap})")
     try:
         gb.walk_banded(torch.full((18, 256), 0x55555555, dtype=torch.int32, device=dev),
                        280, 100, 256, geom=(300, 290))
@@ -1515,7 +1615,9 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     print(f"[phase 16] K11 kernel == plain on {len(walks)} walks ({n_moves} moves; the "
           f"29,903 bp one also resumed from 1,000-move launches, plain {k11_plain_ms:.0f} ms) "
           f"and {n_batch_walks} batch walks in one launch per width with the shared geometry; "
-          f"the all-INS bitmap raises; max |err| {k11_err} "
+          f"{len(BAND_EDGE_SPECS)} edge paths (gaps wider than the lane window both ways, both "
+          f"band edges, starts on rows 16k, 16k+1, 16k+15), each whole and resumed at 1, 15, "
+          f"16, 17 and 1,000 moves a launch; the all-INS bitmap raises; max |err| {k11_err} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # ---- phase 17: the path at real size ----
@@ -1636,9 +1738,26 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     k10_29 = cuda_ms(lambda: gb.gotoh_banded(s1_29[0], s2_29[0], BATCH_LEN, len(p29), sc, BAND), 3)
     k11_big = cuda_ms(lambda: gb.walk_banded(dirs_big, m, n, BAND), 3)
     k11_29 = cuda_ms(lambda: gb.walk_banded(dirs29, BATCH_LEN, len(p29), BAND), 3)
+    # K11 alone (one launch carrying the whole walk) beside its wrapper, and
+    # the wrapper cut into MAX_STEPS_CAP-move launches as before whole walks
+    # (each launch's copies back and unpack on the host).
+    a11 = {"29,903 bp": k11_alone(torch, gb, dirs29[None], [BATCH_LEN], [len(p29)], BAND,
+                                  (BATCH_LEN, len(p29)), cuda_ms),
+           "1 Mb planted": k11_alone(torch, gb, dirs_big[None], [m], [n], BAND, (m, n), cuda_ms)}
+    chunked = cuda_ms(lambda: gb.walk_banded(dirs_big, m, n, BAND, max_steps=gb.MAX_STEPS_CAP), 3)
+    n_chunks = -(-len(moves_big) // gb.MAX_STEPS_CAP)
+    s1s, s2s = pair_on_card(genome, genome, BAND)
+    _, dirs_self = gb.gotoh_banded(s1s[0], s2s[0], m, m, sc, BAND)
+    k11_self = cuda_ms(lambda: gb.walk_banded(dirs_self, m, m, BAND), 3)
+    a11["1 Mb self"] = k11_alone(torch, gb, dirs_self[None], [m], [m], BAND, (m, m), cuda_ms)
+    del dirs_self, s1s, s2s
     k12 = cuda_ms(lambda: gbb.gotoh_banded_batch(s1b, s2b, bms, bns, sc, BAND), 3)
     got = gbb.gotoh_banded_batch(s1b, s2b, bms, bns, sc, BAND)
+    bgeom = (got[0].M, got[0].N)
     got = (torch.cat([g.score for g in got]), torch.cat([g.dirs for g in got]))
+    k11_batch = cuda_ms(lambda: gb.walk_banded_batch(got[1], bms, bns, BAND, geom=bgeom), 3)
+    a11[f"{BATCH_B} x 29,903 bp batch"] = k11_alone(torch, gb, got[1], bms, bns, BAND, bgeom,
+                                                     cuda_ms)
     want, k12_plain_ms = timed(lambda: gb.gotoh_banded_plain(s1b, s2b, bms, bns, sc, BAND,
                                                              gbb.COUNTS))
     err = band_err(got, want, bms, bns, BAND)
@@ -1659,9 +1778,14 @@ def banded_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
           f"{k10_bound_big[1]}) | K10 {BATCH_LEN} bp: [{fmt(k10_29)}] ms (plain "
           f"{k10_plain_ms:.1f} ms, bound {k10_bound[0]:.4f} ms by {k10_bound[1]}) | K11 "
           f"{len(moves_big)} moves at 1 Mb: [{fmt(k11_big)}] ms = "
-          f"{med(k11_big) * 1e6 / len(moves_big):.1f} ns a move; {len(want29)} moves at 29,903 "
-          f"bp reading {w29} words: [{fmt(k11_29)}] ms (plain {k11_plain_ms:.1f} ms, bound "
-          f"{k11_bound[0]:.6f} ms by {k11_bound[1]}) | K12 {BATCH_B} x {BATCH_LEN} bp "
+          f"{med(k11_big) * 1e6 / len(moves_big):.1f} ns a move (in {n_chunks} launches of "
+          f"{gb.MAX_STEPS_CAP} moves [{fmt(chunked)}] ms: {(med(chunked) - med(k11_big)) / max(n_chunks - 1, 1):.3f} "
+          f"ms of host a launch more); self walk [{fmt(k11_self)}] ms; {len(want29)} moves at "
+          f"29,903 bp reading {w29} words: [{fmt(k11_29)}] ms (plain {k11_plain_ms:.1f} ms, bound "
+          f"{k11_bound[0]:.6f} ms by {k11_bound[1]}, chain floor {chain_floor(len(want29))}); "
+          f"batch of {BATCH_B} walks in one launch [{fmt(k11_batch)}] ms; K11 alone "
+          + ", ".join(f"{k} [{fmt(v)}] ms" for k, v in a11.items())
+          + f" (1 Mb: {med(a11['1 Mb planted']) * 1e6 / len(moves_big):.2f} ns a move) | K12 {BATCH_B} x {BATCH_LEN} bp "
           f"({cells12:.4g} band cells): [{fmt(k12)}] ms (plain {k12_plain_ms:.1f} ms, bound "
           f"{k12_bound[0]:.4f} ms by {k12_bound[1]}) | plain on phase 15's fills: "
           f"{k10_plain_ms:.1f} ms at 29,903 bp, "
@@ -2199,10 +2323,9 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     walked = tw.walk_many(flat, *wargs)
     host = flat.cpu()
     want, k4_plain_ms = timed(lambda: tw.walk_many_plain(host, *wargs))
-    check(all(np.array_equal(np.asarray(a, np.int64), np.asarray(b, np.int64))
-              for a, b in zip(walked, want)) and all(walked[4]),
-          "K4 != plain on the protein group's walks")
+    check(same_walks(walked, want) and all(walked[4]), "K4 != plain on the protein group's walks")
     k4_moves = int(np.sum(walked[1]))
+    k4_a = k4_alone(torch, tw, flat, wargs, cuda_ms)
 
     # ---- phase 22: times ----
     t_phase = time.perf_counter()
@@ -2291,7 +2414,10 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
           f"on {PROT_ALIGN_B} pairs: scores global {sub_ms[False]:.1f} ms, local "
           f"{sub_ms[True]:.1f} ms, with dirs {plain_ms[False]:.1f} ms | K4 {PROT_ALIGN_B} "
           f"protein walks, {k4_moves} moves: [{fmt(k4_ms)}] ms (plain {k4_plain_ms:.1f} ms, "
-          f"bound {k4_bound[0]:.6f} ms by {k4_bound[1]}) | walls: "
+          f"bound {k4_bound[0]:.6f} ms by {k4_bound[1]}, chain floor "
+          f"{chain_floor(k4_moves / PROT_ALIGN_B)}; alone [{fmt(k4_a)}] ms = "
+          f"{med(k4_a) * 1e6 / max(k4_moves // PROT_ALIGN_B, 1):.1f} ns a move of one walk) "
+          f"| walls: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
           + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return [
@@ -3190,9 +3316,17 @@ def main() -> None:
     native.library()
     ptxas = [ln.strip() for ln in _build.BUILD_INFO.get("ptxas", "").splitlines()
              if "registers" in ln or "spill" in ln]
+    global CHAIN_NS
+    # tools/chain_floor.py here; tests/walk_stage_cases.py in phases 8 and 16
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.join(root, "tools"), os.path.join(root, "tests")]
+    from chain_floor import chain_floor_ns
+
+    CHAIN_NS = chain_floor_ns(torch, 3)
     print(f"[phase 1] built kernels + oracle in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.BUILD_INFO['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}",
-          flush=True)
+          f"(nvcc {_build.BUILD_INFO['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}; the "
+          f"walks' chain floor: {CHAIN_NS:.3f} ns a dependent shared-memory load "
+          f"(tools/smem_chase.cu)", flush=True)
 
     def codes_at(dirs, R, B, rows=512):
         """Direction codes at every block cell (li <= R, j <= B), on device."""
@@ -3578,6 +3712,14 @@ def main() -> None:
           "K2 kernel != plain at the 10 kb shape")
     n_moves = len(got[0])
     k2_words = words_read(got[0][None, :], [n_moves], [si], [sj], "diag16")
+    # K2's launch alone (the whole walk fits one launch of max_steps moves)
+    KW2, V2 = kern.dirs.shape
+    words2 = torch.empty(-(-max_steps // 16), dtype=torch.int32, device=dev)
+    meta2 = torch.empty(6, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    k2_alone = cuda_ms(lambda: _build.check(lib.traceback_walk_launch(
+        _build.ptr(kern.dirs), _build.ptr(words2), _build.ptr(meta2), KW2, V2, si, sj, 0, 0,
+        max_steps, _build.stream_handle(dev)), "traceback_walk"), 3)
 
     walls = []
     for _ in range(2):
@@ -3621,7 +3763,8 @@ def main() -> None:
               for rows in STRIP_ROWS)
           + f" | plain: 10 kb local+dirs {k1_plain_ms:.1f} ms, 29.9 kb (phase 4's path fills) "
           f"bottom+cols {plain30['bottom+cols']:.1f} ms, dirs {plain30['dirs']:.1f} ms "
-          f"| K2 walk of {n_moves} moves ({k2_words} words read): kernel [{fmt(k2_ms)}] ms, plain "
+          f"| K2 walk of {n_moves} moves ({k2_words} words read): kernel [{fmt(k2_ms)}] ms "
+          f"(alone [{fmt(k2_alone)}] ms, chain floor of a staged walk {chain_floor(n_moves)}), plain "
           f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s; {align_profile}",
           flush=True)
 

@@ -28,8 +28,10 @@ an int32 word at each lane: ``dirs[(i-1)//16, v]``, ``(ceil(m/16), V)``.
 * :func:`walk_banded` chases the codes from ``(m, n)`` to the origin,
   tracking ``off`` by the per-row deltas (``(i*n)//m`` overflows int32
   at chromosome scale). A CUDA bitmap launches ``walk_banded_kernel``
-  (``csrc/traceback_walk.cu``, one thread per walk, all walks of a batch
-  in one launch), a CPU bitmap runs :func:`walk_banded_plain`.
+  (``csrc/traceback_walk.cu``: a staged chase, one warp a walk reading
+  its codes from a ring of boxes in shared memory, ``ops/walk_stage``;
+  all walks of a batch in one launch, whole walks unless ``max_steps``
+  caps it), a CPU bitmap runs :func:`walk_banded_plain`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from genomics_rs_tpu_torch.ops.gotoh_scan import (
 )
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
 from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW, unpack_moves
+from genomics_rs_tpu_torch.ops.walk_stage import slide_words
 
 #: 2-bit codes per packed word (rows per int32).
 PACK = 16
@@ -327,9 +330,10 @@ def walk_banded_batch(dirs, ms, ns, V: int, geom: tuple[int, int] | None = None,
                       max_steps: int | None = None) -> list[np.ndarray]:
     """:func:`walk_banded` for ``B`` pairs' bitmaps ``dirs`` (B, KW, V)
     under one window geometry (default: pair 0's own ``(m, n)``). A CUDA
-    bitmap launches K11 once for all walks (and again for walks that
-    filled ``max_steps``, default ``MAX_STEPS_CAP``); a CPU bitmap runs
-    :func:`walk_banded_plain` per walk."""
+    bitmap launches K11 once for all walks, each carried whole (its
+    buffer sized by :func:`whole_walk_steps`), or, given ``max_steps``
+    (1..``MAX_STEPS_CAP``), again for the walks that filled it; a CPU
+    bitmap runs :func:`walk_banded_plain` per walk."""
     ms = np.asarray(ms, np.int64).reshape(-1)
     ns = np.asarray(ns, np.int64).reshape(-1)
     if dirs.dim() != 3 or dirs.shape[0] != ms.size or ns.shape != ms.shape:
@@ -343,8 +347,13 @@ def walk_banded_batch(dirs, ms, ns, V: int, geom: tuple[int, int] | None = None,
     if not _build.uses_kernel(dirs):
         return [walk_banded_plain(dirs[b], int(ms[b]), int(ns[b]), V, (gM, gN))
                 for b in range(ms.size)]
-    cap = MAX_STEPS_CAP if max_steps is None else int(max_steps)
-    return _walk_banded_cuda(dirs, ms, ns, V, gM, gN, cap)
+    return _walk_banded_cuda(dirs, ms, ns, V, gM, gN, max_steps)
+
+
+def whole_walk_steps(ms, ns) -> int:
+    """Moves that cover every walk from its ``(m, n)``: a path makes at
+    most ``m + n`` moves."""
+    return int(np.max(np.asarray(ms, np.int64) + np.asarray(ns, np.int64))) + 1
 
 
 def _oob(i: int, j: int) -> RuntimeError:
@@ -354,17 +363,18 @@ def _oob(i: int, j: int) -> RuntimeError:
     )
 
 
-def _walk_banded_cuda(dirs, ms, ns, V, gM: int, gN: int, cap: int) -> list[np.ndarray]:
+def _walk_banded_cuda(dirs, ms, ns, V, gM: int, gN: int,
+                      cap: int | None) -> list[np.ndarray]:
     dev = dirs.device
     _build.require(dirs, "dirs", torch.int32, dev)
-    if not 1 <= cap <= MAX_STEPS_CAP:
+    if cap is not None and not 1 <= cap <= MAX_STEPS_CAP:
         raise ValueError(f"max_steps must be in 1..{MAX_STEPS_CAP}")
     B, KW, _ = dirs.shape
+    cap = whole_walk_steps(ms, ns) if cap is None else cap
     nw = -(-cap // MPW)
     lib = _build.library()
     off, deltas, _ = plan_streams(gM, gN, V)
-    deltas = deltas.astype(np.int32)
-    deltas_d = torch.from_numpy(deltas).to(dev)
+    slides_d = torch.from_numpy(slide_words(deltas, gM)).to(dev)
     # walk state: (i, j, off, koff) of every walk still running
     state = np.stack([ms, ns, off[ms - 1], np.arange(B) * KW], 1)
     live = np.arange(B)
@@ -376,7 +386,7 @@ def _walk_banded_cuda(dirs, ms, ns, V, gM: int, gN: int, cap: int) -> list[np.nd
         meta = torch.empty((W, 6), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             err = lib.walk_banded_launch(
-                _build.ptr(dirs), _build.ptr(deltas_d), _build.ptr(starts), _build.ptr(words),
+                _build.ptr(dirs), _build.ptr(slides_d), _build.ptr(starts), _build.ptr(words),
                 _build.ptr(meta), W, KW, V, B * KW, int(deltas.size), nw, cap,
                 _build.stream_handle(dev),
             )

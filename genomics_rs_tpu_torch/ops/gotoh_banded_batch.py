@@ -110,7 +110,7 @@ def banded_align_batch(s1b, s2b, ms, ns, scores, W: int) -> list[tuple[int, np.n
     """Batched banded fill plus every pair's walk; returns ``(score,
     moves)`` in batch order (moves in walk order, the ``classify_moves``
     input). On the card: one fill launch (K12) and one walker launch
-    (K11) for all pairs (more only past 65,536 moves a walk)."""
+    (K11) for all pairs, each walk carried whole."""
     score, dirs, ms_np, ns_np, M, N = _fill(s1b, s2b, ms, ns, scores, W)
     moves = walk_banded_batch(dirs, ms_np, ns_np, W, geom=(M, N))
     return list(zip(score.cpu().tolist(), moves))

@@ -13,7 +13,9 @@ plain walker ``walk_block``.
 :func:`walk_many` has ``walk_many``'s contract: W full-bitmap walks in
 one launch over one packed array, each at its own word-row and lane
 offset. A CUDA bitmap launches K4 (``walk_many_kernel`` in the same
-source), a CPU bitmap runs :func:`walk_many_plain`.
+source: a staged chase, a warp a walk reading a ring of bitmap boxes in
+shared memory, ``ops/walk_stage``), a CPU bitmap runs
+:func:`walk_many_plain`.
 """
 
 from __future__ import annotations

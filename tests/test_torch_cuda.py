@@ -14,7 +14,10 @@ edges (strips that end mid-lane, one-row and empty pairs, local ties,
 capped grids, a tight ring under a short wait bound, every strip height
 with and without diag16 codes, an error word that comes back unread,
 bands at column 0 and bands that slide, every band width that had its own
-compiled form, mixed batches).
+compiled form, mixed batches); the staged walks (K4 on random codes,
+TMA and 4-byte-copy rows and views, buffers ending mid-path, thousands of
+short walks and ``walk_stage_cases``' edge paths; K11 on its edge paths
+whole and resumed, rows of any width and one-launch batches).
 """
 
 import numpy as np
@@ -39,6 +42,7 @@ from genomics_rs_tpu_torch.ops import traceback_walker as tw
 from genomics_rs_tpu_torch.ops import subst
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.sequence import PAD_S2, Sequence
+from walk_stage_cases import BAND_EDGE_SPECS, band_edge_walk, diag_edge_walks
 
 pytestmark = pytest.mark.cuda
 
@@ -413,6 +417,59 @@ def test_walk_batch_diag16_cuda_matches_plain(cuda, is_local):
         assert np.array_equal(np.asarray(g), np.asarray(w))
 
 
+
+def _pack16(codes: np.ndarray) -> torch.Tensor:
+    """(16 K, V) codes -> (K, V) int32 words, 16 rows a word."""
+    words = np.zeros((codes.shape[0] // 16, codes.shape[1]), np.uint32)
+    for t in range(16):
+        words |= codes[t::16].astype(np.uint32) << np.uint32(2 * t)
+    return torch.from_numpy(words.view(np.int32))
+
+
+def _same_walks(got, want):
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+
+
+def test_walk_many_staged_matches_plain(cuda):
+    """K4 == the plain version: mostly-SUB random codes with stop cells at
+    word-row and lane offsets, on rows of 700 lanes (TMA boxes), of 301
+    lanes and on a view 4 bytes off alignment (4-byte cp.async copies),
+    with buffers that end mid-path (max_steps 1, 15, 16, 17, 1,000), and
+    walk_stage_cases' edge paths (word-row boundaries, a stop cell, lane
+    offsets, 300-move gaps, li held at 0)."""
+    rng = np.random.default_rng(31)
+    for V, shift in ((700, 0), (301, 0), (700, 1)):
+        codes = rng.choice(4, size=(101 * 16, V), p=[0.8, 0.09, 0.09, 0.02])
+        flat = _pack16(codes).reshape(-1)
+        dirs = flat[shift : shift + 100 * V].view(100, V)
+        li = rng.integers(0, 280, 5)
+        args = (li, rng.integers(0, 640 - li), [0, 40, 7, 55, 19], 40)
+        loffs = [0, 20, 3, 17, 1]
+        for max_steps in (4096, 1, 15, 16, 17, 1000):
+            before = tw.COUNTS["many_kernel"]
+            got = tw.walk_many(dirs.to(cuda), *args, max_steps, loffs)
+            assert tw.COUNTS["many_kernel"] == before + 1
+            _same_walks(got, tw.walk_many_plain(dirs, *args, max_steps, loffs))
+    for name, dirs, *args in diag_edge_walks():
+        got = tw.walk_many(dirs.to(cuda), *args[:5], args[5])
+        _same_walks(got, tw.walk_many_plain(dirs, *args[:5], args[5]))
+
+
+def test_walk_many_thousands_of_short_walks(cuda):
+    """4,097 short walks (a warp each) in one K4 launch == the plain
+    version."""
+    rng = np.random.default_rng(32)
+    W, KW, V = 4097, 8, 64
+    codes = rng.choice(3, size=(W * KW * 16, V), p=[0.8, 0.1, 0.1])
+    dirs = _pack16(codes)
+    li, sj = rng.integers(0, 60, W), rng.integers(0, 60, W)
+    before = tw.COUNTS["many_kernel"]
+    got = tw.walk_many(dirs.to(cuda), li, sj, np.arange(W) * KW, KW, 256)
+    _same_walks(got, tw.walk_many_plain(dirs, li, sj, np.arange(W) * KW, KW, 256))
+    assert tw.COUNTS["many_kernel"] == before + 1
+
+
 def _banded_batch(rng, ms, ns, Lm, Ln):
     """Mutated copies: pair p is s1 of m_p bp and a 5%-mutated s2 of n_p."""
     B = len(ms)
@@ -557,6 +614,47 @@ def test_banded_walk_kernel_matches_plain(cuda):
     dirs = torch.full((18, 256), 0x55555555, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="left the band"):
         gb.walk_banded(dirs.to(cuda), 280, 100, 256, geom=(300, 290))
+
+
+
+@pytest.mark.parametrize("case", range(len(BAND_EDGE_SPECS)))
+def test_banded_walk_edges_match_plain(cuda, case):
+    """K11 == the plain walker on walk_stage_cases' edge paths (gaps wider than
+    the lane window both ways, both band edges, starts on rows 16k, 16k+1
+    and 16k+15), carried whole and resumed at max_steps 1, 15, 16, 17 and
+    1,000."""
+    name, dirs, m, n = band_edge_walk(case)
+    want = gb.walk_banded_plain(dirs, m, n, 1024)
+    for cap in (None, 1, 15, 16, 17, 1000):
+        got = gb.walk_banded(dirs.to(cuda), m, n, 1024, max_steps=cap)
+        assert np.array_equal(got, want), (name, cap)
+
+
+def test_banded_walk_any_lanes_and_one_launch(cuda):
+    """K11 on rows of 255 and 301 lanes and on a bitmap view 4 bytes off
+    alignment (4-byte copies); a batch of walks carried whole in one
+    launch."""
+    rng = np.random.default_rng(33)
+    for V in (255, 301):
+        dirs = _pack16(rng.choice(3, size=(40 * 16, V), p=[0.9, 0.05, 0.05]))
+        m = 40 * 16 - 3
+        want = gb.walk_banded_plain(dirs, m, m - 5, V, (m, m - 3))
+        assert np.array_equal(gb.walk_banded(dirs.to(cuda), m, m - 5, V, geom=(m, m - 3)), want)
+    name, dirs, m, n = band_edge_walk(0)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32), dirs.reshape(-1)]).to(cuda)
+    view = flat[1:].view(dirs.shape)
+    assert np.array_equal(gb.walk_banded(view, m, n, 1024), gb.walk_banded_plain(dirs, m, n, 1024))
+    s1, s2, ms, ns = _banded_batch(rng, [2000, 1990, 1950, 2000, 1999], [1990, 1900, 1940, 1985,
+                                                                          1999], 2048, 2048)
+    groups = gbb.gotoh_banded_batch(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), 256)
+    d = torch.cat([g.dirs for g in groups])
+    geom = (groups[0].M, groups[0].N)
+    before = gb.COUNTS["walk_kernel"]
+    got = gb.walk_banded_batch(d, ms, ns, 256, geom=geom)
+    assert gb.COUNTS["walk_kernel"] == before + 1
+    for p in range(len(ms)):
+        assert np.array_equal(got[p], gb.walk_banded_plain(d[p].cpu(), int(ms[p]), int(ns[p]),
+                                                           256, geom))
 
 
 def test_align_banded_cuda_matches_cpu(cuda):
