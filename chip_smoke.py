@@ -48,9 +48,11 @@ Phases, one line each:
   9  K3/K4 kernel times (median of 3, CUDA events; K4 through its wrapper
      and its launch alone), plain times, and the wall times of
      ``allpairs_scores`` and ``align-matrix``
- 10  K6 (short-read fill) kernel == its plain version, on the card: ragged
-     fills of 1–256 bp (global/local, classic/kimura, codes at every true
-     cell) and bench.py's 16,384 x 152 bp batch (padded 256)
+ 10  K6 (short-read fill: a sub-warp wavefront, G lanes a pair) kernel ==
+     its plain version, on the card: ragged fills of 1–256 bp (global/local,
+     classic/kimura, codes at every true cell; rows that end inside a lane,
+     tie-heavy local batches), bench.py's 16,384 x 152 bp batch (padded
+     256) and the map shape, each at the wrapper's G and at G = 8, 16, 32
  11  ``walk_rows16`` kernel == its plain version over K6's codes: 4,096
      reads at the ``map`` shape (local) and 4,096 of the 152 bp batch
      (global)
@@ -70,7 +72,9 @@ Phases, one line each:
      K3 dirs == plain (codes at every true cell), 64 reads' scores == the
      C++ oracle, and the diag16 walks (K4) == plain
  14  K6 / ``walk_rows16`` / call-round K3 and K4 kernel times (median of 3,
-     CUDA events), plain times and bounds, and K4's device and host time on
+     CUDA events), plain times and bounds, K6 at every G on the reads batch
+     and the map shape (the sweep ``group_size`` was set from), and K4's
+     device and host time on
      that round from one ``torch.profiler`` capture and from its launch
      alone (CUDA events); ``walk_rows16``'s launch alone; the walls of
      ``reads``,
@@ -131,11 +135,12 @@ Phases, one line each:
      wrapper and its launch alone), the one
      PyTorch call that computes the profile (a (256, A) byte table indexed
      by the batch), plain times, bounds, and the walls of phase 21's calls
- 23  the warp-strip kernel (K7 and K8 routes) and the warp-strip pipeline
-     (K9) == their plain versions on small batches (empty and one-base pairs,
-     global/local, classic/kimura; K9 also at 32-row strips on a 3-block
-     grid, so tickets and ring slots cycle, and on a ring of five slots,
-     which splits the batch into launches of two or more slots a pair),
+ 23  the warp-strip kernel (K7) and the warp-strip pipeline (K9, and K8 on
+     K3's kernel) == their plain versions on small batches (empty and
+     one-base pairs, global/local, classic/kimura; K9 also at 32-row strips
+     on a 3-block grid, so tickets and ring slots cycle, K9 and K8 on a ring
+     of five slots, which splits the batch into launches of two or more
+     slots a pair, each counted),
      then a sweep of B in {1, 8, 32, 132, 528} x L in {512, 2048, 8192},
      global and local: K3 and K9 (both on the pipeline) == the warp-strip
      kernel on every pair and == the C++ oracle on each bucket's first and
@@ -143,9 +148,10 @@ Phases, one line each:
      bound
  24  the main path of this slice from here to phase 26 (launch counters
      reset just before it; each call of the path must launch exactly the
-     routes its buckets take, and the kernels' launches are the sum of
-     those calls'): ``align-matrix`` (auto) on 128 seeded random genomes of
-     300-8,000 bp (8,256 pairs, every bucket on K7 or K8) and
+     routes its buckets take (a K8 bucket one launch a pipeline group), and
+     the kernels' launches are the sum of those calls'): ``align-matrix``
+     (auto) on 128 seeded random genomes of 300-8,000 bp (8,256 pairs, every
+     bucket on K7 or K8; each K8 launch timed by CUDA events) and
      ``allpairs_scores`` local (auto: K7): 128 sampled pairs a mode, auto's
      and K3's (``engine="stream"``) scores, == the C++ oracle, and auto ==
      K3 on every pair; auto against K3 end to end (``allpairs_scores``
@@ -159,8 +165,9 @@ Phases, one line each:
      whole grid and on 7 blocks, and each timed at B = 1
  26  ``reads -a global|local --engine segmented|stream8|pallas`` on phase
      10's 16,384 x 152 bp batch == ``--engine auto``'s TSV (K6); the path's
-     launches by route, no plain version; then each route (K7, K8, K9) ==
-     the plain version (strips of 256 rows) at the path's shapes: the
+     launches by route, no plain version; then each route (K7, K9: the
+     strips of 256 rows; K8: K3's plain version) == its plain version at the
+     path's shapes: the
      16,384 x 152 bp batch, phase 24's largest bucket and the 29.9 kb pair,
      both cut to their first 300 rows (two strips, every column); kernel
      and plain times there, and K7/K8/K3 on the whole bucket
@@ -913,14 +920,19 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
             errs.append(int(((g - w).abs() * live).max()))
         return max(errs)
 
-    def ragged_batch(rng, B, L1, L2):
+    def ragged_batch(rng, B, L1, L2, ties=False):
         """Reads and 10%-mutated copies, lengths 1..L, one pair filling the
-        bucket."""
+        bucket; ``ties``: both sides repeat a unit of 1-4 bases, so local
+        bests tie on many rows and columns."""
         ms, ns = rng.integers(1, L1 + 1, B), rng.integers(1, L2 + 1, B)
         ms[0], ns[0] = L1, L2
         s1 = np.full((B, L1), PAD_S1, np.uint8)
         s2 = np.full((B, L2), PAD_S2, np.uint8)
         for b in range(B):
+            if ties:
+                unit = acgt[rng.integers(0, 4, int(rng.integers(1, 5)))]
+                s1[b, : ms[b]], s2[b, : ns[b]] = np.resize(unit, ms[b]), np.resize(unit, ns[b])
+                continue
             s1[b, : ms[b]] = acgt[rng.integers(0, 4, ms[b])]
             k = min(ms[b], ns[b])
             s2[b, :k] = s1[b, :k]
@@ -929,24 +941,37 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
             s2[b, flip] = acgt[rng.integers(0, 4, flip.size)]
         return on_card(s1, s2, ms, ns)
 
+    def k6_every_group(args, sck, is_local, want) -> int:
+        """K6 at the wrapper's group size and at each of ``GROUP_SIZES``,
+        scores-only and with codes, against the plain version's ``want``
+        (with codes); the largest |error|."""
+        runs = [gsr.gotoh_scores_shortread(*args, sck, is_local, emit_dirs=True),
+                gsr.gotoh_scores_shortread(*args, sck, is_local)]
+        for G in gsr.GROUP_SIZES:
+            runs += [gsr._shortread_cuda(*args, sck, is_local, True, G),
+                     gsr._shortread_cuda(*args, sck, is_local, False, G)]
+        return max(k6_err(r, want if len(r) == 4 else want[:3], args[2], args[3]) for r in runs)
+
     # ---- phase 10: K6 kernel vs plain ----
     t_phase = time.perf_counter()
     rng = np.random.default_rng(51)
     k6_max, n_fills = 0, 0
-    for L1, L2 in ((256, 256), (32, 16)):
-        args = ragged_batch(rng, 300, L1, L2)
-        for is_local in (False, True):
+    # (L1, L2, ties): the contract's corners, the paths' shapes, rows that
+    # end inside a lane (160 and 224 rows: G x RT = 160 or 256 rows at G = 8),
+    # and tie-heavy local batches.
+    for L1, L2, ties in ((256, 256, False), (32, 16, False), (128, 256, False),
+                         (160, 160, False), (224, 48, False), (128, 256, True),
+                         (160, 160, True)):
+        args = ragged_batch(rng, 300, L1, L2, ties)
+        for is_local in ((True,) if ties else (False, True)):
             for st in (None, -1):
                 sck = Scores(2, -3, -2, -4, st)
                 want = gsr.gotoh_shortread_plain(*args, sck, is_local, emit_dirs=True)
-                err = max(k6_err(gsr.gotoh_scores_shortread(*args, sck, is_local, emit_dirs=True),
-                                 want, args[2], args[3]),
-                          k6_err(gsr.gotoh_scores_shortread(*args, sck, is_local),
-                                 want[:3], args[2], args[3]))
+                err = k6_every_group(args, sck, is_local, want)
                 k6_max = max(k6_max, err)
                 n_fills += 1
-                check(err == 0, f"K6 kernel != plain ({L1} x {L2} ragged, local={is_local}, "
-                                f"st={st}): max |err| {err}")
+                check(err == 0, f"K6 kernel != plain ({L1} x {L2} ragged{', ties' * ties}, "
+                                f"local={is_local}, st={st}): max |err| {err}")
 
     # bench.py's short-read batch: unrelated 152 bp pairs from default_rng(5)
     rng = np.random.default_rng(5)
@@ -957,17 +982,14 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     sr = on_card(s1r, s2r, np.full(SR_B, SR_LEN), np.full(SR_B, SR_LEN))
     sr_scores, k6_plain_ms = {}, {}
     for is_local in (False, True):
-        got = gsr.gotoh_scores_shortread(*sr, sc, is_local)
-        want, k6_plain_ms[is_local] = timed(lambda: gsr.gotoh_shortread_plain(*sr, sc, is_local))
-        err = k6_err(got, want, sr[2], sr[3])
-        got = gsr.gotoh_scores_shortread(*sr, sc, is_local, emit_dirs=True)
+        _, k6_plain_ms[is_local] = timed(lambda: gsr.gotoh_shortread_plain(*sr, sc, is_local))
         want = gsr.gotoh_shortread_plain(*sr, sc, is_local, emit_dirs=True)
-        err = max(err, k6_err(got, want, sr[2], sr[3]))
+        err = k6_every_group(sr, sc, is_local, want)
         k6_max = max(k6_max, err)
         check(err == 0, f"K6 kernel != plain on the {SR_B} x {SR_LEN} batch (local={is_local}): "
                         f"max |err| {err}")
-        sr_scores[is_local] = got[0].cpu().numpy()
-        del got, want
+        sr_scores[is_local] = gsr.gotoh_scores_shortread(*sr, sc, is_local)[0].cpu().numpy()
+        del want
 
     # the map shape: 4,096 reads of 128 bp (1% SNPs) in 256 bp windows
     MB = 4096
@@ -978,15 +1000,17 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
     mp = on_card(s1m, win, np.full(MB, 128), np.full(MB, 256))
     fill_m = gsr.gotoh_scores_shortread(*mp, sc, True, emit_dirs=True)
     want, k6_plain_dirs_ms = timed(lambda: gsr.gotoh_shortread_plain(*mp, sc, True, emit_dirs=True))
-    err = k6_err(fill_m, want, mp[2], mp[3])
+    err = k6_every_group(mp, sc, True, want)
     k6_max = max(k6_max, err)
     check(err == 0, f"K6 dirs kernel != plain at the map shape: max |err| {err}")
     del want
     print(f"[phase 10] K6 kernel == plain on {n_fills} ragged fills (1-256 bp, global/local, "
-          f"classic/kimura, scores-only and codes at every true cell), the {SR_B} x {SR_LEN} "
-          f"bp batch padded {SR_PAD} global and local (scores + codes) and {MB} reads at the "
-          f"map shape (128 x 256, local, codes); max |err| {k6_max} "
-          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+          f"classic/kimura, tie-heavy local batches, rows ending inside a lane), the {SR_B} x "
+          f"{SR_LEN} bp batch padded {SR_PAD} global and local and {MB} reads at the map shape "
+          f"(128 x 256, local), each at the wrapper's group size and at G = "
+          f"{', '.join(map(str, gsr.GROUP_SIZES))} lanes a pair, scores-only and with codes at "
+          f"every true cell; max |err| {k6_max} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
 
     # ---- phase 11: walk_rows16 kernel vs plain ----
     t_phase = time.perf_counter()
@@ -1135,7 +1159,22 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
                 k3_rounds.append(args)
             return stream_walk_group(*args)
 
-        rd.stream_walk_group = record_round
+        # Each K6 call of the path is timed by CUDA events around its
+        # wrapper (the kernel, with the characters' encoding and the codes'
+        # zeroing): launches x (time - bound) over the path's own shapes.
+        k6_runs, k6_cuda = [], gsr._shortread_cuda
+
+        def timed_k6(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False, group=None):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = k6_cuda(s1b, s2b, ms, ns, scores, is_local, emit_dirs, group)
+            e1.record()
+            m, n = (np.asarray(x, np.float64) for x in (ms, ns))
+            k6_runs.append((e0, e1, (len(m), s1b.shape[1], s2b.shape[1], bool(is_local),
+                                     bool(emit_dirs)), float(np.sum(m * n)), float(np.sum(m + n))))
+            return out
+
+        rd.stream_walk_group, gsr._shortread_cuda = record_round, timed_k6
         try:
             reset_counts()
             for name, argv in runs.items():
@@ -1148,7 +1187,19 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
                 stdout[name] = out.getvalue()
                 check(rc == 0, f"CLI {name} exited {rc}")
         finally:
-            rd.stream_walk_group = stream_walk_group
+            rd.stream_walk_group, gsr._shortread_cuda = stream_walk_group, k6_cuda
+        check(len(k6_runs) == gsr.COUNTS["kernel"],
+              f"recorded {len(k6_runs)} K6 calls, the path launched {gsr.COUNTS['kernel']}")
+        k6_shapes: dict = {}  # (B, L1, L2, local, codes) -> [launches, ms, bound ms]
+        for e0, e1, shape, cells_k, chars_k in k6_runs:
+            mode = "local" if shape[3] else "global"
+            b_k = bound(chars_k + 12.0 * shape[0] + (cells_k / 4 if shape[4] else 0.0),
+                        cells_k * (OPS_PER_CELL[mode] + (OPS_PER_CELL["dirs"] if shape[4] else 0)),
+                        rate)[0]
+            acc_k = k6_shapes.setdefault(shape, [0, 0.0, 0.0])
+            acc_k[0] += 1
+            acc_k[1] += e0.elapsed_time(e1)
+            acc_k[2] += b_k
         main_launches = {"gotoh_shortread": gsr.COUNTS["kernel"],
                          "walk_rows16": tb.COUNTS["kernel"],
                          "gotoh_stream": gs.COUNTS["kernel"],
@@ -1263,6 +1314,17 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
         k6_g = cuda_ms(lambda: gsr.gotoh_scores_shortread(*sr, sc, False), 3)
         k6_l = cuda_ms(lambda: gsr.gotoh_scores_shortread(*sr, sc, True), 3)
         k6_d = cuda_ms(lambda: gsr.gotoh_scores_shortread(*mp, sc, True, emit_dirs=True), 3)
+        # The group-size sweep at the paths' shapes: every G on the reads
+        # batch (global and local scores, local with codes: ``reads`` and
+        # ``reads --align``) and at the map shape (local, codes).
+        lr = on_card(acgt[rng.integers(0, 4, (MB, 256))], acgt[rng.integers(0, 4, (MB, 256))],
+                     np.full(MB, 256), np.full(MB, 256))  # the tier's longest reads
+        g_cases = (("reads global", sr, False, False), ("reads local", sr, True, False),
+                   ("reads local+codes", sr, True, True), ("map local+codes", mp, True, True),
+                   (f"{MB} x 256 x 256 local+codes", lr, True, True))
+        g_sweep = {(name, G): med(cuda_ms(lambda a=a, loc=loc, d=d, G=G: gsr._shortread_cuda(
+                       *a, sc, loc, d, G), 3))
+                   for name, a, loc, d in g_cases for G in gsr.GROUP_SIZES}
         _, si, sj, codes = fill_m
         wr = cuda_ms(lambda: tb.walk_batch(codes, si, sj, sc, True, "rows16", 385), 3)
         lib, stream = _build.library(), _build.stream_handle(dev)
@@ -1351,6 +1413,20 @@ def read_phases(torch, dev, card, sc, cuda_ms, rate) -> list[dict]:
           f"{sum(dev4.values()):.3f} ms, host {t_k4_prof - sum(dev4.values()):.3f} ms; chain "
           f"floor {chain_floor(k4_call_moves / CB)}; the kernel alone by CUDA events "
           f"[{fmt(k4_alone)}] ms)", flush=True)
+    k6_loss = sum(ms_k - b_k for _, ms_k, b_k in k6_shapes.values())
+    print(f"[phase 14] card {card} | K6's {sum(v[0] for v in k6_shapes.values())} calls in "
+          f"phase 13 by shape (B x L1 x L2, mode, codes: calls, device ms, bound ms): "
+          + "; ".join(f"{k[0]} x {k[1]} x {k[2]} {'local' if k[3] else 'global'}"
+                      f"{' codes' if k[4] else ''}: {v[0]}, {v[1]:.3f}, {v[2]:.3f}"
+                      for k, v in sorted(k6_shapes.items()))
+          + f" | launches x (time - bound) {k6_loss:.3f} ms", flush=True)
+    print(f"[phase 14] card {card} | K6 by lanes a pair (G; the wrapper takes G = "
+          f"{gsr.group_size(SR_LEN)} at {SR_LEN} rows, {gsr.group_size(128)} at 128, "
+          f"{gsr.group_size(256)} at 256): "
+          + "; ".join(f"{name}: " + ", ".join(
+              f"G {G} (RT {gsr.lane_rows(int(max(a[2])), G)}) "
+              f"{g_sweep[name, G]:.4f} ms" for G in gsr.GROUP_SIZES)
+              for name, a, _, _ in g_cases), flush=True)
     print(f"[phase 14] walls: reads scores {walls['reads']:.3f} s, reads --align sam "
           f"{walls['reads --align']:.3f} s, map {walls['map']:.3f} s (CLI: {stdout['map']}; "
           f"library: index {t_index:.3f} s, seeding only {t_seed:.3f} s), map -2 "
@@ -1915,7 +1991,7 @@ class FillLaunchRecorder:
             return real_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, *a)
 
         def launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what):
-            if what not in ("gotoh_matrix", "gotoh_stream"):
+            if what not in ("gotoh_matrix", "gotoh_stream", "gotoh_stream8"):
                 return real_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what)
 
             def timed_launch(lo, hi, *rest):
@@ -2467,6 +2543,7 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     from genomics_rs_tpu_torch import cli, native
     from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
     from genomics_rs_tpu_torch.config import Scores
+    from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
     from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
     from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
     from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
@@ -2537,6 +2614,11 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     def k9_launches(ms, Lm, Ln) -> int:
         return len(gp.pipeline_groups(ms, Ln, gp.pipe_rows(Lm)))
 
+    def k8_launches(ms, ns, Lm, Ln) -> int:
+        """K8's launches on a bucket of B >= 2 pairs: one a pipeline group
+        at the scores-only strip height."""
+        return len(gp.pipeline_groups(ms, Ln, gs.stream_rows(ms, ns, Lm, False)))
+
     def write_cfg(tmp) -> str:
         cfg = os.path.join(tmp, "config.toml")
         with open(cfg, "w") as f:
@@ -2587,6 +2669,22 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             e = err_of(got, gp.gotoh_strips_plain(*tight, sck, is_local, 64))
             err["pipe"] = max(err["pipe"], e)
             check(e == 0, f"K9 (tight ring, 3 blocks) != plain (local={is_local}, st={st}): {e}")
+            # K8 on a ring of five slots: seven pairs of 1,000-1,024 rows need
+            # seven or more, so the bucket runs as the plan's launches, each
+            # counted on K8's route; == its plain version (K3's).
+            split = random_bucket(rng, 7, 1024, 1024, 1000)
+            ring_bytes, gp.PIPE_RING_BYTES = gp.PIPE_RING_BYTES, 5 * 8 * 1025
+            try:
+                groups = k8_launches(split[2], split[3], 1024, 1024)
+                before = gs8.COUNTS["kernel"]
+                got = gs8.gotoh_scores_stream8(*split, sck, is_local)
+                check(gs8.COUNTS["kernel"] - before == groups > 1,
+                      f"K8 on a tight ring: {gs8.COUNTS['kernel'] - before} launches, {groups} groups")
+            finally:
+                gp.PIPE_RING_BYTES = ring_bytes
+            e = err_of(got, gs.gotoh_stream_plain(*split, sck, is_local)[:3])
+            err["s8"] = max(err["s8"], e)
+            check(e == 0, f"K8 (tight ring) != plain (local={is_local}, st={st}): {e}")
             n_small += 1
     # The sweep's independent side is the C++ oracle on each bucket's first
     # and last pairs; on every pair the pipeline's K3 and K9 are held to K7's
@@ -2622,11 +2720,13 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             err["pipe" if name == "K9" else "seg"] = max(err["pipe" if name == "K9" else "seg"], e)
             check(e == 0, f"{name} != the C++ oracle on the {B} x {L} bucket "
                           f"(local={is_local}): {g} != {tuple(o)}")
-    print(f"[phase 23] card {card} | warp strips (R = {gseg.ROWS_PER_LANE}) and the warp-strip "
-          f"pipeline (strips of {gp.PIPE_ROWS} rows) == plain on {n_small} small batches "
+    print(f"[phase 23] card {card} | warp strips (K7, R = {gseg.ROWS_PER_LANE}) and the "
+          f"warp-strip pipeline (K9 at strips of {gp.PIPE_ROWS} rows, K8 at K3's) == plain on "
+          f"{n_small} small batches "
           f"(8 x 512 with empty and "
           f"one-base pairs, global/local, classic/kimura; K9 also at 32-row strips on 3 "
-          f"blocks, 4 x 1,024, and on a five-slot ring, 7 x 1,024); on every sweep bucket "
+          f"blocks, 4 x 1,024, and K9 and K8 on a five-slot ring, 7 x 1,024, split into "
+          f"launches); on every sweep bucket "
           f"K3 == K9 == K7 and {len(sampled)} sampled pairs == the C++ oracle; max |err| K7 "
           f"{err['seg']}, K8 {err['s8']}, K9 {err['pipe']} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
@@ -2663,13 +2763,24 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             bns = np.array([len(seqs[pairs[k][1]]) for k in idxs])
             Lm_b, Ln_b = max(round_up(int(bms.max()), 128), 128), max(round_up(int(bns.max()), 128), 128)
             for is_local in (False, True):
-                by_route[is_local][of_engine[route_engine(len(idxs), Lm_b, Ln_b, is_local, bms, bns)]] += 1
+                eng = route_engine(len(idxs), Lm_b, Ln_b, is_local, bms, bns)
+                by_route[is_local][of_engine[eng]] += (
+                    k8_launches(bms, bns, Lm_b, Ln_b) if eng == "stream8" else 1)
+        # Each K8 launch of the global call is timed by CUDA events around
+        # the launch itself (no other work on the stream between them).
+        recorder = FillLaunchRecorder(torch, gm, gs)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = path_call("align-matrix (auto), mid corpus",
-                           lambda: cli.main(["-c", cfg, "align-matrix", "-f", mdir, "-o", tsv]),
-                           by_route[False])
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = path_call("align-matrix (auto), mid corpus",
+                               lambda: cli.main(["-c", cfg, "align-matrix", "-f", mdir, "-o", tsv]),
+                               by_route[False])
+        finally:
+            recorder.stop()
         walls["align-matrix mid"] = time.perf_counter() - t0
+        k8_runs = [r for r in recorder.rows if r["what"] == "gotoh_stream8"]
+        check(len(k8_runs) == by_route[False]["K8"],
+              f"recorded {len(k8_runs)} K8 launches, the path made {by_route[False]['K8']}")
         check(rc == 0, f"align-matrix on the mid-length corpus exited {rc}")
         container = SequenceContainer(list(seqs))
         with open(tsv) as f:
@@ -2716,6 +2827,15 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     big = (torch.from_numpy(np.stack([seqs[i].encoded(Lm, PAD_S1) for i, _ in bp])).to(dev),
            torch.from_numpy(np.stack([seqs[j].encoded(Ln, PAD_S2) for _, j in bp])).to(dev),
            np.array([len(seqs[i]) for i, _ in bp]), np.array([len(seqs[j]) for _, j in bp]))
+    k8_bounds = [bound(r["chars"] + 12.0 * r["B"], r["cells"] * OPS_PER_CELL["global"], rate)[0]
+                 for r in k8_runs]
+    k8_launch_ms = [r["ms"] for r in k8_runs]
+    print(f"[phase 24] card {card} | K8's {len(k8_runs)} launches in align-matrix (auto), each "
+          f"(B x Lm x Ln: kernel ms / bound ms): "
+          + "; ".join(f"{r['B']} x {r['Lm']} x {r['Ln']}: {r['ms']:.3f} / {b:.3f}"
+                      for r, b in zip(k8_runs, k8_bounds))
+          + f" | sum {sum(k8_launch_ms):.3f} ms against {sum(k8_bounds):.3f} ms of bound: "
+          f"launches x (time - bound) {sum(k8_launch_ms) - sum(k8_bounds):.3f} ms", flush=True)
     print(f"[phase 24] align-matrix (auto) on {N} random genomes of {MID_MIN}-{MID_MAX} bp "
           f"({len(pairs)} pairs, {len(buckets)} buckets): {walls['align-matrix mid']:.3f} s wall, "
           f"launches K7 {by_route[False]['K7']}, K8 {by_route[False]['K8']}; allpairs_scores "
@@ -2837,8 +2957,10 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
                         os.path.join(tmp, "r.fasta"), "-a", kind, "--engine", engine, "-o", out]
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
-                    rc = path_call(f"reads -a {kind} --engine {engine}", lambda: cli.main(argv),
-                                   {"K6" if engine == "auto" else of_engine[engine]: 1})
+                    rc = path_call(f"reads -a {kind} --engine {engine}", lambda: cli.main(argv), {
+                        "K6" if engine == "auto" else of_engine[engine]:
+                        k8_launches(np.full(SR_B, SR_LEN), np.full(SR_B, SR_LEN), SR_PAD, SR_PAD)
+                        if engine == "stream8" else 1})
                 walls[f"reads {kind} {engine}"] = time.perf_counter() - t0
                 check(rc == 0, f"reads -a {kind} --engine {engine} exited {rc}")
                 with open(out) as f:
@@ -2867,7 +2989,7 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     big_cut = (big[0][:, :Lc].contiguous(), big[1], np.minimum(big[2], SLICE_ROWS), big[3])
     one_cut = (one_d[0][:, :Lc].contiguous(), one_d[1], np.minimum(one_d[2], SLICE_ROWS), one_d[3])
     check(gp.pipe_rows(Lc) == H and (SLICE_ROWS + H) // H == 2, "the slices are two strips")
-    held, plain_ms = [], {}
+    held, plain_ms, plain8_ms = [], {}, {}
     for name, batch, modes, on_cpu in (
             (f"reads {SR_B} x {SR_LEN}", sr_batch, (False, True), False),
             (f"phase 24's largest bucket {len(bp)} x ({SLICE_ROWS} of {Lm}, {Ln})", big_cut,
@@ -2879,13 +3001,20 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
             src = tuple(x.cpu() for x in batch[:2]) + batch[2:] if on_cpu else batch
             want, plain_ms[name, is_local] = timed(
                 lambda: gp.gotoh_strips_plain(*src, sc, is_local, H))
-            for key, fn in (("seg", gseg.gotoh_scores_segmented), ("s8", gs8.gotoh_scores_stream8),
-                            ("pipe", gp.gotoh_scores_pallas_batch)):
-                e = err_of(fn(*batch, sc, is_local), want)
+            if len(batch[2]) > 1:  # K8's own plain version: K3's, at scores only
+                want8, plain8_ms[name, is_local] = timed(
+                    lambda: gs.gotoh_stream_plain(*src, sc, is_local)[:3])
+            else:  # one pair: K8 runs K7's kernel
+                want8 = want
+            for key, fn, w in (("seg", gseg.gotoh_scores_segmented, want),
+                               ("s8", gs8.gotoh_scores_stream8, want8),
+                               ("pipe", gp.gotoh_scores_pallas_batch, want)):
+                e = err_of(fn(*batch, sc, is_local), w)
                 err[key] = max(err[key], e)
                 check(e == 0, f"{key} != plain on {name} (local={is_local}): {e}")
             held.append(f"{name} {'local' if is_local else 'global'} (plain {plain_ms[name, is_local]:.0f} ms"
-                        f"{' on the host' if on_cpu else ''})")
+                        + (f", K8's {plain8_ms[name, is_local]:.0f} ms" if len(batch[2]) > 1 else "")
+                        + f"{' on the host' if on_cpu else ''})")
     big_name = f"phase 24's largest bucket {len(bp)} x ({SLICE_ROWS} of {Lm}, {Ln})"
     one_name = f"the 29.9 kb pair ({SLICE_ROWS} of {len(a)} rows, {len(b)})"
     k7 = cuda_ms(lambda: gseg.gotoh_scores_segmented(*big_cut, sc, True), 3)
@@ -2897,8 +3026,9 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     k8_full = cuda_ms(lambda: gs8.gotoh_scores_stream8(*big, sc, False), 3)
     k3_full = cuda_ms(lambda: gs.gotoh_scores_stream(*big, sc, False), 3)
     bf7, bf8 = bound_of(big[2], big[3], True), bound_of(big[2], big[3], False)
-    print(f"[phase 26] card {card} | K7, K8 and K9 each == the plain version (strips of {H} "
-          f"rows) on " + "; ".join(held) + f" | kernel times there: K7 local [{fmt(k7)}] ms "
+    print(f"[phase 26] card {card} | K7 and K9 each == the plain version (strips of {H} "
+          f"rows), K8 == its plain version (K3's, scores only; K7's at B = 1) on "
+          + "; ".join(held) + f" | kernel times there: K7 local [{fmt(k7)}] ms "
           f"(bound {b7[0]:.4f} by {b7[1]}), K8 global [{fmt(k8)}] ms (bound {b8[0]:.4f} by "
           f"{b8[1]}), K9 global on {one_name} [{fmt(k9)}] ms (bound {b9[0]:.4f} by {b9[1]}) | the "
           f"whole bucket {len(bp)} x ({Lm}, {Ln}) ({cells(big[2], big[3]):.4g} cells): K7 local "
@@ -2913,10 +3043,10 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
          "ms": med(k7), "plain_ms": float(plain_ms[big_name, True]),
          "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None},
         {"name": "gotoh_stream8", "route": "cuda",
-         "source": "genomics_rs_tpu_torch/csrc/gotoh_segmented.cu",
+         "source": "genomics_rs_tpu_torch/csrc/gotoh_stream.cu",
          "replaces": "genomics_rs_tpu/ops/gotoh_stream8.py:372",
          "launches": path_launches["K8"], "max_abs_err": float(err["s8"]),
-         "ms": med(k8), "plain_ms": float(plain_ms[big_name, False]),
+         "ms": med(k8), "plain_ms": float(plain8_ms[big_name, False]),
          "bound_ms": b8[0], "bound_by": b8[1], "library_ms": None},
         {"name": "gotoh_pallas", "route": "cuda",
          "source": "genomics_rs_tpu_torch/csrc/gotoh_pallas.cu",

@@ -1,14 +1,12 @@
 // Batched Gotoh scores for Hopper (sm_90a), one warp per pair, no block
 // barrier. Bound by ctypes.
 //
-// Replaces two TPU kernels with one contract:
-//   genomics_rs_tpu/ops/gotoh_segmented.py, gotoh_scores_segmented (body
-//   _kernel_seg, pallas_call at :349; K7): 8 pairs per (8, C) register pane;
-//   genomics_rs_tpu/ops/gotoh_stream8.py, _stream8_call (body
-//   _kernel_stream8, pallas_call at :528; K8): 8 row-stacked multi-segment
-//   streams.
-// Both panes answer the TPU's one wide vector; on Hopper a pair is a warp.
-// The contract is K3's (gotoh_stream_body.cuh) without dirs: for every pair
+// Replaces: genomics_rs_tpu/ops/gotoh_segmented.py, gotoh_scores_segmented
+// (body _kernel_seg, pallas_call at :349; K7): 8 pairs per (8, C) register
+// pane, an answer to the TPU's one wide vector; on Hopper a pair is a warp.
+// (K8, the stream8 tier, runs on K3's warp-strip pipeline instead,
+// gotoh_stream.cu; this kernel serves K7's route and the stream8 route's
+// single pairs.) The contract is K3's (gotoh_stream_body.cuh) without dirs: for every pair
 // p of a padded batch, the global score at (m_p, n_p) or the local keep-last
 // row-major argmax (v, i, j), classic or kimura scoring, empty sequences
 // allowed. Only true cells are computed, so no drift guard is needed.

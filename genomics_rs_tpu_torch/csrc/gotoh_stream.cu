@@ -2,7 +2,10 @@
 // by ctypes.
 //
 // Replaces: genomics_rs_tpu/ops/gotoh_stream.py, _stream_call (body
-// _kernel_stream), behind gotoh_scores_stream and gotoh_stream_fill_dirs.
+// _kernel_stream), behind gotoh_scores_stream and gotoh_stream_fill_dirs;
+// and, at scores only under its own launch count, K8:
+// genomics_rs_tpu/ops/gotoh_stream8.py, _stream8_call (body
+// _kernel_stream8, pallas_call at :528), behind gotoh_scores_stream8.
 // Same contract for every pair p of a padded batch (s1 rows of Lm chars,
 // s2 rows of Ln chars, true lengths m_p <= Lm and n_p <= Ln): the affine-gap
 // (Gotoh) table over rows 0..m_p and columns 0..n_p with the global

@@ -2,12 +2,12 @@
 // character substitution (CharSub), the global boundary (GlobalEdge), the
 // strip sweep of K1's row-block pipeline and its tile form K5
 // (strip_sweep, block_best: gotoh_rowblock.cu), and the pipelines' hand-off
-// (wait_geq and the acquire/release stores). The warp-strip kernel K7/K8
-// (gotoh_segmented.cu) takes the cell and CharSub; the warp-strip pipeline
-// of K9, K16, K3, the matrix fill (K13/K14), K10 and K12
-// (gotoh_warp_pipe.cuh) takes the cell, a substitution policy (CharSub, or
-// the matrix fill's ProfileSub in gotoh_matrix.cu), GlobalEdge and the
-// waits.
+// (wait_geq and the acquire/release stores). The warp-strip kernel K7
+// (gotoh_segmented.cu) and the short-read wavefront K6 (gotoh_shortread.cu)
+// take the cell and CharSub; the warp-strip pipeline of K9, K16, K3, K8,
+// the matrix fill (K13/K14), K10 and K12 (gotoh_warp_pipe.cuh) takes the
+// cell, a substitution policy (CharSub, or the matrix fill's ProfileSub in
+// gotoh_matrix.cu), GlobalEdge and the waits.
 //
 // The table, for every pair p of a padded batch (true lengths m_p, n_p):
 // the affine-gap (Gotoh) recurrence over rows 0..m_p and columns 0..n_p
@@ -59,7 +59,7 @@ constexpr int MAX_T = 1024;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
-// The character substitution of K1, K3, K7/K8, K9 and K10: equal codes score sm;
+// The character substitution of K1, K3, K6, K7, K8, K9 and K10: equal codes score sm;
 // kimura (codes classed so that a transition differs by XOR 2) scores st
 // for a transition; anything else sx.
 struct CharSub {
@@ -120,7 +120,7 @@ struct CharSub {
   __device__ __forceinline__ void next(Lane<RT>&, int, int, int) const {}
 };
 
-// The table's global boundary (K7/K8 and the warp-strip pipeline's FullRows): corner 0,
+// The table's global boundary (K7 and the warp-strip pipeline's FullRows): corner 0,
 // I(0, j) = h + j*g, D(i, 0) = h + i*g, the rest -inf.
 struct GlobalEdge {
   __device__ __forceinline__ void top(int j, int g, int h, int& I, int& S, int& D) const {

@@ -130,7 +130,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_stream_launch.restype = i
     lib.walk_many_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
     lib.walk_many_launch.restype = i
-    lib.gotoh_shortread_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
+    lib.gotoh_shortread_launch.argtypes = [vp] * 6 + [i] * 12 + [vp]
     lib.gotoh_shortread_launch.restype = i
     lib.walk_rows16_launch.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.walk_rows16_launch.restype = i

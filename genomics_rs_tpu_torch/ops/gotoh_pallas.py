@@ -129,7 +129,7 @@ def gotoh_scores_pallas_batch(s1eb, s2eb, ms, ns, scores, is_local: bool = False
 def gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local: bool = False,
                        rows_per_strip: int = PIPE_ROWS):
     """The plain PyTorch version of the strip kernels (K9's pipeline, and
-    K7/K8's warp strips at ``32 * R`` rows): each pair is filled in strips
+    K7's warp strips at ``32 * R`` rows): each pair is filled in strips
     of ``rows_per_strip`` rows, one after another, by the batched
     anti-diagonal step of :func:`wavefront_plain` over the strip's rows;
     the strip's bottom A/M row is carried to the next strip (lane 0 there

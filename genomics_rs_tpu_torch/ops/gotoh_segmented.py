@@ -10,8 +10,9 @@ as ``(score, start_i, start_j)`` int32 tensors of shape (B,).
 On a CUDA tensor it launches the warp-strip kernel of
 ``csrc/gotoh_segmented.cu``: one warp sweeps its pair in skewed strips of
 ``32 * ROWS_PER_LANE`` rows, lane ``l`` holding ``ROWS_PER_LANE`` rows in
-registers, with no block barrier. The same kernel serves K8
-(``ops/gotoh_stream8``), each route counting its own launches. On a CPU
+registers, with no block barrier. The same kernel serves the stream8
+route's single pairs (``ops/gotoh_stream8``; K8 itself runs on K3's
+pipeline) under K7's count. On a CPU
 tensor it runs ``gotoh_strips_plain`` at the kernel's strip height. The
 JAX wrapper's padded-lane drift guard has no counterpart: only true cells
 are computed.
@@ -38,14 +39,13 @@ def gotoh_scores_segmented(s1eb, s2eb, ms, ns, scores, is_local: bool = False):
     """``(score, start_i, start_j)``, int32 tensors of shape (B,) on the
     batch's device. The device of ``s1eb`` picks the route."""
     if _build.uses_kernel(s1eb):
-        return warp_strip_cuda(s1eb, s2eb, ms, ns, scores, is_local, COUNTS)
+        return warp_strip_cuda(s1eb, s2eb, ms, ns, scores, is_local)
     COUNTS["plain"] += 1
     return gotoh_strips_plain(s1eb, s2eb, ms, ns, scores, is_local, 32 * ROWS_PER_LANE)
 
 
-def warp_strip_cuda(s1eb, s2eb, ms, ns, scores, is_local, counts):
-    """Launch the warp-strip kernel and add one to ``counts["kernel"]``
-    (the route's own count: K7's or K8's)."""
+def warp_strip_cuda(s1eb, s2eb, ms, ns, scores, is_local):
+    """Launch the warp-strip kernel and add one to ``COUNTS["kernel"]``."""
     dev = s1eb.device
     if dev.type != "cuda":
         raise ValueError(f"the warp-strip kernel takes CUDA tensors, not {dev}")
@@ -73,5 +73,5 @@ def warp_strip_cuda(s1eb, s2eb, ms, ns, scores, is_local, counts):
             scores.g, scores.h, int(is_local), _build.stream_handle(dev),
         )
     _build.check(err, "gotoh_segmented")
-    counts["kernel"] += 1
+    COUNTS["kernel"] += 1
     return res[:, 0], res[:, 1], res[:, 2]

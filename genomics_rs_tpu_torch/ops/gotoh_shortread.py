@@ -11,19 +11,22 @@ the interior cells ``(i, 16w+1 .. 16w+16)``, bits ``2*((j-1)%16)``. Local
 ties go to the larger value, then the larger i, then the larger j; a best
 <= 0 is the empty alignment, score 0 at ``(m, n)``.
 
-On a CUDA tensor it launches ``csrc/gotoh_shortread.cu`` (one warp per
-pair, a row per step, the horizontal gap chain as a warp (max,+) scan);
-on a CPU tensor it runs :func:`gotoh_shortread_plain`, the TPU kernel's
-row loop (``_rowscan_body``) with its doubling (max,+) scan written as
-torch ops over the batch.
+On a CUDA tensor it launches ``csrc/gotoh_shortread.cu``: a sub-warp
+wavefront, a group of :func:`group_size` lanes a pair, lane ``l`` holding
+:func:`lane_rows` consecutive rows in registers and the lanes one column
+apart, so no scan runs on any row; on a CPU tensor it runs
+:func:`gotoh_shortread_plain`, the TPU kernel's row loop
+(``_rowscan_body``) with its doubling (max,+) scan written as torch ops
+over the batch.
 
 Bounds of the contract (both routes): ``L2 <= SHORTREAD_MAX_LEN`` and a
-multiple of 16 (one warp holds 256 columns), ``L1`` a multiple of 32
-when codes are emitted (the JAX kernel's row chunk), and every length
->= 1 (the JAX kernel leaves empty sequences to its caller). Codes are
-written for rows ``1..m`` of each pair and every column of them; the
-kernel leaves rows past ``m`` zero, the plain version fills rows up to
-the batch's longest ``m``.
+multiple of 16, ``L1`` a multiple of 32 when codes are emitted (the JAX
+kernel's row chunk), and every length >= 1 (the JAX kernel leaves empty
+sequences to its caller). Codes hold every true cell (rows ``1..m``,
+columns ``1..n``) of each pair; the kernel writes the words of rows
+``1..m`` up to column ``n``'s (bits past ``n`` zero) and leaves the rest
+zero, the plain version fills every column of the rows up to the batch's
+longest ``m``.
 """
 
 from __future__ import annotations
@@ -43,9 +46,20 @@ from genomics_rs_tpu_torch.ops.gotoh_scan import (
 )
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sub_score
 
-#: Longest padded row one warp holds (32 lanes x 8 columns), and the
+#: Longest padded sequence of the tier (the JAX kernel's bound), and the
 #: short-read tier bound of the JAX router and of ``parallel/batch``.
 SHORTREAD_MAX_LEN = 256
+#: lanes a pair takes in the kernel (G), a power of two.
+GROUP_SIZES = (8, 16, 32)
+#: rows a lane holds (RT), one compiled kernel each (the switch of
+#: ``gotoh_shortread_launch``); G x RT must reach the batch's longest ``m``.
+LANE_ROWS = (4, 5, 8, 10, 16, 20, 32)
+#: G by the batch's longest ``m``: ``(most rows, G)``, the first that holds
+#: it. From the sweep of every G at the paths' shapes (``chip_smoke.py``
+#: phase 14, ``tools/time_fills.py --only K6``; PERF.md): G = 8 (RT = 16
+#: or 20) led or tied at 128 and 152 rows; at 256 rows G = 8 needs 32 rows
+#: a lane, whose local kernel with codes spills, and G = 32 was fastest.
+GROUP_BY_ROWS = ((160, 8), (256, 32))
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
@@ -69,6 +83,23 @@ def _check(s1b, s2b, ms, ns, emit_dirs: bool):
     return B, L1, L2, ms, ns
 
 
+def group_size(rows: int) -> int:
+    """Lanes a pair takes (G) for a batch whose longest first sequence
+    has ``rows`` rows (:data:`GROUP_BY_ROWS`)."""
+    return next((G for most, G in GROUP_BY_ROWS if rows <= most), GROUP_BY_ROWS[-1][1])
+
+
+def lane_rows(rows: int, G: int) -> int:
+    """Rows a lane holds (RT) at ``G`` lanes a pair: the least compiled
+    RT (:data:`LANE_ROWS`) with ``G * RT >= rows``. Raises if none."""
+    if G not in GROUP_SIZES:
+        raise ValueError(f"K6: {G} lanes a pair is not one of {GROUP_SIZES}")
+    rt = next((r for r in LANE_ROWS if G * r >= rows), None)
+    if rt is None:
+        raise ValueError(f"K6: {rows} rows pass {G} lanes of {LANE_ROWS[-1]} rows")
+    return rt
+
+
 def gotoh_scores_shortread(s1b, s2b, ms, ns, scores, is_local: bool,
                            emit_dirs: bool = False):
     """``(score, start_i, start_j)`` int32 tensors of shape (B,) on the
@@ -78,7 +109,9 @@ def gotoh_scores_shortread(s1b, s2b, ms, ns, scores, is_local: bool,
     return fn(s1b, s2b, ms, ns, scores, is_local, emit_dirs)
 
 
-def _shortread_cuda(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False):
+def _shortread_cuda(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False, group=None):
+    """Launch K6 at ``group`` lanes a pair (default :func:`group_size` of
+    the batch's longest ``m``) and :func:`lane_rows` rows a lane."""
     dev = s1b.device
     if dev.type != "cuda":
         raise ValueError(f"the K6 kernel takes CUDA tensors, not {dev}")
@@ -89,6 +122,9 @@ def _shortread_cuda(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False):
     res = torch.empty((B, 3), **i32)
     codes = torch.zeros((B, L1, L2 // 16), **i32) if emit_dirs else None
     if B:
+        rows = int(ms_h.max())
+        G = group_size(rows) if group is None else int(group)
+        RT = lane_rows(rows, G)
         lib = _build.library()
         s1c = encode_chars(s1b, scores).contiguous()
         s2c = encode_chars(s2b, scores).contiguous()
@@ -99,7 +135,7 @@ def _shortread_cuda(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False):
             err = lib.gotoh_shortread_launch(
                 _build.ptr(s1c), _build.ptr(s2c), _build.ptr(ms_d), _build.ptr(ns_d),
                 _build.ptr(codes), _build.ptr(res),
-                B, L1, L2, scores.s_match, scores.s_mismatch,
+                B, L1, L2, G, RT, scores.s_match, scores.s_mismatch,
                 scores.s_transition if kim else 0, int(kim),
                 scores.g, scores.h, int(is_local), _build.stream_handle(dev),
             )

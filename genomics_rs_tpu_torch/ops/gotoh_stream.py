@@ -172,17 +172,18 @@ def stream_rows(ms_h, ns_h, Lm: int, emit_dirs: bool) -> int:
 
 
 def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False, rows_per_strip=None,
-                 max_blocks=None, spin_ns=None) -> StreamFill:
+                 max_blocks=None, spin_ns=None, counts=COUNTS, what="gotoh_stream") -> StreamFill:
     """Launch K3 on the warp-strip pipeline at strips of ``rows_per_strip``
     rows (a compiled height; default :func:`stream_rows`'s), one launch for
     each of ``gotoh_pallas.pipeline_groups``' pair ranges, each adding
-    one to ``COUNTS["kernel"]``; ``max_blocks`` caps the persistent grid
-    (the card tests cycle tickets and ring slots with it), ``spin_ns``
-    bounds a wait that sees nothing of the launch move. Does not
-    synchronise: the error word comes back in the result."""
+    one to ``counts["kernel"]`` (default K3's :data:`COUNTS`; K8's route
+    passes its own, and its name as ``what``); ``max_blocks`` caps the
+    persistent grid (the card tests cycle tickets and ring slots with it),
+    ``spin_ns`` bounds a wait that sees nothing of the launch move. Does
+    not synchronise: the error word comes back in the result."""
     dev = s1eb.device
     if dev.type != "cuda":
-        raise ValueError(f"the K3 kernel takes CUDA tensors, not {dev}")
+        raise ValueError(f"the {what} kernel takes CUDA tensors, not {dev}")
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
     _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
@@ -190,7 +191,7 @@ def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False, rows_per
     ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
     rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
             else int(rows_per_strip))
-    gp.check_rows(rows, "gotoh_stream")
+    gp.check_rows(rows, what)
     lib = _build.library()
     with torch.cuda.device(dev):
         per_sm = gp.blocks_per_sm(lib.gotoh_stream_blocks_per_sm, rows // 32, int(is_local),
@@ -199,13 +200,14 @@ def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False, rows_per
         return run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows,
                           gp.resident_blocks(per_sm, sms, max_blocks),
                           gp.SPIN_NS if spin_ns is None else spin_ns,
-                          _build.stream_handle(dev))
+                          _build.stream_handle(dev), counts, what)
 
 
 def run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows, resident,
-               spin_ns, stream) -> StreamFill:
+               spin_ns, stream, counts=COUNTS, what="gotoh_stream") -> StreamFill:
     """Plan and launch K3 over the batch's tensors (``gotoh_pallas.
-    launch_groups``); returns the fill with its error word unread."""
+    launch_groups``), adding one to ``counts["kernel"]`` a launch; returns
+    the fill with its error word unread."""
     dev = s1eb.device
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
@@ -228,19 +230,20 @@ def run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows, r
             scores.g, scores.h, int(is_local), rows // 32, blocks, int(spin_ns), stream,
         )
 
-    err = gp.launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, COUNTS, "gotoh_stream")
+    err = gp.launch_groups(launch, ms_h, ns_h, Ln, rows, resident, dev, counts, what)
     return StreamFill(res[:, 0], res[:, 1], res[:, 2], dirs, err)
 
 
 def gotoh_stream_plain(
-    s1eb, s2eb, ms, ns, scores, is_local=False, emit_dirs=False
+    s1eb, s2eb, ms, ns, scores, is_local=False, emit_dirs=False, counts=COUNTS
 ) -> StreamFill:
     """The plain PyTorch version: K1's anti-diagonal step
     (``gotoh_rowblock_plain``) vectorised over the batch, state (B, V)
     with lane ``iv`` = row ``iv``, run to the batch's last true
     diagonal (:func:`wavefront_plain`), with the two-score or kimura
-    substitution. Runs on the tensors' device."""
-    COUNTS["plain"] += 1
+    substitution. Runs on the tensors' device; adds one to
+    ``counts["plain"]`` (default K3's :data:`COUNTS`)."""
+    counts["plain"] += 1
     dev = s1eb.device
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]

@@ -3,11 +3,12 @@
 bounds).
 
 Five engines, each a kernel on a CUDA device and its plain version on the
-CPU: ``"shortread"`` (K6, one warp a pair, up to 256 bytes),
-``"segmented"`` and ``"stream8"`` (K7 and K8: the warp-strip kernel, one
-warp a pair at any length, each route with its own launch count),
-``"stream"`` (K3) and ``"pallas"`` (K9; both one pair's row strips
-pipelined over many warps, K3's launch returning its error word unread). ``"auto"`` tiers a bucket
+CPU: ``"shortread"`` (K6, a group of 8-32 lanes a pair, up to 256
+bytes), ``"segmented"`` (K7: the warp-strip kernel, one warp a pair at
+any length), ``"stream8"`` (K8) and ``"stream"`` (K3), both the
+warp-strip pipeline at their own launch counts, and ``"pallas"`` (K9);
+the last three pipeline one pair's row strips over many warps, K3's and
+K8's launches returning their error words unread. ``"auto"`` tiers a bucket
 by padded length as the JAX router does on its device
 (:func:`route_engine`). ``"scan"`` is not ported (ROADMAP Queue A item
 3).
@@ -31,7 +32,7 @@ from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_scores_pallas_batch, ra
 from genomics_rs_tpu_torch.ops.gotoh_segmented import gotoh_scores_segmented
 from genomics_rs_tpu_torch.ops.gotoh_shortread import SHORTREAD_MAX_LEN, gotoh_scores_shortread
 from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream, gotoh_stream_fill
-from genomics_rs_tpu_torch.ops.gotoh_stream8 import gotoh_scores_stream8
+from genomics_rs_tpu_torch.ops.gotoh_stream8 import gotoh_scores_stream8, gotoh_stream8_fill
 from genomics_rs_tpu_torch.parallel.mesh import DATA_AXIS, axis_devices
 
 #: The JAX router's tier bounds (padded lengths): past the short-read
@@ -50,6 +51,9 @@ _ENGINES = {
     "stream": gotoh_scores_stream,
     "pallas": gotoh_scores_pallas_batch,
 }
+#: the engines whose fill returns its error word unread (:func:`_read`
+#: reads it).
+_FILLS = {"stream": gotoh_stream_fill, "stream8": gotoh_stream8_fill}
 
 
 def shortread_fits(L1: int, L2: int, ms, ns) -> bool:
@@ -77,14 +81,14 @@ def route_engine(B: int, Lm: int, Ln: int, is_local: bool, ms, ns) -> str:
 def _kernel_scores(engine: str, s1b, s2b, ms, ns, scores, is_local: bool):
     """Dispatch one named engine on tensors already on their device;
     returns (score, start_i, start_j) int32 tensors of shape (B,) and
-    K3's unread error word (None from the other engines, which read
-    their own): the caller reads it with the scores (:func:`_read`)."""
+    K3's or K8's unread error word (None from the other engines, which
+    read their own): the caller reads it with the scores (:func:`_read`)."""
     if engine == "scan":
         raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "stream":
-        fill = gotoh_stream_fill(s1b, s2b, ms, ns, scores, is_local)
+    if engine in _FILLS:
+        fill = _FILLS[engine](s1b, s2b, ms, ns, scores, is_local)
         return fill.score, fill.start_i, fill.start_j, fill.err
     return (*_ENGINES[engine](s1b, s2b, ms, ns, scores, is_local), None)
 
@@ -94,7 +98,7 @@ def _read(outs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     concatenated, after their error words are read."""
     for o in outs:
         if o[3] is not None:
-            raise_on_err(o[3], "gotoh_stream")
+            raise_on_err(o[3], "batch fill")
     return tuple(np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
 
 

@@ -3,10 +3,10 @@
 Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
-hold the kernels (K1–K4, K6, ``walk_rows16``, K10–K12, the query profile
-and the matrix fill of K13–K15, the warp-strip kernel of K7/K8, the
-strip pipeline of K9 and its K16 entry, and K1's tile form K5 with a
-two-shard pipeline on one card) equal to the plain versions, bit for
+hold the kernels (K1–K4, K6 at every group size, ``walk_rows16``,
+K10–K12, the query profile and the matrix fill of K13–K15, the warp-strip
+kernel of K7, the strip pipeline of K9 and its K16 entry, K8 on K3's
+pipeline, and K1's tile form K5 with a two-shard pipeline on one card) equal to the plain versions, bit for
 bit; K1 and K5 also at the edges of their strip pipeline (strip counts,
 chunk widths, capped grids, a tight ring) and with a set error word; the
 warp-strip pipeline of K9, K16, K3, the matrix fill, K10 and K12 at its
@@ -349,14 +349,21 @@ def test_align_cuda_matches_cpu(cuda, is_local):
     assert (got.score, got.alignment) == (want.score, want.alignment)
 
 
-def _short_batch(rng, B, L1, L2):
-    """Reads and mutated copies, lengths 1..L, one pair filling the bucket."""
+def _short_batch(rng, B, L1, L2, ties=False):
+    """Reads and mutated copies, lengths 1..L, one pair filling the bucket,
+    one of one row and one of one column; ``ties``: both sides repeat a
+    unit of 1-4 bases (local bests tie on many rows and columns)."""
     ms = rng.integers(1, L1 + 1, B)
     ns = rng.integers(1, L2 + 1, B)
     ms[0], ns[0] = L1, L2
+    ms[1], ns[2] = 1, 1
     s1 = np.full((B, L1), 0xFE, np.uint8)
     s2 = np.full((B, L2), PAD_S2, np.uint8)
     for b in range(B):
+        if ties:
+            unit = BASES[rng.integers(0, 4, int(rng.integers(1, 5)))]
+            s1[b, : ms[b]], s2[b, : ns[b]] = np.resize(unit, ms[b]), np.resize(unit, ns[b])
+            continue
         s1[b, : ms[b]] = BASES[rng.integers(0, 4, ms[b])]
         k = min(ms[b], ns[b])
         s2[b, :k] = s1[b, :k]
@@ -366,27 +373,53 @@ def _short_batch(rng, B, L1, L2):
     return torch.from_numpy(s1), torch.from_numpy(s2), ms, ns
 
 
+def _shortread_equal(cuda, s1, s2, ms, ns, sc, is_local):
+    """K6 at the wrapper's group size and at every G, scores-only and with
+    codes, == the plain version: scores, start cells and codes at every
+    true cell; rows past m and words past n's stay zero."""
+    want = gsr.gotoh_shortread_plain(s1, s2, ms, ns, sc, is_local, emit_dirs=True)
+    c1, c2 = s1.to(cuda), s2.to(cuda)
+    runs = [gsr.gotoh_scores_shortread(c1, c2, ms, ns, sc, is_local, emit_dirs=True),
+            gsr.gotoh_scores_shortread(c1, c2, ms, ns, sc, is_local)]
+    for G in gsr.GROUP_SIZES:
+        runs += [gsr._shortread_cuda(c1, c2, ms, ns, sc, is_local, True, G),
+                 gsr._shortread_cuda(c1, c2, ms, ns, sc, is_local, False, G)]
+    torch.cuda.synchronize()
+    wc = want[3].numpy().astype(np.int64)
+    for got in runs:
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g.cpu(), w)
+        if len(got) < 4:
+            continue
+        gc = got[3].cpu().numpy().astype(np.int64)
+        for b in range(len(ms)):
+            j = np.arange(ns[b])
+            shift = 2 * (j % 16)
+            assert np.array_equal((gc[b, : ms[b]][:, j // 16] >> shift) & 3,
+                                  (wc[b, : ms[b]][:, j // 16] >> shift) & 3)
+            assert not gc[b, ms[b]:].any() and not gc[b, :, (ns[b] - 1) // 16 + 1:].any()
+
+
 @pytest.mark.parametrize("is_local", [False, True])
 @pytest.mark.parametrize("st", [None, -1])
-@pytest.mark.parametrize("L1,L2", [(256, 256), (64, 48), (32, 16)])
+@pytest.mark.parametrize("L1,L2", [(256, 256), (64, 48), (32, 16), (128, 256), (160, 160),
+                                   (224, 48)])
 def test_shortread_kernel_matches_plain(cuda, is_local, st, L1, L2):
-    """K6 scores, start cells and codes at every true cell."""
+    """K6 scores, start cells and codes at every true cell, at the paths'
+    shapes (128 x 256, 160 x 160) and where rows end inside a lane (224
+    rows: G x RT = 256 at G = 8 and 32; m < L1 everywhere but pair 0)."""
     rng = np.random.default_rng(8)
     s1, s2, ms, ns = _short_batch(rng, 37, L1, L2)
-    sc = Scores(2, -3, -2, -4, st)
-    want = gsr.gotoh_shortread_plain(s1, s2, ms, ns, sc, is_local, emit_dirs=True)
-    got = gsr.gotoh_scores_shortread(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local,
-                                     emit_dirs=True)
-    scores_only = gsr.gotoh_scores_shortread(s1.to(cuda), s2.to(cuda), ms, ns, sc, is_local)
-    torch.cuda.synchronize()
-    for g, g2, w in zip(got[:3], scores_only, want[:3]):
-        assert torch.equal(g.cpu(), w) and torch.equal(g2.cpu(), w)
-    gc, wc = got[3].cpu().numpy().astype(np.int64), want[3].numpy().astype(np.int64)
-    for b in range(len(ms)):
-        j = np.arange(ns[b])
-        shift = 2 * (j % 16)
-        assert np.array_equal((gc[b, : ms[b]][:, j // 16] >> shift) & 3,
-                              (wc[b, : ms[b]][:, j // 16] >> shift) & 3)
+    _shortread_equal(cuda, s1, s2, ms, ns, Scores(2, -3, -2, -4, st), is_local)
+
+
+@pytest.mark.parametrize("L1,L2", [(128, 256), (160, 160), (64, 48)])
+def test_shortread_kernel_local_ties_keep_the_contract(cuda, L1, L2):
+    """Tie-heavy local batches: every G keeps the largest (v, i, j) as the
+    plain version does."""
+    rng = np.random.default_rng(9 + L1)
+    s1, s2, ms, ns = _short_batch(rng, 41, L1, L2, ties=True)
+    _shortread_equal(cuda, s1, s2, ms, ns, Scores(), True)
 
 
 @pytest.mark.parametrize("is_local", [False, True])
@@ -921,9 +954,9 @@ def test_warp_strip_kernel_matches_plain(cuda, is_local, st):
     sc = Scores(2, -3, -2, -4, st)
     want = gp.gotoh_strips_plain(s1, s2, ms, ns, sc, is_local, 32 * gseg.ROWS_PER_LANE)
     c1, c2 = s1.to(cuda), s2.to(cuda)
-    counts = {"kernel": 0}
-    _same_scores(gseg.warp_strip_cuda(c1, c2, ms, ns, sc, is_local, counts), want)
-    assert counts == {"kernel": 1}
+    before = gseg.COUNTS["kernel"]
+    _same_scores(gseg.warp_strip_cuda(c1, c2, ms, ns, sc, is_local), want)
+    assert gseg.COUNTS["kernel"] == before + 1
     before = gseg.COUNTS["kernel"], gs8.COUNTS["kernel"]
     _same_scores(gseg.gotoh_scores_segmented(c1, c2, ms, ns, sc, is_local), want)
     _same_scores(gs8.gotoh_scores_stream8(c1, c2, ms, ns, sc, is_local), want)
@@ -1017,6 +1050,47 @@ def test_strip_pipeline_splits_a_tight_ring(cuda, monkeypatch, is_local):
     _same_scores(got, want)
     groups = gp.pipeline_groups(ms, 768, 64)
     assert gp.COUNTS["kernel"] == before + len(groups) == before + 3
+
+
+@pytest.mark.parametrize("case", ["mixed 1-8 kb global", "empty global", "empty local"])
+def test_stream8_pipeline_matches_plain(cuda, case):
+    """K8 on the warp-strip pipeline == its plain version (K3's, scores
+    only; run on the card) on a mixed 1-8 kb global batch (the stream8
+    tier's) and on a batch with empty sequences; each call one launch on
+    K8's count, none on K3's."""
+    rng = np.random.default_rng(70)
+    if case.startswith("mixed"):
+        s1, s2, ms, ns = _stream_batch(rng, list(rng.integers(1_000, 8_001, 12)),
+                                       list(rng.integers(1_000, 8_001, 12)), 8064, 8064)
+    else:
+        s1, s2, ms, ns = _stream_batch(rng, [700, 0, 130, 0, 257], [650, 33, 0, 0, 700], 768,
+                                       768)
+    is_local = case.endswith("local")
+    c1, c2 = s1.to(cuda), s2.to(cuda)
+    want = gs.gotoh_stream_plain(c1, c2, ms, ns, Scores(), is_local)
+    before = gs8.COUNTS["kernel"], gs.COUNTS["kernel"]
+    got = gs8.gotoh_scores_stream8(c1, c2, ms, ns, Scores(), is_local)
+    _same_scores(got, [w.cpu() for w in want[:3]])
+    assert (gs8.COUNTS["kernel"] - before[0], gs.COUNTS["kernel"] - before[1]) == (1, 0)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_stream8_splits_a_tight_ring(cuda, monkeypatch, is_local):
+    """A ring of five slots for seven pairs of 1,000-1,024 rows: K8 runs the
+    plan's launches (one a pipeline group, all counted on its route) and
+    equals its plain version; the error words of all of them are read."""
+    rng = np.random.default_rng(71)
+    s1, s2, ms, ns = _stream_batch(rng, list(rng.integers(1000, 1025, 7)),
+                                   list(rng.integers(700, 769, 7)), 1024, 768)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 5 * 8 * 769)
+    groups = gp.pipeline_groups(ms, 768, gs.stream_rows(ms, ns, 1024, False))
+    assert len(groups) > 1
+    want = gs.gotoh_stream_plain(s1, s2, ms, ns, Scores(), is_local)
+    before = gs8.COUNTS["kernel"]
+    fill = gs8.gotoh_stream8_fill(s1.to(cuda), s2.to(cuda), ms, ns, Scores(), is_local)
+    assert int(fill.err) == 0
+    _same_scores(fill[:3], want[:3])
+    assert gs8.COUNTS["kernel"] - before == len(groups)
 
 
 @pytest.mark.parametrize("route", ["segmented", "stream8", "pallas", "stream"])

@@ -97,7 +97,7 @@ def test_cpu_route_counts_plain_calls():
     assert gseg.COUNTS == {"kernel": before["kernel"], "plain": before["plain"] + 1}
     s = torch.zeros((1, 64), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
-        gseg.warp_strip_cuda(s, s, [1], [1], Scores(), False, gseg.COUNTS)
+        gseg.warp_strip_cuda(s, s, [1], [1], Scores(), False)
 
 
 #: (B, Lm, Ln, is_local): every tier boundary of the JAX router.

@@ -29,14 +29,17 @@ KIMURA = (2, -3, -2, -4, -1)
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
-def _batch(seed, B, L1, L2, related=True):
+def _batch(seed, B, L1, L2, related=True, lengths=()):
     """Padded (B, L1), (B, L2) byte batches with true lengths >= 1;
-    odd pairs share a prefix, so paths hold long match runs."""
+    odd pairs share a prefix, so paths hold long match runs. ``lengths``
+    sets the first pairs' (m, n) after pair 0 (which fills its bucket);
+    by default pair 1 is (1, 1)."""
     rng = np.random.default_rng(seed)
     ms = rng.integers(1, L1 + 1, B)
     ns = rng.integers(1, L2 + 1, B)
     ms[0], ns[0] = L1, L2  # one pair fills its bucket
-    ms[1], ns[1] = 1, 1
+    for b, (m, n) in enumerate(lengths or [(1, 1)], 1):
+        ms[b], ns[b] = m, n
     s1 = np.full((B, L1), PAD_S1, np.uint8)
     s2 = np.full((B, L2), PAD_S2, np.uint8)
     for b in range(B):
@@ -48,6 +51,17 @@ def _batch(seed, B, L1, L2, related=True):
             flip = np.nonzero(rng.random(k) < 0.1)[0]
             s2[b, flip] = BASES[rng.integers(0, 4, flip.size)]
     return s1, s2, ms.astype(np.int32), ns.astype(np.int32)
+
+
+def _tie_batch(seed, B, L1, L2):
+    """Both sides of each pair repeat one unit of 1-4 bases, so local bests
+    tie on many rows and columns; lengths as :func:`_batch`'s."""
+    rng = np.random.default_rng(seed)
+    s1, s2, ms, ns = _batch(seed, B, L1, L2, related=False)
+    for b in range(B):
+        unit = BASES[rng.integers(0, 4, int(rng.integers(1, 5)))]
+        s1[b, : ms[b]], s2[b, : ns[b]] = np.resize(unit, ms[b]), np.resize(unit, ns[b])
+    return s1, s2, ms, ns
 
 
 def _true_codes(codes, ms, ns):
@@ -77,6 +91,85 @@ def test_shortread_plain_matches_jax_interpret(emit_dirs, is_local, score_t):
         assert got[3].shape == (7, 64, 3) and got[3].dtype == torch.int32
         for g, w in zip(_true_codes(got[3].numpy(), ms, ns), _true_codes(want[3], ms, ns)):
             assert np.array_equal(g, w)
+
+
+def _jax_equal(s1, s2, ms, ns, score_t, is_local):
+    """The plain version == JAX's interpret-mode kernel: scores, start
+    cells and codes at every true cell."""
+    got = gsr.gotoh_scores_shortread(
+        torch.from_numpy(s1), torch.from_numpy(s2), ms, ns, Scores.from_tuple(score_t),
+        is_local, emit_dirs=True)
+    want = jax_shortread(s1, s2, ms, ns, JaxScores(*score_t), is_local, emit_dirs=True,
+                         interpret=True)
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(_true_codes(got[3].numpy(), ms, ns), _true_codes(want[3], ms, ns)):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("L1,L2", [(32, 16), (32, 256), (128, 160), (128, 256), (160, 16),
+                                   (160, 160), (160, 256)])
+@pytest.mark.parametrize("is_local", [False, True])
+def test_shortread_plain_matches_jax_at_kernel_edges(L1, L2, is_local):
+    """The shapes where the sub-warp kernel's lanes and words end: pairs of
+    one row and one column, a pair filling the bucket, rows ending inside a
+    lane (m < L1, not a multiple of G x RT) and columns ending inside a
+    16-code word."""
+    lengths = [(1, 1), (1, L2), (L1, 1), (L1 - 3, L2 - 5 if L2 > 16 else 7), (17, 9)]
+    _jax_equal(*_batch(40 + L1 + L2, 8, L1, L2, lengths=lengths), KIMURA, is_local)
+
+
+@pytest.mark.parametrize("L1,L2", [(128, 256), (160, 160)])
+def test_shortread_plain_matches_jax_on_local_ties(L1, L2):
+    """Repeated sequences: local bests tie on many rows and columns, and
+    the plain version keeps JAX's (larger value, then i, then j)."""
+    _jax_equal(*_tie_batch(60 + L1, 8, L1, L2), CLASSIC, True)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_k6_codes_equal_the_shared_cell_on_ties(is_local):
+    """The kernel computes its cells by ``gotoh_stream_body.cuh``'s
+    ``gotoh_cell``, K3's cell, and tests its codes against the pre-floor
+    max as K3 does. Its plain version (``gotoh_stream_plain``) gives the
+    same codes as K6's plain version at every interior true cell on
+    tie-heavy batches, and the same global scores and positive local
+    bests."""
+    s1, s2, ms, ns = _tie_batch(71, 9, 128, 160)
+    sc = Scores.from_tuple(KIMURA)
+    t1, t2 = torch.from_numpy(s1), torch.from_numpy(s2)
+    k6 = gsr.gotoh_shortread_plain(t1, t2, ms, ns, sc, is_local, emit_dirs=True)
+    k3 = gs.gotoh_stream_plain(t1, t2, ms, ns, sc, is_local, emit_dirs=True)
+    d3 = k3.dirs.numpy().astype(np.int64)
+    for b, want in enumerate(_true_codes(k6[3].numpy(), ms, ns)):
+        i = np.arange(1, ms[b] + 1)[:, None]
+        j = np.arange(1, ns[b] + 1)[None, :]
+        k = i + j
+        assert np.array_equal((d3[b, k // 16, i] >> (2 * (k % 16))) & 3, want)
+    v6, v3 = k6[0].numpy(), k3.score.numpy()
+    assert np.array_equal(v6, v3)
+    if is_local:
+        pos = v6 > 0
+        assert np.array_equal(k6[1].numpy()[pos], k3.start_i.numpy()[pos])
+        assert np.array_equal(k6[2].numpy()[pos], k3.start_j.numpy()[pos])
+
+
+def test_group_size_at_the_paths_shapes():
+    """G (lanes a pair) and RT (rows a lane) for the reads' shapes: 152 rows
+    (``reads``, bench.py's batch), 128 (``map``), 256 (the tier's bound)
+    and small batches; G x RT holds the rows with the least compiled RT."""
+    for rows in (1, 5, 32, 100, 128, 150, 152, 160, 200, 256):
+        G = gsr.group_size(rows)
+        assert G in gsr.GROUP_SIZES
+        for g in gsr.GROUP_SIZES:
+            rt = gsr.lane_rows(rows, g)
+            assert rt in gsr.LANE_ROWS and g * rt >= rows
+            assert all(g * r < rows for r in gsr.LANE_ROWS if r < rt)
+    assert [gsr.group_size(r) for r in (1, 128, 152, 160, 161, 256)] == [8, 8, 8, 8, 32, 32]
+    assert [gsr.lane_rows(r, gsr.group_size(r)) for r in (1, 128, 152, 256)] == [4, 16, 20, 8]
+    with pytest.raises(ValueError, match="lanes a pair"):
+        gsr.lane_rows(128, 4)
+    with pytest.raises(ValueError, match="rows pass"):
+        gsr.lane_rows(257, 8)
 
 
 def test_shortread_local_empty_alignment():

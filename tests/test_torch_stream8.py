@@ -1,20 +1,31 @@
 """The stream8 tier (K8) of the port on the CPU against the JAX package:
-``gotoh_scores_stream8`` against JAX ``gotoh_scores_stream8(interpret=True)``
-on the cases of ``tests/test_stream8.py`` (multicycle, exact cycle and
-ragged, asymmetric pads, local no match and self-match, window overlap,
-single pair) with classic and kimura scores, and ``reads --engine
-stream8`` against ``--engine auto`` and the JAX CLI. Local start cells
-are compared in full; the JAX kernel's global starts are (m, n) by
-contract. The DP is int32: every comparison is exact.
+``gotoh_scores_stream8`` (on the CPU, the warp-strip pipeline's plain
+version ``gotoh_stream_plain`` at scores only) against JAX
+``gotoh_scores_stream8(interpret=True)`` on the cases of
+``tests/test_stream8.py`` (multicycle, exact cycle and ragged, asymmetric
+pads, local no match and self-match, window overlap, single pair) with
+classic and kimura scores, ``score_pairs(engine="stream8")`` with empty
+sequences and at B = 2, a bucket that ``pipeline_groups`` splits (the
+pipeline's host side driven by a stand-in launch), the error word's
+readers, and ``reads --engine stream8`` against ``--engine auto`` and the
+JAX CLI. Local start cells are compared in full; the JAX kernel's global
+starts are (m, n) by contract. The DP is int32: every comparison is exact.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
+import torch
 
 from genomics_rs_tpu.config import Scores as JaxScores
 from genomics_rs_tpu.ops.gotoh_stream8 import gotoh_scores_stream8 as jax_stream8
+from genomics_rs_tpu_torch.config import Scores
+from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
+from genomics_rs_tpu_torch.ops import gotoh_stream as gs
 from genomics_rs_tpu_torch.ops import gotoh_stream8 as gs8
+from genomics_rs_tpu_torch.parallel import batch
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence
 from tests.test_torch_reads import (  # noqa: F401
     KIMURA,
@@ -116,6 +127,91 @@ def test_stream8_matches_scan_with_empty_sequences():
     for is_local in (False, True):
         got = port_scores(gs8.gotoh_scores_stream8, *args, KIMURA, is_local)
         assert_same(got, scan_scores(*args, KIMURA, is_local))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_score_pairs_stream8_two_pairs_and_empty(is_local):
+    """``score_pairs(engine="stream8")`` at B = 2 (the least batch the route
+    takes) and on a batch with empty sequences on both sides: == JAX's
+    stream8 (interpret mode) and the scan oracle."""
+    rng = np.random.default_rng(19)
+    for args in (_batch(rng, 2, 40, 300, 384, 384), _batch(rng, 6, 0, 150, 256, 256)):
+        if len(args[2]) > 2:
+            args[2][1], args[3][3], args[2][4], args[3][4] = 0, 0, 0, 0
+        got = [np.asarray(x, np.int64) for x in batch.score_pairs(
+            *args, Scores.from_tuple(KIMURA), is_local, engine="stream8", device="cpu")]
+        assert_same(got, scan_scores(*args, KIMURA, is_local))
+        want = jax_stream8(*args, JaxScores(*KIMURA), is_local=is_local, interpret=True)
+        assert_same(got, want)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_stream8_split_bucket_launches_once_a_group(monkeypatch, is_local):
+    """A bucket whose ring does not fit the budget runs as one launch for
+    each of ``pipeline_groups``' pair ranges, each counted on K8's route
+    (not K3's): the pipeline's host side (``run_stream`` with K8's counts)
+    driven by a stand-in launch that fills its range by the plain version
+    through the pointers it is given. The scores == JAX's and the scan
+    oracle's."""
+    rng = np.random.default_rng(23)
+    s1b, s2b, ms, ns = _batch(rng, 7, 600, 640, 640, 768)
+    rows = gs.stream_rows(ms, ns, 640, False)
+    monkeypatch.setattr(gp, "PIPE_RING_BYTES", 3 * 8 * 769)  # three ring slots
+    groups = gp.pipeline_groups(ms, 768, rows)
+    assert len(groups) > 1
+    sc = Scores.from_tuple(SCORES)
+    launched = []
+
+    def as_array(p, n):
+        return np.ctypeslib.as_array((ctypes.c_int32 * n).from_address(p.value))
+
+    def launch(s1c, s2c, plan, work, ring, dirs, res, B, Lm, Ln, *rest):
+        assert dirs is None
+        m_n = as_array(plan, 2 * B)
+        fill = gs.gotoh_stream_plain(
+            torch.from_numpy(as_array(s1c, B * Lm).reshape(B, Lm).astype(np.uint8)),
+            torch.from_numpy(as_array(s2c, B * Ln).reshape(B, Ln).astype(np.uint8)),
+            m_n[:B], m_n[B:], sc, is_local, counts={"plain": 0})
+        as_array(res, 3 * B)[:] = torch.stack(fill[:3], 1).reshape(-1).numpy()
+        launched.append(B)
+        return 0
+
+    class Lib:
+        gotoh_stream_launch = staticmethod(launch)
+
+    before = gs8.COUNTS["kernel"], gs.COUNTS["kernel"]
+    fill = gs.run_stream(Lib, torch.from_numpy(s1b), torch.from_numpy(s2b), ms.astype(np.int64),
+                         ns.astype(np.int64), sc, is_local, False, rows, 64, gp.SPIN_NS, None,
+                         gs8.COUNTS, "gotoh_stream8")
+    assert launched == [hi - lo for lo, hi in groups]
+    assert (gs8.COUNTS["kernel"] - before[0], gs.COUNTS["kernel"] - before[1]) == (len(groups), 0)
+    assert int(fill.err) == 0
+    got = [x.numpy().astype(np.int64) for x in fill[:3]]
+    assert_same(got, scan_scores(s1b, s2b, ms, ns, SCORES, is_local))
+    assert_same(got, jax_stream8(s1b, s2b, ms, ns, JaxScores(*SCORES), is_local=is_local,
+                                 interpret=True))
+
+
+def test_stream8_error_word_is_read_with_the_scores(monkeypatch):
+    """The fill returns its error word unread; ``gotoh_scores_stream8`` and
+    ``score_pairs`` read it with the scores and raise when it is set (the
+    plain version's word set by hand here)."""
+    real = gs.gotoh_stream_plain
+
+    def with_err(*a, **kw):
+        return real(*a, **kw)._replace(err=torch.ones((), dtype=torch.int32))
+
+    monkeypatch.setattr(gs, "gotoh_stream_plain", with_err)
+    rng = np.random.default_rng(29)
+    s1b, s2b, ms, ns = _batch(rng, 3, 20, 90, 128, 128)
+    t1, t2 = torch.from_numpy(s1b), torch.from_numpy(s2b)
+    assert int(gs8.gotoh_stream8_fill(t1, t2, ms, ns, Scores(), False).err) == 1
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        gs8.gotoh_scores_stream8(t1, t2, ms, ns, Scores(), False)
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        batch.score_pairs(s1b, s2b, ms, ns, Scores(), False, engine="stream8", device="cpu")
+    # B = 1 runs K7's kernel, whose word is always clear.
+    assert int(gs8.gotoh_stream8_fill(t1[:1], t2[:1], ms[:1], ns[:1], Scores(), False).err) == 0
 
 
 @pytest.mark.parametrize("kind", ["global", "local"])

@@ -11,7 +11,11 @@ planted pair (that also at a 2 GiB ring), K16 on 4 planted copies of a
 155 kb genome (strips of 128, 256 and 512 rows) and on their first 300
 rows (phase 31's slice: at 128, 256 and 512 rows a strip, and on one
 block at 256 and 512), K3 on 132 pairs of
-8,192 bp, the warp strips (K7) on 528 pairs of 2,048 bp, the matrix fill
+8,192 bp, the warp strips (K7) on 528 pairs of 2,048 bp, K8 on each bucket
+of ``chip_smoke.py`` phase 24's corpus that ``auto`` sends to it (and K7,
+K8 and K3 on its largest), K6 on bench.py's 16,384 x 152 bp reads, at
+the map shape and on 4,096 pairs of 256 bp (at each group size where the
+build takes one), the matrix fill
 (K14) on 8,192 BLOSUM62 pairs of 383 aa, the banded fill K10 on the
 29,903 bp pair at band 2048 (also on one block, where the build takes
 it) and on the 1 Mb pair, and
@@ -237,6 +241,85 @@ def main() -> None:
               ("K9 1 Mb pair ring=2GiB", ring_2g, whole, (False,))]
     cases += [("K3 132 x 8192", gs.gotoh_scores_stream, batch(132, 8192), (False, True)),
               ("K7 528 x 2048", gseg.gotoh_scores_segmented, batch(528, 2048), (False, True))]
+    # chip_smoke.py phase 24's corpus as the CLI loads it (files g00..g127
+    # in name order) and its buckets in the order the path scores them: K8
+    # (global) on every bucket auto sends it, and K7 (local), K8 and K3
+    # (global) on the largest.
+    from genomics_rs_tpu_torch.ops import gotoh_stream8 as gs8
+    from genomics_rs_tpu_torch.parallel.allpairs import bucketize_pairs
+    from genomics_rs_tpu_torch.parallel.batch import route_engine
+    from genomics_rs_tpu_torch.sequence import PAD_S1
+
+    crng = np.random.default_rng(2424)
+    clens = crng.integers(chip_smoke.MID_MIN, chip_smoke.MID_MAX + 1, chip_smoke.MID_N)
+    mid = [chip_smoke.random_dna(crng, int(L)) for L in clens]
+    mid = [np.frombuffer(mid[k].encode(), np.uint8)
+           for k in sorted(range(len(mid)), key=lambda k: f"g{k:02d}")]
+    mpairs = [(i, j) for j in range(len(mid)) for i in range(len(mid)) if i <= j]
+    mgroups = bucketize_pairs(mpairs, [len(x) for x in mid])
+    def stacked(seqs, L: int, pad: int) -> torch.Tensor:
+        out = np.full((len(seqs), L), pad, np.uint8)
+        for t, x in enumerate(seqs):
+            out[t, : len(x)] = x
+        return torch.from_numpy(out).to(dev)
+
+    k8_buckets = {}
+    for key in sorted(mgroups):
+        bp = [mpairs[k] for k in mgroups[key]]
+        Lm = max(round_up(max(len(mid[i]) for i, _ in bp), 128), 128)
+        Ln = max(round_up(max(len(mid[j]) for _, j in bp), 128), 128)
+        ms_b = np.array([len(mid[i]) for i, _ in bp])
+        ns_b = np.array([len(mid[j]) for _, j in bp])
+        if route_engine(len(bp), Lm, Ln, False, ms_b, ns_b) == "stream8":
+            k8_buckets[key] = (stacked([mid[i] for i, _ in bp], Lm, PAD_S1),
+                               stacked([mid[j] for _, j in bp], Ln, PAD_S2), ms_b, ns_b)
+    big = k8_buckets[max(mgroups, key=lambda k: (k, len(mgroups[k])))]
+    cases += [("K8 mid largest bucket", gs8.gotoh_scores_stream8, big, (False,)),
+              ("K7 mid largest bucket", gseg.gotoh_scores_segmented, big, (True,)),
+              ("K3 mid largest bucket", gs.gotoh_scores_stream, big, (False,))]
+    if wanted("K8 mid every bucket local=False"):
+        out["K8 mid every bucket local=False"] = {
+            "ms": [cuda_ms(lambda b=b: gs8.gotoh_scores_stream8(*b, sc, False))
+                   for b in k8_buckets.values()],
+            "sum": sum(checksum(*gs8.gotoh_scores_stream8(*b, sc, False))
+                       for b in k8_buckets.values())}
+    # K6 at the reads' shapes: bench.py's 16,384 x 152 bp batch padded to
+    # 256 (global and local scores, local with codes) and the map shape
+    # (4,096 reads of 128 bp in 256 bp windows, local, codes); where the
+    # build's wrapper takes a group size, also at each one. The checksum
+    # reads the scores and start cells (codes past n are not the contract).
+    from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
+
+    srng = np.random.default_rng(5)
+    rd = (stacked(acgt[srng.integers(0, 4, (16_384, 152))], 256, PAD_S1),
+          stacked(acgt[srng.integers(0, 4, (16_384, 152))], 256, PAD_S2),
+          np.full(16_384, 152), np.full(16_384, 152))
+    win = acgt[srng.integers(0, 4, (4096, 256))]
+    rq = win[:, 64:192].copy()
+    hit = srng.random(rq.shape) < 0.01
+    rq[hit] = acgt[srng.integers(0, 4, int(hit.sum()))]
+    mp = (torch.from_numpy(rq).to(dev), torch.from_numpy(win).to(dev), np.full(4096, 128),
+          np.full(4096, 256))
+    # the tier's longest reads: 4,096 pairs of 256 bp (rows 256: RT = 32 at
+    # G = 8), local with codes, as align_reads fills them
+    lr = (torch.from_numpy(acgt[srng.integers(0, 4, (4096, 256))]).to(dev),
+          torch.from_numpy(acgt[srng.integers(0, 4, (4096, 256))]).to(dev), np.full(4096, 256),
+          np.full(4096, 256))
+    groups = (None,) + (tuple(gsr.GROUP_SIZES) if "group" in inspect.signature(
+        gsr._shortread_cuda).parameters else ())
+    for G in groups:
+        tag = "" if G is None else f" G={G}"
+        for name, inputs, is_local, dirs in (("K6 reads 16384 x 152", rd, False, False),
+                                             ("K6 reads 16384 x 152", rd, True, False),
+                                             ("K6 reads 16384 x 152 codes", rd, True, True),
+                                             ("K6 map 4096 x 128 x 256 codes", mp, True, True),
+                                             ("K6 reads 4096 x 256 codes", lr, True, True)):
+            key = f"{name} local={is_local}{tag}"
+            if not wanted(key):
+                continue
+            kw = {} if G is None else {"group": G}
+            run = lambda: gsr._shortread_cuda(*inputs, sc, is_local, dirs, **kw)  # noqa: E731
+            out[key] = {"ms": cuda_ms(run), "sum": checksum(*run()[:3])}
     for name, fn, inputs, modes in cases:
         for is_local in modes:
             if not wanted(f"{name} local={is_local}"):
