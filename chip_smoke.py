@@ -16,7 +16,13 @@ Phases, one line each:
      blocks, a two-slot ring, a block past m, strips of 64-512 rows), and
      the path's 10 kb local fill with dirs and 29.9 kb forward fill with
      cols at 128, 256 and 512 rows a strip
-  3  K2 (traceback walker) kernel == its plain version, on the card
+  3  K2 (the single walk: K4's staged chase on one warp, with the block
+     exits) kernel == its plain version, on the card: over phase 2's
+     bitmaps (j0 windows, resumes) and on ``tests/walk_stage_cases.py``'s
+     exit cases (up exits in a SUB run and off lane 0 after an INS run,
+     left exits in SUB and INS runs, both at once, stop cells), one launch
+     and resumed at 1, 15, 16 and 17 moves, on the TMA route and the 4-byte
+     cp.async route (a view 4 bytes off alignment)
   4  ``align`` end to end through ``PairwiseAligner(device="cuda")``:
      reference goldens, a seeded ~10 kb local pair (monolithic path) and
      a seeded 29,903 bp global pair (checkpointed path), scores and start
@@ -26,7 +32,8 @@ Phases, one line each:
      against its plain version on the same inputs
   5  kernel and plain-version times at the main path's shapes (K1's three
      fills at 128, 256 and 512 rows a strip; K2 through its wrapper and
-     its launch alone), and the wall time of the 29,903 bp ``align``
+     its launch alone, ns a move beside phase 1's chain floor), and the
+     wall time of the 29,903 bp ``align``
   6  K3 (batched fill on the warp-strip pipeline) kernel == its plain
      version, on the card: small mixed-length batches (global/local,
      classic/kimura, B = 1, empty sequences, dirs at every true cell; at
@@ -111,8 +118,10 @@ Phases, one line each:
      kb, the 1 Mb planted and self walks and the 16-walk batch
  19  K15 (the query profile) kernel == its plain version, on the card: small
      mixed batches under four matrices (BLOSUM62, asymmetric, |v| near 200,
-     no X; zero lengths, unknown bytes) and every entry of the 32,768 x 383
-     aa batch's profile
+     no X; zero lengths, unknown bytes), the tail shapes (rows of every
+     alignment, n_p inside and at the edge of a 16-byte chunk, n_p = 0,
+     B = 1, two column tiles) and every entry of the 32,768 x 383 aa
+     batch's profile
  20  the matrix fill (K13 and K14; one kernel) == its plain version: the
      small batches global and local (zero lengths, B = 1, codes at every
      true cell), 256 pairs of the 383 aa batch global and local with dirs,
@@ -130,11 +139,13 @@ Phases, one line each:
      bench.py's 16 x 400 aa corpus and ``msa`` on 24 x 1.5 kb of DNA (rows
      spell their sequences, the center is the argmax of the summed
      scores); the profile kernel, both fill routes, K4, K2 and K3 launched,
-     no plain version; then the 256-pair group's walks, K4 == plain
- 22  profile, fill and K4 times (median of 3, CUDA events; K4 through its
-     wrapper and its launch alone), the one
-     PyTorch call that computes the profile (a (256, A) byte table indexed
-     by the batch), plain times, bounds, and the walls of phase 21's calls
+     no plain version; K15's launches there each timed through its wrapper,
+     launches x (time - bound); then the 256-pair group's walks, K4 == plain
+ 22  profile, fill and K4 times (CUDA events; K15 at 32,768 x 383 and at
+     1,024 x 384 through its wrapper and its launch alone; K4 through its
+     wrapper and its launch alone), the one PyTorch call that computes the
+     profile (a (256, A) byte table indexed by the batch) at both shapes,
+     plain times, bounds, and the walls of phase 21's calls
  23  the warp-strip kernel (K7) and the warp-strip pipeline (K9, and K8 on
      K3's kernel) == their plain versions on small batches (empty and
      one-base pairs, global/local, classic/kimura; K9 also at 32-row strips
@@ -170,7 +181,8 @@ Phases, one line each:
      path's shapes: the
      16,384 x 152 bp batch, phase 24's largest bucket and the 29.9 kb pair,
      both cut to their first 300 rows (two strips, every column); kernel
-     and plain times there, and K7/K8/K3 on the whole bucket
+     and plain times there, and K7/K8/K3 on the whole bucket (K7 five
+     readings, with their share of its bound)
  27  K5 (the tile fill: K1's kernel at a column offset, with the right
      column out) == its plain version ``tile_fill`` on the card, global and
      local: bottom, right, best and the (m, n) value of an interior tile
@@ -1912,6 +1924,12 @@ PROT_FAM_N, PROT_FAM_L = 32, 400
 DNA_MSA_N, DNA_MSA_L = 24, 1_500
 #: oracle checks of phase 21: sampled pairs per (batch, mode), 4 x 128.
 PROT_ORACLE_PER = 128
+#: phase 19's K15 tail shapes, (B, Ln, n_p per pair): rows of every
+#: alignment (Ln % 8 != 0), n_p inside a 16-byte chunk and at a chunk's
+#: edge, n_p = 0, B = 1, rows shorter than a chunk, two column tiles of
+#: 2,048 and a tail.
+PROFILE_TAILS = ((5, 383, (383, 0, 200, 17, 1)), (1, 384, (384,)), (3, 7, (7, 3, 0)),
+                 (6, 9, (9, 8, 1, 0, 2, 5)), (3, 16, (16, 15, 9)), (2, 4101, (4101, 4096)))
 #: integer ops per interior cell of the matrix recurrence
 #: (csrc/gotoh_stream_body.cuh under the profile substitution): I 3 (two
 #: adds, max), S 1 (add the profile value), Q 1, M 1, A 3 (two adds, max),
@@ -2020,6 +2038,35 @@ class FillLaunchRecorder:
         self._pending.clear()
 
 
+class CallRecorder:
+    """Time every call of ``mod.name`` until ``stop()`` by CUDA events
+    around it (the wrapper: its host work and its launches), keeping
+    ``info(*args)`` beside each."""
+
+    def __init__(self, torch, mod, name, info):
+        self.rows, self._pending = [], []
+        real = getattr(mod, name)
+        self._undo = (mod, name, real)
+
+        def timed_call(*args, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = real(*args, **kw)
+            e1.record()
+            self._pending.append((e0, e1, info(*args)))
+            return out
+
+        setattr(mod, name, timed_call)
+
+    def stop(self) -> None:
+        """Put the wrapper back and read the events."""
+        setattr(*self._undo)
+        for e0, e1, row in self._pending:
+            e1.synchronize()
+            self.rows.append(dict(row, ms=e0.elapsed_time(e1)))
+        self._pending.clear()
+
+
 def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     """Phases 19-22: the protein path (``--matrix``) and ``msa`` on the
     query-profile kernel (K15) and the matrix fill (K13/K14). Returns their
@@ -2032,6 +2079,7 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     from genomics_rs_tpu_torch.display.alignment import format_aligned_sequences
     from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, matrix_align_batch
     from genomics_rs_tpu_torch.models.msa import center_star_msa, format_msa_clustal
+    from genomics_rs_tpu_torch.ops import _build
     from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
     from genomics_rs_tpu_torch.ops import gotoh_matrix_stream as gms
     from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
@@ -2120,6 +2168,17 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
         err = int((got.int() - gm.matrix_profile_plain(s2, ns, mx).int()).abs().max())
         k15_err = max(k15_err, err)
         check(err == 0, f"K15 kernel != plain ({kind}): max |err| {err}")
+    n_tails = 0
+    for B, Ln, ns in PROFILE_TAILS:
+        s2 = rng.integers(0, 256, (B, Ln)).astype(np.uint8)
+        s2[:, : Ln // 2] = aa[rng.integers(0, 20, (B, Ln // 2))]
+        (s2,) = on_card(s2)
+        for kind, mx in mats.items():
+            got = gm.matrix_profile(s2, np.array(ns), mx)
+            err = int((got.int() - gm.matrix_profile_plain(s2, np.array(ns), mx).int()).abs().max())
+            k15_err = max(k15_err, err)
+            n_tails += 1
+            check(err == 0, f"K15 kernel != plain at {B} x {Ln} ({kind}): max |err| {err}")
     u1, u2 = on_card(data["u1"], data["u2"])
     uns = np.full(PROT_STREAM_B, PROT_STREAM_L)
     prof_big = gm.matrix_profile(u2, uns, b62)
@@ -2130,7 +2189,10 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
                     f"{err} entries differ")
     del want
     print(f"[phase 19] K15 (query profile) kernel == plain on {len(mats)} small mixed batches "
-          f"(BLOSUM62, asymmetric, |v| near 200, no X; zero lengths, unknown bytes) and on "
+          f"(BLOSUM62, asymmetric, |v| near 200, no X; zero lengths, unknown bytes), on "
+          f"{n_tails} tail batches (B x Ln: "
+          + ", ".join(f"{b} x {ln}" for b, ln, _ in PROFILE_TAILS)
+          + "; n_p inside a chunk, at its edge and 0; every matrix) and on "
           f"every entry of the {PROT_STREAM_B} x {PROT_STREAM_L} aa batch's profile "
           f"({prof_big.numel() * 2 / 1e6:.0f} MB; plain {k15_plain_ms:.1f} ms); max |err| "
           f"{k15_err} ({t_data:.1f} s to make the data, {time.perf_counter() - t_phase:.1f} s)",
@@ -2210,6 +2272,8 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
             mod.COUNTS[key] = 0
     walls = {}
     fill_launches = FillLaunchRecorder(torch, gm, gs)
+    profile_calls = CallRecorder(torch, gm, "_profile_cuda", lambda s2eb, ns, mx, *a: dict(
+        B=s2eb.shape[0], Ln=s2eb.shape[1], A=int(gm._ext_matrix(mx).shape[0])))
     p1, p2 = on_card(data["p1"], data["p2"])
     pms, pns = data["pms"], data["pns"]
     results = {}
@@ -2282,12 +2346,15 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
             check(rc == 0, f"the CLI {name} exited {rc}")
             stdout[name] = out.getvalue()
         fill_launches.stop()
+        profile_calls.stop()
         launches = {k: v for k, v in gm.COUNTS.items() if k.endswith("kernel")}
         launches.update(walk_many=tw.COUNTS["many_kernel"], traceback_walk=tw.COUNTS["kernel"],
                         gotoh_stream=gs.COUNTS["kernel"])
         check(sum(1 for r in fill_launches.rows if r["what"] == "gotoh_matrix")
               == launches["pallas_kernel"] + launches["stream_kernel"],
               "the recorder missed a matrix fill launch")
+        check(len(profile_calls.rows) == launches["profile_kernel"],
+              "the recorder missed a profile launch")
         plain = (sum(v for k, v in gm.COUNTS.items() if k.endswith("plain"))
                  + gs.COUNTS["plain"] + gsr.COUNTS["plain"] + tw.COUNTS["many_plain"]
                  + td.COUNTS["plain"] + tb.COUNTS["plain"])
@@ -2369,6 +2436,16 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
         check(format_msa_clustal(res) in stdout[name], f"{name}: the CLI's alignment != the library's")
         msa_checks.append(f"{name}: {len(corpus)} rows of width {res.width}, center "
                           f"{res.names[res.center_index]}")
+    # K15's launches on the path, each timed through its wrapper, against
+    # their bounds (bytes: s2 in, A rows of int16 out).
+    k15_path = [(r["ms"], bound(float(r["B"]) * r["Ln"] * (1 + 2 * r["A"]), 0.0, rate)[0], r)
+                for r in profile_calls.rows]
+    k15_shapes = Counter((r["B"], r["Ln"], r["A"]) for _, _, r in k15_path)
+    print(f"[phase 21] card {card} | K15 on the path: {len(k15_path)} launches through the "
+          f"wrapper, {sum(t for t, _, _ in k15_path):.3f} ms against a bound of "
+          f"{sum(b for _, b, _ in k15_path):.4f} ms: launches x (time - bound) "
+          f"{sum(t - b for t, b, _ in k15_path):.3f} ms; (B, Ln, A) x count "
+          + ", ".join(f"{k} x {c}" for k, c in k15_shapes.most_common(6)), flush=True)
     print(f"[phase 21] protein path on cuda ({t_path:.1f} s): gotoh_scores_matrix on the "
           f"{PROT_B} x {PROT_L // 2}-{PROT_L} aa batch ({walls['blosum_batch_global']:.3f} / "
           f"{walls['blosum_batch_local']:.3f} s global / local) and the {PROT_STREAM_B} x "
@@ -2409,13 +2486,35 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     code_p1 = gm.row_codes(p1, b62)
     prof_p = gm.matrix_profile(p2, pns, b62)
     code_a1, prof_a = code_u1[:PROT_ALIGN_B], prof_big[:PROT_ALIGN_B]
-    k15_ms = cuda_ms(lambda: gm.matrix_profile(u2, uns, b62), 3)
-    k15_p_ms = cuda_ms(lambda: gm.matrix_profile(p2, pns, b62), 3)
-    # The one PyTorch call: a (256, A) byte -> profile-column table indexed by
-    # the batch's bytes (as int64; uint8 would index as a mask).
+    # K15 at the two shapes: through its wrapper, its launch alone (the raw
+    # matrix_profile_launch into a buffer made once), and the one PyTorch
+    # call: a (256, A) byte -> profile-column table indexed by the batch's
+    # bytes (as int64; uint8 would index as a mask; no zeros past n_p).
+    lib_k = _build.library()
     code_t, ext_t = gm._tables(b62, dev)
-    tab, u2_idx = ext_t[:, code_t].T.to(torch.int16).contiguous(), u2.long()
-    lib_ms = cuda_ms(lambda: tab[u2_idx], 3)
+    tab_t = ext_t[:, code_t].T.to(torch.int16).contiguous()
+    k15_times = {}
+    for shape, (s2x, nsx) in ((f"{PROT_STREAM_B} x {PROT_STREAM_L}", (u2, uns)),
+                              (f"{PROT_B} x {PROT_L}", (p2, pns))):
+        Bx, Lx = s2x.shape
+        prof_x = torch.empty((Bx, gm.device_tables(b62, dev)[2].shape[0], Lx), dtype=torch.int16,
+                             device=dev)
+        ns_x = torch.as_tensor(np.asarray(nsx), dtype=torch.int32).to(dev)
+        tab_k = gm.device_tables(b62, dev)[2]
+        idx_x = s2x.long()
+        alone = cuda_ms(lambda: _build.check(lib_k.matrix_profile_launch(
+            _build.ptr(s2x), _build.ptr(ns_x), _build.ptr(tab_k), _build.ptr(prof_x), Bx, Lx,
+            tab_k.shape[0], gm.PROFILE_BLOCKS_PER_SM, _build.stream_handle(dev)),
+            "matrix_profile"), 5)
+        check(torch.equal(prof_x, gm.matrix_profile_plain(s2x, nsx, b62)),
+              f"K15's launch alone != plain at {shape}")
+        k15_times[shape] = dict(
+            wrapper=cuda_ms(lambda: gm.matrix_profile(s2x, nsx, b62), 5), alone=alone,
+            library=cuda_ms(lambda: tab_t[idx_x], 5),
+            bound=bound(float(Bx) * Lx * (1 + 2 * tab_k.shape[0]), 0.0, rate))
+        del prof_x, idx_x
+    k15_big = k15_times[f"{PROT_STREAM_B} x {PROT_STREAM_L}"]
+    k15_ms, lib_ms = k15_big["wrapper"], k15_big["library"]
     fill_ms = {}
     for is_local in (False, True):
         fill_ms["stream", is_local] = cuda_ms(lambda: gm.matrix_fill(
@@ -2433,8 +2532,7 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     c_batch = float(np.sum(pms.astype(np.float64) * pns))
     c_align = float(PROT_ALIGN_B) * PROT_STREAM_L * PROT_STREAM_L
     A = prof_big.shape[1]
-    k15_bound = bound(float(PROT_STREAM_B) * PROT_STREAM_L * (1 + 2 * A), 0.0, rate)
-    k15_p_bound = bound(float(PROT_B) * PROT_L * (1 + 2 * A), 0.0, rate)
+    k15_bound = k15_big["bound"]
 
     def fill_bound(B, Lm, Ln, cells, kind, dirs=False):
         nbytes = B * Lm * 4 + B * A * Ln * 2 + 12 * B + (cells / 4 if dirs else 0)
@@ -2474,10 +2572,14 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
         for (what, route), (n, t, bd, shapes) in sorted(per_route.items()))
     print(f"[phase 22] card {card} | phase 21's fill launches, each timed where it ran: "
           f"{launch_line}", flush=True)
-    print(f"[phase 22] card {card} | K15 profile {PROT_STREAM_B} x {PROT_STREAM_L} aa "
-          f"(A = {A}): [{fmt(k15_ms)}] ms (plain {k15_plain_ms:.3f} ms, table[s2] "
-          f"[{fmt(lib_ms)}] ms, bound {k15_bound[0]:.4f} ms by {k15_bound[1]}); {PROT_B} x "
-          f"{PROT_L}: [{fmt(k15_p_ms)}] ms (bound {k15_p_bound[0]:.4f} ms) | fill "
+    print(f"[phase 22] card {card} | K15 profile (A = {A}; plain {k15_plain_ms:.3f} ms at "
+          f"{PROT_STREAM_B} x {PROT_STREAM_L}): "
+          + "; ".join(f"{k}: through the wrapper [{fmt(v['wrapper'])}] ms, its launch alone "
+                      f"[{fmt(v['alone'])}] ms, table[s2] [{fmt(v['library'])}] ms, bound "
+                      f"{v['bound'][0]:.4f} ms by {v['bound'][1]} (alone at "
+                      f"{v['bound'][0] / med(v['alone']):.0%} of it)"
+                      for k, v in k15_times.items())
+          + f" | fill "
           f"{PROT_STREAM_B} x {PROT_STREAM_L} aa ({c_stream:.4g} cells): global "
           f"[{fmt(fill_ms['stream', False])}] ms = {rate_of(c_stream, fill_ms['stream', False]):.4g} "
           f"cells/s (bound {b_stream['global'][0]:.3f} ms by {b_stream['global'][1]}), local "
@@ -3022,7 +3124,9 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     k9 = cuda_ms(lambda: gp.gotoh_scores_pallas_batch(*one_cut, sc, False), 3)
     b7, b8 = bound_of(big_cut[2], big_cut[3], True), bound_of(big_cut[2], big_cut[3], False)
     b9 = bound_of(one_cut[2], one_cut[3], False)
-    k7_full = cuda_ms(lambda: gseg.gotoh_scores_segmented(*big, sc, True), 3)
+    # K7 on the whole bucket, five readings (whether it reaches half its
+    # bound; earlier calls read it at 33-62% of the bound).
+    k7_full = cuda_ms(lambda: gseg.gotoh_scores_segmented(*big, sc, True), 5)
     k8_full = cuda_ms(lambda: gs8.gotoh_scores_stream8(*big, sc, False), 3)
     k3_full = cuda_ms(lambda: gs.gotoh_scores_stream(*big, sc, False), 3)
     bf7, bf8 = bound_of(big[2], big[3], True), bound_of(big[2], big[3], False)
@@ -3032,7 +3136,8 @@ def strip_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
           f"(bound {b7[0]:.4f} by {b7[1]}), K8 global [{fmt(k8)}] ms (bound {b8[0]:.4f} by "
           f"{b8[1]}), K9 global on {one_name} [{fmt(k9)}] ms (bound {b9[0]:.4f} by {b9[1]}) | the "
           f"whole bucket {len(bp)} x ({Lm}, {Ln}) ({cells(big[2], big[3]):.4g} cells): K7 local "
-          f"[{fmt(k7_full)}] ms (bound {bf7[0]:.4f}), K8 global [{fmt(k8_full)}] ms (bound "
+          f"[{fmt(k7_full)}] ms (bound {bf7[0]:.4f}: {bf7[0] / max(k7_full):.0%}-"
+          f"{bf7[0] / min(k7_full):.0%} of it), K8 global [{fmt(k8_full)}] ms (bound "
           f"{bf8[0]:.4f}), K3 global [{fmt(k3_full)}] ms ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
     return [
@@ -3638,8 +3743,31 @@ def main() -> None:
             n_walks += 1
             check(err == 0, f"K2 kernel != plain (i0={i0}, start=({si},{sj}), "
                             f"j0={j0}, max_steps={max_steps})")
+    # The staged chase's exits and runs (tests/walk_stage_cases.py), one
+    # launch and resumed at 1, 15, 16 and 17 moves a launch, on both copy
+    # routes: the bitmap as its own tensor (TMA boxes) and as a view 4 bytes
+    # into a larger buffer (4-byte cp.async copies).
+    from walk_stage_cases import exit_walks
+
+    n_exit = 0
+    for name, dirs, li, j, i0, j0 in exit_walks():
+        want = td.device_walk(dirs, li, j, i0, max_steps=4096, j0=j0)
+        flat = torch.zeros(dirs.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = dirs.reshape(-1).to(dev)
+        for route, view in (("TMA", dirs.to(dev)), ("cp.async", flat[1:].view(dirs.shape))):
+            words, count, i_f, j_f, done = tw.walk_kernel(view, li, j, i0, 4096, j0)
+            got = [(tw.unpack_moves(words, count), i_f, j_f, done)]
+            got += [tw.walk_full(view, li, j, i0, max_steps=cap, j0=j0) for cap in (1, 15, 16, 17)]
+            for g in got:
+                same = np.array_equal(g[0], want[0]) and tuple(g[1:]) == tuple(want[1:])
+                k2_err = max(k2_err, 0 if same else 1)
+                n_exit += 1
+                check(same, f"K2 kernel != plain on {name} ({route} route)")
     print(f"[phase 3] K2 kernel == plain on {n_walks} walks over phase-2 bitmaps "
-          f"(j0 windows, max_steps=100 resumes); max |err| {k2_err} "
+          f"(j0 windows, max_steps=100 resumes) and on {n_exit} walks of "
+          f"{len(exit_walks())} exit cases (up exits in a SUB run and off lane 0 after an INS "
+          f"run, left exits in SUB and INS runs, both at once, stop cells), one launch and "
+          f"resumed at 1/15/16/17 moves, TMA and cp.async routes; max |err| {k2_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- phase 4: the main path ----
@@ -3833,7 +3961,7 @@ def main() -> None:
 
     si, sj = int(kern.best[1]), int(kern.best[2])
     max_steps = 24_576
-    k2_ms = cuda_ms(lambda: tw.walk_full(kern.dirs, si, sj, 0, max_steps=max_steps), 3)
+    k2_ms = cuda_ms(lambda: tw.walk_full(kern.dirs, si, sj, 0, max_steps=max_steps), 5)
     t0 = time.perf_counter()
     want = td.device_walk(kern.dirs.cpu(), si, sj, 0, max_steps=max_steps)
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -3844,12 +3972,11 @@ def main() -> None:
     k2_words = words_read(got[0][None, :], [n_moves], [si], [sj], "diag16")
     # K2's launch alone (the whole walk fits one launch of max_steps moves)
     KW2, V2 = kern.dirs.shape
-    words2 = torch.empty(-(-max_steps // 16), dtype=torch.int32, device=dev)
-    meta2 = torch.empty(6, dtype=torch.int32, device=dev)
+    out2 = torch.empty(tw.META_SLOTS + -(-max_steps // 16), dtype=torch.int32, device=dev)
     lib = _build.library()
     k2_alone = cuda_ms(lambda: _build.check(lib.traceback_walk_launch(
-        _build.ptr(kern.dirs), _build.ptr(words2), _build.ptr(meta2), KW2, V2, si, sj, 0, 0,
-        max_steps, _build.stream_handle(dev)), "traceback_walk"), 3)
+        _build.ptr(kern.dirs), _build.ptr(out2), KW2, V2, si, sj, 0, 0, max_steps,
+        _build.stream_handle(dev)), "traceback_walk"), 5)
 
     walls = []
     for _ in range(2):
@@ -3893,8 +4020,10 @@ def main() -> None:
               for rows in STRIP_ROWS)
           + f" | plain: 10 kb local+dirs {k1_plain_ms:.1f} ms, 29.9 kb (phase 4's path fills) "
           f"bottom+cols {plain30['bottom+cols']:.1f} ms, dirs {plain30['dirs']:.1f} ms "
-          f"| K2 walk of {n_moves} moves ({k2_words} words read): kernel [{fmt(k2_ms)}] ms "
-          f"(alone [{fmt(k2_alone)}] ms, chain floor of a staged walk {chain_floor(n_moves)}), plain "
+          f"| K2 walk of {n_moves} moves ({k2_words} words read): through walk_full "
+          f"[{fmt(k2_ms)}] ms = {np.median(k2_ms) * 1e6 / n_moves:.1f} ns a move, its launch "
+          f"alone [{fmt(k2_alone)}] ms = {np.median(k2_alone) * 1e6 / n_moves:.1f} ns a move "
+          f"(chain floor {chain_floor(n_moves)}, {CHAIN_NS:.2f} ns a move), plain "
           f"{k2_plain_ms:.1f} ms | align 29903 bp global wall [{fmt(walls)}] s; {align_profile}",
           flush=True)
 

@@ -6,11 +6,15 @@
 // & 3) from a start cell with the reference retrace rules: per-axis
 // saturation at 0; done on a STOP code or on reaching (0, 0) when j0 == 0;
 // exit up when the row falls below i0 (exited = 1) or left onto local
-// column 0 of a windowed bitmap when j0 > 0 (exited = 2). Moves (STOP
-// excluded) are packed 16 per int32 into `words`; a partial last word still
-// lands. meta = (pos, li, j, done, exited, out_of_bounds). One thread, no
-// staging: each move is one dependent global load through the caches, so
-// it takes any KW >= 1, V >= 1.
+// column 0 of a windowed bitmap when j0 > 0 (exited = 2); the position moves
+// on a STOP too. Moves (STOP excluded) are packed 16 per int32 into
+// `words`; a partial last word still lands. meta = (pos, li, j, done,
+// exited, out_of_bounds). It is K4's staged chase (below) on one warp over
+// the whole (KW, V) bitmap, with the exits: only a move off lane 0 (when
+// i0 > 0) or onto column 0 (when j0 > 0) can exit, and K4's runs of SUB or
+// INS codes end on such a move at the latest (their caps at lane 0 and
+// column 0), so the one-move rules applied to a run's last move decide
+// every exit. It takes any KW >= 1, V >= 1 and any 4-byte-aligned view.
 //
 // walk_many_kernel (K4) replaces traceback_pallas.py:397, walk_many (body
 // _kernel_walk_many): W independent chases over one packed diag16 array
@@ -53,7 +57,7 @@
 // cached word: they are decoded together (a count of leading zero bits) and
 // applied as one step of up to 16 moves.
 //
-// The staged chase (K4 and K11). What bounds a walk on one thread is the
+// The staged chase (K2, K4 and K11). What bounds a walk on one thread is the
 // chain: each move's address depends on the previous move's
 // code, so every move was one dependent global load, a DRAM miss whenever
 // the path enters a new word row (one 29.9 kb pair's bitmap is ~450 MB, the
@@ -69,6 +73,7 @@
 //   over the bitmap (rows and lanes past its end read as 0), counted in on
 //   the slot's mbarrier; else the 32 lanes issue it as one group of 4-byte
 //   cp.async copies. DRAM latency overlaps RING - 1 boxes of walking.
+//   K2 and K4 share one loop (diag_chase); K2 adds its exits to it.
 // - The current word stays in a register: a move that keeps (word row,
 //   lane) decodes from it with no memory access at all.
 // What bounds the staged chase is the chain of one shared-memory load (or
@@ -86,58 +91,17 @@ constexpr unsigned DIR_SUB = 0, DIR_INS = 1, DIR_DEL = 2, DIR_STOP = 3;
 
 // A window's first lane is a multiple of 4 (16 bytes): a TMA tile whose
 // first lane is not faults (an illegal instruction on the card).
-// K4: boxes of 4 word rows (64 anti-diagonals), a ring of 3; a box placed
+// K2 and K4: boxes of 4 word rows (64 anti-diagonals), a ring of 3; a box placed
 // from a cell at most RING boxes above it spans at most 16 DIAG_ROWS
 // DIAG_RING lanes, +3 for its first lane's alignment.
 constexpr int DIAG_ROWS = 4, DIAG_RING = 3;
 constexpr int DIAG_LANES = 16 * DIAG_ROWS * DIAG_RING + 4;
+// K2's output: META_SLOTS int32 of meta (6 and 2 pad), then its moves.
+constexpr int META_SLOTS = 8;
 // K11: boxes of 8 word rows (128 matrix rows) by 256 lanes, a ring of 4;
 // 4 slide-bit words a box.
 constexpr int BAND_ROWS = 8, BAND_LANES = 256, BAND_RING = 4, BAND_ABOVE = 64;
 constexpr int BAND_BITS = BAND_ROWS / 2;
-
-__global__ void walk_kernel(const unsigned* __restrict__ dirs,
-                            unsigned* __restrict__ words, int* __restrict__ meta,
-                            int KW, int V, int li, int j, int i0, int j0,
-                            int max_steps) {
-  int pos = 0, done = 0, exited = 0, oob = 0;
-  unsigned acc = 0;
-  while (!done && !exited && pos < max_steps) {
-    const int k = li + j;
-    if (li < 0 || li >= V || k < 0 || (k >> 4) >= KW) {
-      oob = 1;
-      break;
-    }
-    const unsigned code = (dirs[(size_t)(k >> 4) * V + li] >> (2 * (k & 15))) & 3u;
-    const int ig = i0 + li;
-    const int ig_new = max(ig - (code == DIR_INS ? 0 : 1), 0);
-    const int j_new = max(j - (code == DIR_DEL ? 0 : 1), 0);
-    if (code != DIR_STOP) {
-      const int sp = pos & 15;
-      if (sp == 0) acc = 0;
-      acc |= code << (2 * sp);
-      if (sp == 15) words[pos >> 4] = acc;
-      ++pos;
-    }
-    if (code == DIR_STOP || (ig_new == 0 && j_new == 0 && j0 == 0)) {
-      done = 1;
-    } else if (ig_new < i0) {
-      exited = 1;
-    } else if (j_new == 0 && j0 > 0) {
-      exited = 2;
-    }
-    // The position moves on every step, stop codes included.
-    li = max(ig_new - i0, 0);
-    j = j_new;
-  }
-  if (pos & 15) words[pos >> 4] = acc;
-  meta[0] = pos;
-  meta[1] = li;
-  meta[2] = j;
-  meta[3] = done;
-  meta[4] = exited;
-  meta[5] = oob;
-}
 
 // starts[2b .. 2b+1] = (start_i, start_j) of walk b over the (L1, W) words
 // of read b; its moves go to words[b*NW ..], its meta to meta[5b ..] =
@@ -410,29 +374,27 @@ __device__ __forceinline__ void append_moves(unsigned code, int n, int& pos, uns
   pos += n;
 }
 
-// K4: walk w = blockIdx.x, one warp. starts[4w .. 4w+3] = (start_li,
-// start_j, koff, loff) of walk w; its moves go to words[w*NW ..], its meta
-// to meta[5w ..] = (pos, li, j, done, oob). tma = the boxes come by TMA over
-// `map` (else by 4-byte cp.async copies).
-__global__ void __launch_bounds__(32)
-    walk_many_kernel(const unsigned* __restrict__ dirs, const int* __restrict__ starts,
-                     unsigned* __restrict__ words, int* __restrict__ meta, int KW, int KWT,
-                     int V, int NW, int max_steps, int tma,
-                     const __grid_constant__ CUtensorMap map) {
-  using St = Stage<DIAG_ROWS, DIAG_LANES, DIAG_RING, 0>;
-  __shared__ __align__(128) St::Ring ring;
-  const int w = blockIdx.x;
-  const bool writer = threadIdx.x == 0;
-  int li = starts[4 * w];
-  int j = starts[4 * w + 1];
-  const int koff = starts[4 * w + 2];
-  const int loff = starts[4 * w + 3];
-  St st(ring, tma ? &map : nullptr, dirs, nullptr, koff, min(KW, KWT - koff), V, 0,
-        (int)threadIdx.x);
-  unsigned* out = words + (size_t)w * NW;
-  int pos = 0, done = 0, oob = 0;
+// The diag16 chase of one walk on one warp (K2 and K4), through the staged
+// ring: from the walk-local cell (li, j) over the word rows [koff, koff +
+// KW) of the (KWT, V) bitmap at the lanes from loff on, its moves to out.
+// EXITS adds K2's block exits at the block origin (i0, j0); without them
+// (K4: full-width bitmaps) i0 = j0 = 0 and the code is K4's as it was.
+// Returns (pos, li, j, done, exited, oob) in w.
+struct Walk {
+  int pos, li, j, done, exited, oob;
+};
+
+using DiagStage = Stage<DIAG_ROWS, DIAG_LANES, DIAG_RING, 0>;
+
+template <bool EXITS>
+__device__ __forceinline__ void diag_chase(DiagStage::Ring& ring, const CUtensorMap* map,
+                                           const unsigned* dirs, unsigned* out, int KW, int KWT,
+                                           int V, int koff, int loff, int i0, int j0,
+                                           int max_steps, Walk& w) {
+  DiagStage st(ring, map, dirs, nullptr, koff, min(KW, KWT - koff), V, 0, (int)threadIdx.x);
+  int li = w.li, j = w.j, pos = 0, done = 0, exited = 0, oob = 0;
   unsigned acc = 0;
-  while (!done && pos < max_steps) {
+  while (!done && !exited && pos < max_steps) {
     const int k = li + j;
     const int r = k >> 4;
     const int lane = loff + li;
@@ -475,25 +437,83 @@ __global__ void __launch_bounds__(32)
           ? min(__clz((w0 ^ 0x55555555u) << (2 * (15 - p))) >> 1, min(p + 1, j)) : 0;
       const unsigned code = sub_run > 0 ? DIR_SUB : c0;
       const int n = min(max(max(sub_run, ins_run), 1), max_steps - pos);
-      li = max(li - (code == DIR_INS ? 0 : n), 0);
-      j = max(j - (code == DIR_DEL ? 0 : n), 0);
-      if (code != DIR_STOP) append_moves(code, n, pos, acc, out);
-      if (code == DIR_STOP || (li == 0 && j == 0)) {
-        done = 1;
-        break;
+      if (EXITS) {
+        // K2's one-move rules on the step's last move. Only a move off lane
+        // 0 (i0 > 0) or onto column 0 (j0 > 0) exits, and a run ends on
+        // such a move at the latest (its caps li + 1 and j), so no exit
+        // falls inside a run.
+        const int ig = max(i0 + li - (code == DIR_INS ? 0 : n), 0);
+        const int jn = max(j - (code == DIR_DEL ? 0 : n), 0);
+        if (code != DIR_STOP) append_moves(code, n, pos, acc, out);
+        if (code == DIR_STOP || (ig == 0 && jn == 0 && j0 == 0)) {
+          done = 1;
+        } else if (ig < i0) {
+          exited = 1;
+        } else if (jn == 0 && j0 > 0) {
+          exited = 2;
+        }
+        li = max(ig - i0, 0);
+        j = jn;
+        if (done || exited) break;
+      } else {
+        li = max(li - (code == DIR_INS ? 0 : n), 0);
+        j = max(j - (code == DIR_DEL ? 0 : n), 0);
+        if (code != DIR_STOP) append_moves(code, n, pos, acc, out);
+        if (code == DIR_STOP || (li == 0 && j == 0)) {
+          done = 1;
+          break;
+        }
       }
       if (pos >= max_steps || li + j < kmin || once) break;
     }
   }
   st.drain();
-  if (!writer) return;
-  if (pos & 15) out[pos >> 4] = acc;
-  int* mt = meta + 5 * w;
-  mt[0] = pos;
-  mt[1] = li;
-  mt[2] = j;
-  mt[3] = done;
-  mt[4] = oob;
+  if (threadIdx.x == 0 && (pos & 15)) out[pos >> 4] = acc;
+  w = Walk{pos, li, j, done, exited, oob};
+}
+
+// K2: one walk, one warp, over the (KW, V) bitmap `dirs` (block origin i0,
+// j0). out[0 .. 5] = meta, its moves from out[META_SLOTS] on (the wrapper
+// reads both in one copy). tma = the boxes come by TMA over `map` (else by 4-byte
+// cp.async copies).
+__global__ void __launch_bounds__(32)
+    walk_kernel(const unsigned* __restrict__ dirs, int* __restrict__ out, int KW, int V, int li,
+                int j, int i0, int j0, int max_steps, int tma,
+                const __grid_constant__ CUtensorMap map) {
+  __shared__ __align__(128) DiagStage::Ring ring;
+  Walk w{0, li, j, 0, 0, 0};
+  diag_chase<true>(ring, tma ? &map : nullptr, dirs,
+                   reinterpret_cast<unsigned*>(out + META_SLOTS), KW, KW, V, 0, 0, i0, j0,
+                   max_steps, w);
+  if (threadIdx.x != 0) return;
+  out[0] = w.pos;
+  out[1] = w.li;
+  out[2] = w.j;
+  out[3] = w.done;
+  out[4] = w.exited;
+  out[5] = w.oob;
+}
+
+// K4: walk w = blockIdx.x, one warp. starts[4w .. 4w+3] = (start_li,
+// start_j, koff, loff) of walk w; its moves go to words[w*NW ..], its meta
+// to meta[5w ..] = (pos, li, j, done, oob). tma as K2's.
+__global__ void __launch_bounds__(32)
+    walk_many_kernel(const unsigned* __restrict__ dirs, const int* __restrict__ starts,
+                     unsigned* __restrict__ words, int* __restrict__ meta, int KW, int KWT,
+                     int V, int NW, int max_steps, int tma,
+                     const __grid_constant__ CUtensorMap map) {
+  __shared__ __align__(128) DiagStage::Ring ring;
+  const int b = blockIdx.x;
+  Walk w{0, starts[4 * b], starts[4 * b + 1], 0, 0, 0};
+  diag_chase<false>(ring, tma ? &map : nullptr, dirs, words + (size_t)b * NW, KW, KWT, V,
+                    starts[4 * b + 2], starts[4 * b + 3], 0, 0, max_steps, w);
+  if (threadIdx.x != 0) return;
+  int* mt = meta + 5 * b;
+  mt[0] = w.pos;
+  mt[1] = w.li;
+  mt[2] = w.j;
+  mt[3] = w.done;
+  mt[4] = w.oob;
 }
 
 // K11: walk w = blockIdx.x, one warp. starts[4w .. 4w+3] = (i, j, off, koff)
@@ -644,13 +664,15 @@ extern "C" int walk_banded_launch(const void* dirs, const void* slides,
   return (int)cudaGetLastError();
 }
 
-extern "C" int traceback_walk_launch(const void* dirs, void* words, void* meta,
-                                     int KW, int V, int start_li, int start_j,
-                                     int i0, int j0, int max_steps,
+// K2: out = int32[META_SLOTS + ceil(max_steps / 16)], meta then the moves.
+extern "C" int traceback_walk_launch(const void* dirs, void* out, int KW, int V, int start_li,
+                                     int start_j, int i0, int j0, int max_steps,
                                      void* stream) {
-  walk_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (const unsigned*)dirs, (unsigned*)words, (int*)meta, KW, V, start_li,
-      start_j, i0, j0, max_steps);
+  if (KW < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap map{};
+  const int tma = bitmap_map(&map, dirs, KW, V, DIAG_LANES, DIAG_ROWS);
+  walk_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const unsigned*)dirs, (int*)out, KW, V,
+                                                  start_li, start_j, i0, j0, max_steps, tma, map);
   return (int)cudaGetLastError();
 }
 

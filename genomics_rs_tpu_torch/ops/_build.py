@@ -122,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_rowblock_blocks_per_sm.restype = i
     lib.gotoh_rowblock_launch.argtypes = [vp] * 10 + [i] * 19 + [ctypes.c_longlong, vp]
     lib.gotoh_rowblock_launch.restype = i
-    lib.traceback_walk_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+    lib.traceback_walk_launch.argtypes = [vp, vp] + [i] * 7 + [vp]
     lib.traceback_walk_launch.restype = i
     lib.gotoh_stream_blocks_per_sm.argtypes = [i, i, i]
     lib.gotoh_stream_blocks_per_sm.restype = i
@@ -140,7 +140,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gotoh_banded_launch.restype = i
     lib.walk_banded_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.walk_banded_launch.restype = i
-    lib.matrix_profile_launch.argtypes = [vp] * 5 + [i] * 3 + [vp]
+    lib.matrix_profile_launch.argtypes = [vp] * 4 + [i] * 4 + [vp]
     lib.matrix_profile_launch.restype = i
     lib.gotoh_matrix_blocks_per_sm.argtypes = [i, i, i]
     lib.gotoh_matrix_blocks_per_sm.restype = i

@@ -13,7 +13,10 @@ shear:
   (B, A, Ln), 0 past ``n_p``; ``ext`` is the matrix extended with an
   unknown-byte row and column at its minimum when the alphabet has no
   ``X`` (:func:`_ext_matrix`), ``code`` the byte -> alphabet index map
-  (:func:`_alpha_code`). Row ``a`` is s1's character, column s2's.
+  (:func:`_alpha_code`). Row ``a`` is s1's character, column s2's. The
+  kernel reads one byte-indexed table, ``ext[:, code]`` (A, 256);
+  :func:`device_tables` makes it and the code and ext tables once per
+  alphabet, matrix values and device.
 * :func:`matrix_fill` (K13's and K14's counterpart, one kernel): K3's
   warp-strip pipeline (``ops/gotoh_stream``) with ``s(i, j) = prof[p,
   code(s1[i-1]), j-1]``; same outputs, same per-pair ``(B, KW, V)`` dirs,
@@ -60,6 +63,11 @@ STREAM_GROUPED_MIN_B = 2048
 
 NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
 
+#: the profile kernel's blocks an SM (each stages the whole byte table):
+#: 2 was the fastest of 1, 2, 4 and 8 at 32,768 x 383 on one H100 and tied
+#: at 1,024 x 384 (``tools/time_fills.py``).
+PROFILE_BLOCKS_PER_SM = 2
+
 
 def _alpha_code(matrix) -> np.ndarray:
     """(256,) int32: byte -> alphabet index; unknown bytes -> the
@@ -93,22 +101,54 @@ def _alpha_bytes(matrix):
 
 
 def _tables(matrix, dev):
-    """(code (256,) int32, ext (A, A) int32) on ``dev``."""
+    """(code (256,) int32, ext (A, A) int32) on ``dev``, made anew."""
     return (torch.as_tensor(_alpha_code(matrix)).to(dev),
             torch.as_tensor(_ext_matrix(matrix)).to(dev))
 
 
+#: device_tables' cache: (alphabet, matrix shape and values, device) ->
+#: (code, ext, tab).
+_DEVICE_TABLES: dict = {}
+
+
+def device_tables(matrix, dev):
+    """``(code (256,) int32, ext (A, A) int32, tab (A, 256) int16)`` on
+    ``dev``: :func:`_tables`' two and the profile kernel's byte-indexed
+    table ``tab[a, b] = ext[a, code[b]]``, made once per alphabet, matrix
+    values and device and kept (keyed on the values, not on the matrix
+    object)."""
+    vals = np.asarray(matrix.matrix)
+    dev = dev if isinstance(dev, torch.device) else torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (matrix.alphabet, vals.dtype.str, vals.shape, vals.tobytes(), dev.type, dev.index)
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        code, ext = _alpha_code(matrix), _ext_matrix(matrix)
+        tab = np.ascontiguousarray(ext[:, code].astype(np.int16))
+        hit = tuple(torch.from_numpy(x).to(dev) for x in (code, ext, tab))
+        _DEVICE_TABLES[key] = hit
+    return hit
+
+
 def _col_lengths(ns, B: int, Ln: int) -> np.ndarray:
-    """The s2 lengths as int64 numpy, checked against (B,) and 0..Ln."""
-    return _lengths(np.zeros(B, np.int64), ns, B, 0, Ln)[1]
+    """The s2 lengths as int32 numpy, checked against (B,) and 0..Ln."""
+    ns = np.asarray(ns.cpu() if torch.is_tensor(ns) else ns).reshape(-1)
+    if ns.shape != (B,):
+        raise ValueError(f"ms/ns must have shape ({B},)")
+    if B and (ns.min() < 0 or ns.max() > Ln):
+        raise ValueError(f"lengths outside 0..(0, {Ln})")
+    return ns.astype(np.int32, copy=False)
 
 
-def matrix_profile(s2eb: torch.Tensor, ns, matrix) -> torch.Tensor:
+def matrix_profile(s2eb: torch.Tensor, ns, matrix, ns_dev=None) -> torch.Tensor:
     """The query profile of a batch's s2 rows: int16 (B, A, Ln),
     ``prof[p, a, j] = ext[a, code(s2[p, j])]`` for ``j < n_p``, else 0.
-    The device of ``s2eb`` picks the route."""
+    The device of ``s2eb`` picks the route. ``ns_dev``: the same lengths
+    already on the card, int32 (B,) (a grouped caller uploads them once),
+    for the kernel to read instead of a copy of ``ns``."""
     if _build.uses_kernel(s2eb):
-        return _profile_cuda(s2eb, ns, matrix)
+        return _profile_cuda(s2eb, ns, matrix, ns_dev)
     return matrix_profile_plain(s2eb, ns, matrix)
 
 
@@ -125,24 +165,26 @@ def matrix_profile_plain(s2eb: torch.Tensor, ns, matrix) -> torch.Tensor:
     return torch.where(live[:, None, :], prof, 0).to(torch.int16).contiguous()
 
 
-def _profile_cuda(s2eb, ns, matrix) -> torch.Tensor:
+def _profile_cuda(s2eb, ns, matrix, ns_dev=None) -> torch.Tensor:
     dev = s2eb.device
     if dev.type != "cuda":
         raise ValueError(f"the profile kernel takes CUDA tensors, not {dev}")
     B, Ln = s2eb.shape
     _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
     ns_h = _col_lengths(ns, B, Ln)
-    code, ext = _tables(matrix, dev)
-    A = ext.shape[0]
+    _, _, tab = device_tables(matrix, dev)
+    A = tab.shape[0]
     prof = torch.empty((B, A, Ln), dtype=torch.int16, device=dev)
     if B == 0 or Ln == 0:
         return prof.zero_()
-    ns_d = torch.as_tensor(ns_h, dtype=torch.int32).to(dev)
+    if ns_dev is None:  # staged by the driver: no wait on the stream
+        ns_dev = torch.from_numpy(ns_h).to(dev, non_blocking=True)
+    _build.require(ns_dev, "ns_dev", torch.int32, dev, (B,))
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.matrix_profile_launch(
-            _build.ptr(s2eb), _build.ptr(ns_d), _build.ptr(code), _build.ptr(ext),
-            _build.ptr(prof), B, Ln, A, _build.stream_handle(dev),
+            _build.ptr(s2eb), _build.ptr(ns_dev), _build.ptr(tab), _build.ptr(prof), B, Ln, A,
+            PROFILE_BLOCKS_PER_SM, _build.stream_handle(dev),
         )
     _build.check(err, "matrix_profile")
     COUNTS["profile_kernel"] += 1
@@ -151,7 +193,7 @@ def _profile_cuda(s2eb, ns, matrix) -> torch.Tensor:
 
 def row_codes(s1eb: torch.Tensor, matrix) -> torch.Tensor:
     """(B, Lm) int32 alphabet code of every s1 byte (one index op)."""
-    code, _ = _tables(matrix, s1eb.device)
+    code = device_tables(matrix, s1eb.device)[0]
     return code[s1eb.long()]
 
 

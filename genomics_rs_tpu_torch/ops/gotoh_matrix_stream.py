@@ -28,9 +28,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genomics_rs_tpu_torch.ops.gotoh_matrix import _ext_matrix, checked_scores, gotoh_matrix_fill
+from genomics_rs_tpu_torch.ops.gotoh_matrix import (
+    _ext_matrix,
+    checked_scores,
+    gotoh_matrix_fill,
+    matrix_fill,
+    matrix_profile,
+    row_codes,
+)
 from genomics_rs_tpu_torch.ops.gotoh_pallas import raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_stream import StreamDirsResult
+
+#: most bytes of query profile one launch of the grouped entry builds: the
+#: profile of as many whole fill groups as fit (one group at least).
+PROFILE_BUDGET_BYTES = 256 << 20
 
 
 def _host(x) -> np.ndarray:
@@ -59,15 +70,28 @@ def gotoh_scores_matrix_stream(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, m
 def gotoh_scores_matrix_stream_grouped(s1eb: torch.Tensor, s2eb: torch.Tensor, ms, ns, matrix,
                                        g: int, h: int, is_local: bool = False,
                                        group_size: int = 1024):
-    """The scores of a large batch, one profile and one fill per
-    sub-batch of ``group_size`` pairs (bounding the profile's memory);
-    same results as :func:`gotoh_scores_matrix_stream`, or ``None``."""
+    """The scores of a large batch, one fill per sub-batch of
+    ``group_size`` pairs, the profile of as many sub-batches as
+    ``PROFILE_BUDGET_BYTES`` holds built at once (bounding its memory);
+    same results as :func:`gotoh_scores_matrix_stream`, or ``None``. The
+    s2 lengths go to the batch's device once, sliced per profile."""
     if not _applicable(ms, ns, matrix):
         return None
     ms, ns = _host(ms), _host(ns)
-    fills = [gotoh_matrix_fill(s1eb[sl], s2eb[sl], ms[sl], ns[sl], matrix, g, h, is_local,
-                               route="stream")
-             for sl in (slice(g0, g0 + group_size) for g0 in range(0, len(ms), group_size))]
+    B, Ln = s2eb.shape
+    per_group = 2 * _ext_matrix(matrix).shape[0] * Ln * group_size
+    span = max(1, PROFILE_BUDGET_BYTES // per_group) * group_size
+    ns_dev = (torch.from_numpy(ns).to(s2eb.device, non_blocking=True)
+              if s2eb.device.type == "cuda" else None)
+    fills = []
+    for s0 in range(0, B, span):
+        sp = slice(s0, s0 + span)
+        prof = matrix_profile(s2eb[sp], ns[sp], matrix, None if ns_dev is None else ns_dev[sp])
+        code1 = row_codes(s1eb[sp], matrix)
+        for g0 in range(0, prof.shape[0], group_size):
+            gl, sl = slice(g0, g0 + group_size), slice(s0 + g0, s0 + g0 + group_size)
+            fills.append(matrix_fill(code1[gl], prof[gl], ms[sl], ns[sl], g, h, is_local,
+                                     route="stream"))
     raise_on_err(torch.stack([f.err for f in fills]).max(), "gotoh_matrix")
     return tuple(torch.cat(parts) for parts in zip(*(f[:3] for f in fills)))
 

@@ -5,17 +5,17 @@
 :func:`walk_kernel` has ``walk_pallas``'s contract: it chases a packed
 direction bitmap from a start cell and returns the moves PACKED 16 to
 an int32 word (:func:`unpack_moves` decodes them on the host). It
-launches ``csrc/traceback_walk.cu`` and takes CUDA bitmaps only;
-:func:`walk_full` loops it until the path ends or leaves the block.
-A CPU bitmap goes through ``traceback_device.device_walk`` to the
-plain walker ``walk_block``.
+launches K2 (``walk_kernel`` in ``csrc/traceback_walk.cu``: K4's staged
+chase on one warp with the block exits added, ``ops/walk_stage``) and
+takes CUDA bitmaps only; :func:`walk_full` loops it until the path ends
+or leaves the block. A CPU bitmap goes through
+``traceback_device.device_walk`` to the plain walker ``walk_block``.
 
 :func:`walk_many` has ``walk_many``'s contract: W full-bitmap walks in
 one launch over one packed array, each at its own word-row and lane
 offset. A CUDA bitmap launches K4 (``walk_many_kernel`` in the same
 source: a staged chase, a warp a walk reading a ring of bitmap boxes in
-shared memory, ``ops/walk_stage``), a CPU bitmap runs
-:func:`walk_many_plain`.
+shared memory), a CPU bitmap runs :func:`walk_many_plain`.
 """
 
 from __future__ import annotations
@@ -44,6 +44,12 @@ def unpack_moves(words: np.ndarray, count: int) -> np.ndarray:
     return codes.reshape(-1).astype(np.uint8)[:count]
 
 
+#: int32 slots ahead of K2's moves in its one output buffer: the meta
+#: (pos, li, j, done, exited, oob) and two pad slots (the moves start 32
+#: bytes in).
+META_SLOTS = 8
+
+
 def walk_kernel(
     dirs: torch.Tensor,
     start_li: int,
@@ -55,11 +61,12 @@ def walk_kernel(
     """``walk_block`` semantics with packed move output, on a CUDA
     bitmap (any other device raises).
 
-    Returns ``(words int32[ceil(max_steps/16)], count, i_final,
-    j_final, done)``; ``words`` stays on the bitmap's device, the rest
-    are Python scalars. Not done with ``i_final == i0 - 1`` is an
-    upward exit, not done with ``j_final == 0`` and ``j0 > 0`` a left
-    exit, and otherwise a full buffer (resume from the final cell).
+    Returns ``(words int32[ceil(count/16)], count, i_final, j_final,
+    done)`` on the host (numpy words, Python scalars): the kernel writes
+    its meta and moves into one buffer, read back in one copy. Not done
+    with ``i_final == i0 - 1`` is an upward exit, not done with
+    ``j_final == 0`` and ``j0 > 0`` a left exit, and otherwise a full
+    buffer (resume from the final cell).
     """
     if max_steps > MAX_STEPS_CAP:
         raise ValueError(
@@ -70,25 +77,24 @@ def walk_kernel(
             f"walk_kernel takes a CUDA bitmap, not {dirs.device}; "
             "device_walk routes CPU bitmaps to walk_block"
         )
-    nw = -(-max_steps // MPW)
-    lib = _build.library()
     dev = dirs.device
     KW, V = dirs.shape
     _build.require(dirs, "dirs", torch.int32, dev)
-    words = torch.empty(nw, dtype=torch.int32, device=dev)
-    meta = torch.empty(6, dtype=torch.int32, device=dev)
+    out = torch.empty(META_SLOTS + -(-max_steps // MPW), dtype=torch.int32, device=dev)
+    lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.traceback_walk_launch(
-            _build.ptr(dirs), _build.ptr(words), _build.ptr(meta),
-            KW, V, int(start_li), int(start_j), int(i0), int(j0),
-            int(max_steps), _build.stream_handle(dev),
+            _build.ptr(dirs), _build.ptr(out), KW, V, int(start_li), int(start_j), int(i0),
+            int(j0), int(max_steps), _build.stream_handle(dev),
         )
     _build.check(err, "traceback_walk")
     COUNTS["kernel"] += 1
-    pos, li, j, done, exited, oob = meta.tolist()
+    host = out.cpu().numpy()
+    pos, li, j, done, exited, oob = (int(x) for x in host[:6])
     if oob:
         raise IndexError(f"walk left the bitmap at (li={li}, j={j})")
     i_final = int(i0) - 1 if exited == 1 else int(i0) + li
+    words = host[META_SLOTS : META_SLOTS + -(-pos // MPW)]
     return words, pos, i_final, j, bool(done)
 
 
@@ -112,8 +118,7 @@ def walk_full(
         words, count, i_f, j_f, done = walk_kernel(
             dirs, li, j, i0, max_steps=cap, j0=j0
         )
-        used = words[: -(-count // MPW)].cpu().numpy()
-        return unpack_moves(used, count), i_f, j_f, done
+        return unpack_moves(words, count), i_f, j_f, done
 
     return resume_walk(step, start_li, start_j, int(i0), windowed=int(j0) > 0)
 

@@ -1,5 +1,5 @@
-"""The staged chase of K4 and K11 (``csrc/traceback_walk.cu``), replayed
-on the host.
+"""The staged chase of K2, K4 and K11 (``csrc/traceback_walk.cu``),
+replayed on the host.
 
 A staged chase runs one walk on one warp and reads its codes only from a
 ring of *boxes* of the bitmap in shared memory: box ``c`` holds the word
@@ -9,13 +9,16 @@ walk's cell at that moment. The constants below are the kernel's
 (``DIAG_*``, ``BAND_*`` in the source; ``tests/test_torch_walk_stage.py``
 holds them equal).
 
-:func:`staged_walk_many` and :func:`staged_walk_banded` replay the
-kernels move for move with numpy copies of the boxes: the same box
-geometry, ring depth, window placement, reloads and register-cached
-words (K11's runs of SUB codes decoded from one word included). A word
-outside every staged box reads as ``POISON`` (all STOP codes), so a
-placement that misses the path shows as a wrong walk, and entering a box
-that the ring did not hold raises. They take ``walk_many`` and
+:func:`staged_walk` (K2), :func:`staged_walk_many` (K4) and
+:func:`staged_walk_banded` (K11) replay the kernels step for step with
+numpy copies of the boxes: the same box geometry, ring depth, window
+placement, reloads and register-cached words; K2 and K4 one loop, as in
+the source, with its runs of SUB and INS codes under the same caps (which
+end a run on K2's exiting move at the latest), K11 its runs of SUB codes
+decoded from one word. A word outside the current box reads as
+``POISON`` (all STOP codes), so a placement or a run that reaches past
+the box shows as a wrong walk, and entering a box that the ring did not
+hold raises. They take ``walk_kernel``, ``walk_many`` and
 ``walk_banded_batch``'s arguments and return what those return, so the
 tests hold them equal to the plain walkers and to JAX's.
 :func:`slide_words` builds K11's ``slides`` operand.
@@ -27,12 +30,18 @@ import numpy as np
 import torch
 
 from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_STOP, DIR_SUB
-from genomics_rs_tpu_torch.ops.traceback_walker import MPW, _walk_args, pack_moves
+from genomics_rs_tpu_torch.ops.traceback_walker import (
+    MAX_STEPS_CAP,
+    MPW,
+    _walk_args,
+    pack_moves,
+)
 
 #: A window's first lane is a multiple of 4 (a TMA tile's must be 16-byte
-#: aligned). K4: boxes of DIAG_ROWS word rows (64 anti-diagonals), a ring
-#: of DIAG_RING; a box placed from a cell at most DIAG_RING boxes above it
-#: spans at most 16 DIAG_ROWS DIAG_RING lanes, +3 for that alignment.
+#: aligned). K2 and K4: boxes of DIAG_ROWS word rows (64 anti-diagonals),
+#: a ring of DIAG_RING; a box placed from a cell at most DIAG_RING boxes
+#: above it spans at most 16 DIAG_ROWS DIAG_RING lanes, +3 for that
+#: alignment.
 DIAG_ROWS, DIAG_RING = 4, 3
 DIAG_LANES = 16 * DIAG_ROWS * DIAG_RING + 4
 #: K11: boxes of BAND_ROWS word rows (128 matrix rows) by BAND_LANES lanes,
@@ -122,43 +131,94 @@ class _Ring:
         self.make_current(self.cb)
 
     def word(self, r: int, x: int) -> int:
-        return int(self.cur[r - self.cb * self.rows, x - self.cur_lo])
+        """The word at (word row r, lane x) of the current box; POISON
+        outside it."""
+        rr, xx = r - self.cb * self.rows, x - self.cur_lo
+        if not (0 <= rr < self.rows and 0 <= xx < self.lanes):
+            return POISON
+        return int(self.cur[rr, xx])
 
 
 def _new_stats() -> dict:
     return {"boxes": 0, "restarts": 0, "reloads": 0, "steps": 0}
 
 
-def _many_one(words, KW, li, j, koff, loff, max_steps, stats):
+def _diag_one(words, KW, li, j, koff, loff, max_steps, stats, i0=0, j0=0):
+    """The source's ``diag_chase``: one walk of K2 (block origin ``i0``,
+    ``j0``) or K4 (``i0 = j0 = 0``), step for step. Returns ``(moves, li,
+    j, done, exited, oob)``."""
     KWT, V = words.shape
     nrows = min(KW, KWT - koff)
     ring = _Ring(words[koff:] if koff < KWT else words[:0], nrows, DIAG_ROWS, DIAG_LANES,
                  DIAG_RING, np.zeros(0, np.uint32), 0, stats)
-    moves, done, oob, cr, cl, cw = [], 0, 0, -1, -1, 0
-    while not done and len(moves) < max_steps:
+    moves, done, exited, oob = [], 0, 0, 0
+    while not done and not exited and len(moves) < max_steps:
         k = li + j
         r, lane = k >> 4, loff + li
         if li < 0 or lane >= V or k < 0 or r >= KW or koff + r >= KWT:
             oob = 1
             break
-        if r != cr or lane != cl:
-            def place(c, li=li, k=k):
-                return (loff + max(0, li - (k - 16 * DIAG_ROWS * c))) & ~3
 
-            ring.to_row(r, place)
-            if not ring.holds(lane):
-                ring.reload(place(ring.cb))
-            cw, cr, cl = ring.word(r, lane), r, lane
-        stats["steps"] += 1
-        code = (cw >> (2 * (k & 15))) & 3
-        li_new = max(li - (0 if code == DIR_INS else 1), 0)
-        j_new = max(j - (0 if code == DIR_DEL else 1), 0)
-        if code != DIR_STOP:
-            moves.append(code)
-        if code == DIR_STOP or (li_new == 0 and j_new == 0):
-            done = 1
-        li, j = li_new, j_new
-    return moves, li, j, done, oob
+        def place(c, li=li, k=k):
+            return (loff + max(0, li - (k - 16 * DIAG_ROWS * c))) & ~3
+
+        ring.to_row(r, place)
+        if not ring.holds(lane):
+            ring.reload(place(ring.cb))
+        kmin, once = 16 * DIAG_ROWS * ring.cb, j < 0
+        while True:
+            kk = li + j
+            p, rr, x = kk & 15, kk >> 4, loff + li
+            tmax = min(p >> 1, li)
+            w0 = ring.word(rr, x)
+            c0 = (w0 >> (2 * p)) & 3
+            subs = int(c0 == DIR_SUB)
+            for t in range(1, 8):
+                wt = ring.word(rr, x - min(t, tmax))
+                subs |= int(((wt >> ((2 * p - 4 * t) & 31)) & 3) == DIR_SUB) << t
+            ones = subs & ((2 << tmax) - 1)
+            sub_run = min((~ones & (ones + 1)).bit_length() - 1, j)  # trailing ones
+            ins_run = 0
+            if c0 == DIR_INS:
+                lead = _clz32(((w0 ^ 0x55555555) << (2 * (15 - p))) & 0xFFFFFFFF) >> 1
+                ins_run = min(lead, p + 1, j)
+            code = DIR_SUB if sub_run > 0 else c0
+            n = min(max(sub_run, ins_run, 1), max_steps - len(moves))
+            stats["steps"] += 1
+            ig = max(i0 + li - (0 if code == DIR_INS else n), 0)
+            jn = max(j - (0 if code == DIR_DEL else n), 0)
+            if code != DIR_STOP:
+                moves.extend([code] * n)
+            if code == DIR_STOP or (ig == 0 and jn == 0 and j0 == 0):
+                done = 1
+            elif ig < i0:
+                exited = 1
+            elif jn == 0 and j0 > 0:
+                exited = 2
+            li, j = max(ig - i0, 0), jn
+            if done or exited or len(moves) >= max_steps or li + j < kmin or once:
+                break
+    return moves, li, j, done, exited, oob
+
+
+def staged_walk(dirs: torch.Tensor, start_li: int, start_j: int, i0: int, max_steps: int,
+                j0: int = 0, stats: dict | None = None):
+    """K2 replayed over a CPU bitmap (KW, V): ``walk_kernel``'s arguments
+    and return value, ``(words int32[ceil(count/16)], count, i_final,
+    j_final, done)``; a walk off the bitmap raises ``IndexError``.
+    ``stats`` gathers box loads, ring restarts, reloads and steps."""
+    if max_steps > MAX_STEPS_CAP:
+        raise ValueError(f"max_steps {max_steps} > {MAX_STEPS_CAP}; loop walk_full")
+    words = dirs.detach().cpu().numpy().view(np.uint32)
+    stats = _new_stats() if stats is None else stats
+    KW = words.shape[0]
+    moves, li, j, done, exited, oob = _diag_one(words, KW, int(start_li), int(start_j), 0, 0,
+                                                int(max_steps), stats, int(i0), int(j0))
+    if oob:
+        raise IndexError(f"walk left the bitmap at (li={li}, j={j})")
+    i_final = int(i0) - 1 if exited == 1 else int(i0) + li
+    packed = pack_moves(np.asarray(moves, np.uint32), -(-len(moves) // MPW))
+    return packed, len(moves), i_final, j, bool(done)
 
 
 def staged_walk_many(dirs: torch.Tensor, start_li, start_j, koffs, KW: int,
@@ -173,7 +233,7 @@ def staged_walk_many(dirs: torch.Tensor, start_li, start_j, koffs, KW: int,
     out_w = np.zeros((W, nw), np.int32)
     out = np.zeros((4, W), np.int64)
     for w in range(W):
-        moves, li_f, j_f, done, oob = _many_one(
+        moves, li_f, j_f, done, _, oob = _diag_one(
             words, int(KW), int(li[w]), int(sj[w]), int(ko[w]), int(lo[w]), max_steps, stats)
         if oob:
             raise IndexError(f"walk {w} left its bitmap at (li={li_f}, j={j_f})")

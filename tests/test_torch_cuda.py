@@ -4,7 +4,8 @@ Marked ``cuda``: they skip without a CUDA device (run them on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``).
 The CPU tests hold the plain versions equal to the JAX package; these
 hold the kernels (K1–K4, K6 at every group size, ``walk_rows16``,
-K10–K12, the query profile and the matrix fill of K13–K15, the warp-strip
+K10–K12, the query profile (at its tails and its widest alphabet) and the
+matrix fill of K13–K15, the warp-strip
 kernel of K7, the strip pipeline of K9 and its K16 entry, K8 on K3's
 pipeline, and K1's tile form K5 with a two-shard pipeline on one card) equal to the plain versions, bit for
 bit; K1 and K5 also at the edges of their strip pipeline (strip counts,
@@ -14,7 +15,9 @@ edges (strips that end mid-lane, one-row and empty pairs, local ties,
 capped grids, a tight ring under a short wait bound, every strip height
 with and without diag16 codes, an error word that comes back unread,
 bands at column 0 and bands that slide, every band width that had its own
-compiled form, mixed batches); the staged walks (K4 on random codes,
+compiled form, mixed batches); the staged walks (K2 on its block exits,
+edge paths and random codes, one launch and resumed, on both copy routes;
+K4 on random codes,
 TMA and 4-byte-copy rows and views, buffers ending mid-path, thousands of
 short walks and ``walk_stage_cases``' edge paths; K11 on its edge paths
 whole and resumed, rows of any width and one-launch batches).
@@ -30,6 +33,7 @@ from genomics_rs_tpu_torch.models.banded import align_banded
 from genomics_rs_tpu_torch.ops import gotoh_banded as gb
 from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
 from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
+from genomics_rs_tpu_torch.ops import gotoh_matrix_stream as gms
 from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
 from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
@@ -42,7 +46,7 @@ from genomics_rs_tpu_torch.ops import traceback_walker as tw
 from genomics_rs_tpu_torch.ops import subst
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.sequence import PAD_S2, Sequence
-from walk_stage_cases import BAND_EDGE_SPECS, band_edge_walk, diag_edge_walks
+from walk_stage_cases import BAND_EDGE_SPECS, band_edge_walk, diag_edge_walks, exit_walks
 
 pytestmark = pytest.mark.cuda
 
@@ -268,6 +272,57 @@ def test_walk_kernel_matches_plain(cuda, j0):
         got = tw.walk_full(dirs.to(cuda), li, j, 3, max_steps=40, j0=j0)
         assert np.array_equal(got[0], want[0])
         assert tuple(got[1:]) == tuple(want[1:])
+
+
+def _k2_views(dirs: torch.Tensor, cuda):
+    """The bitmap on the card twice: as its own tensor (16-byte aligned:
+    TMA boxes where V % 4 == 0 and V >= 196) and as a view 4 bytes into a
+    larger buffer (4-byte cp.async copies)."""
+    KW, V = dirs.shape
+    flat = torch.zeros(KW * V + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = dirs.reshape(-1).to(cuda)
+    return {"tma": dirs.to(cuda), "cp.async": flat[1:].view(KW, V)}
+
+
+@pytest.mark.parametrize("route", ["tma", "cp.async"])
+def test_walk_kernel_exits_match_plain(cuda, route):
+    """K2 on walk_stage_cases' exit cases (up exits in a SUB run and off
+    lane 0 after an INS run, left exits in SUB and INS runs, both at once,
+    stop cells, done at i0 = 1, random paths), one launch and resumed at
+    max_steps 1, 15, 16 and 17, on both copy routes: == walk_block, one
+    count a launch."""
+    for name, dirs, li, j, i0, j0 in exit_walks():
+        want = td.device_walk(dirs, li, j, i0, max_steps=4096, j0=j0)
+        view = _k2_views(dirs, cuda)[route]
+        before = tw.COUNTS["kernel"]
+        words, count, i_f, j_f, done = tw.walk_kernel(view, li, j, i0, 4096, j0)
+        assert tw.COUNTS["kernel"] == before + 1
+        assert np.array_equal(tw.unpack_moves(words, count), want[0]), name
+        assert (i_f, j_f, done) == tuple(want[1:]), name
+        for cap in (1, 15, 16, 17):
+            got = tw.walk_full(view, li, j, i0, max_steps=cap, j0=j0)
+            assert np.array_equal(got[0], want[0]) and tuple(got[1:]) == tuple(want[1:]), name
+
+
+@pytest.mark.parametrize("route", ["tma", "cp.async"])
+def test_walk_kernel_edge_paths_match_plain(cuda, route):
+    """walk_stage_cases' K4 edge paths as K2 walks of the lane-offset view
+    (word-row boundaries, a stop cell, 300-move gaps, li held at 0) at i0 =
+    0 and 7, and mostly-SUB random codes on rows of 256, 301 and 700
+    lanes with block origins inside, on both copy routes: == walk_block."""
+    cases = [(dirs[:, lo[0]:].contiguous(), li[0], j[0], i0, 0)
+             for _, dirs, li, j, _, _, _, lo in diag_edge_walks() for i0 in (0, 7)]
+    rng = np.random.default_rng(33)
+    for V in (256, 301, 700):
+        dirs = _pack16(rng.choice(4, size=(60 * 16, V), p=[0.8, 0.09, 0.09, 0.02]))
+        for _ in range(4):
+            li = int(rng.integers(0, min(V, 500)))
+            cases.append((dirs, li, int(rng.integers(0, 900 - li)), int(rng.integers(0, 3)) * 50,
+                          int(rng.integers(0, 2)) * 300))
+    for dirs, li, j, i0, j0 in cases:
+        want = td.device_walk(dirs, li, j, i0, max_steps=4096, j0=j0)
+        got = tw.walk_full(_k2_views(dirs, cuda)[route], li, j, i0, max_steps=4096, j0=j0)
+        assert np.array_equal(got[0], want[0]) and tuple(got[1:]) == tuple(want[1:])
 
 
 def _stream_batch(rng, ms, ns, Lm, Ln):
@@ -753,6 +808,78 @@ def test_matrix_profile_kernel_matches_plain(cuda):
     _, s2, _, ns = _prot_batch(rng, [100, 50], [300, 333], 384, 384)
     assert torch.equal(gm.matrix_profile(s2.to(cuda), ns, big).cpu(),
                        gm.matrix_profile_plain(s2, ns, big))
+
+
+#: K15's edge shapes (B, Ln, n_p per pair or None for random): rows of
+#: every alignment (Ln % 8 != 0), n_p inside a 16-byte chunk and at a
+#: chunk's edge, n_p = 0, B = 1, rows shorter than a chunk, two column tiles
+#: of 2,048 and a tail, and enough pairs that the grid loops.
+PROFILE_SHAPES = [
+    (5, 383, [383, 0, 200, 17, 1]),
+    (1, 384, [384]),
+    (3, 7, [7, 3, 0]),
+    (6, 9, [9, 8, 1, 0, 2, 5]),
+    (3, 16, [16, 15, 9]),
+    (4, 2100, [2100, 2049, 5, 2048]),
+    (2, 4101, [4101, 4096]),
+    (3, 1, [1, 0, 1]),
+    (4097, 100, None),
+]
+
+
+@pytest.mark.parametrize("shape", PROFILE_SHAPES, ids=[f"{b}x{ln}" for b, ln, _ in PROFILE_SHAPES])
+def test_matrix_profile_kernel_edges_match_plain(cuda, shape):
+    """K15 at its tails under BLOSUM62 and a matrix without X, with bytes
+    outside the alphabet: == the plain version, entry for entry."""
+    B, Ln, ns = shape
+    rng = np.random.default_rng(Ln + B)
+    ns = np.asarray(ns if ns is not None else rng.integers(0, Ln + 1, B), np.int64)
+    s2 = rng.integers(0, 256, (B, Ln)).astype(np.uint8)
+    s2[:, : Ln // 2] = PROT[rng.integers(0, 20, (B, Ln // 2))]
+    for kind in ("blosum62", "dna"):
+        mx = _matrix(kind)
+        before = gm.COUNTS["profile_kernel"]
+        got = gm.matrix_profile(torch.from_numpy(s2).to(cuda), ns, mx)
+        assert gm.COUNTS["profile_kernel"] == before + 1
+        assert torch.equal(got.cpu(), gm.matrix_profile_plain(torch.from_numpy(s2), ns, mx))
+
+
+@pytest.mark.parametrize("with_x", [True, False])
+def test_matrix_profile_kernel_widest_alphabet(cuda, with_x):
+    """A = 256, the most rows a matrix can give (every byte value in the
+    alphabet, or every one but X and the extra row; the launch admits
+    257): the table fills most of shared memory and the kernel == the
+    plain version."""
+    rng = np.random.default_rng(256)
+    letters = bytes(b for b in range(256) if with_x or b != ord("X")).decode("latin-1")
+    mx = subst.SubstMatrix(letters, rng.integers(-50, 50, (len(letters), len(letters))))
+    s2 = rng.integers(0, 256, (3, 3001)).astype(np.uint8)
+    ns = np.array([3001, 1500, 7])
+    got = gm.matrix_profile(torch.from_numpy(s2).to(cuda), ns, mx)
+    assert got.shape[1] == 256
+    assert torch.equal(got.cpu(), gm.matrix_profile_plain(torch.from_numpy(s2), ns, mx))
+
+
+@pytest.mark.parametrize("budget_groups,profiles", [(None, 1), (2, 2)])
+def test_grouped_profiles_read_lengths_uploaded_once(cuda, monkeypatch, budget_groups, profiles):
+    """The grouped stream entry uploads the s2 lengths once; a profile
+    launch covers the fill groups its budget holds, each reading its slice
+    of the lengths, and each group's fill its slice of the profile: scores
+    == the plain route's, one fill launch a group."""
+    rng = np.random.default_rng(43)
+    s1, s2, ms, ns = _prot_batch(rng, rng.integers(1, 120, 20), rng.integers(1, 120, 20), 128,
+                                 127)
+    mx = subst.blosum62()
+    if budget_groups:
+        monkeypatch.setattr(gms, "PROFILE_BUDGET_BYTES", 2 * 24 * 127 * 8 * budget_groups)
+    want = gms.gotoh_scores_matrix_stream(s1, s2, ms, ns, mx, -1, -11)
+    before = dict(gm.COUNTS)
+    got = gms.gotoh_scores_matrix_stream_grouped(s1.to(cuda), s2.to(cuda), ms, ns, mx, -1, -11,
+                                                 group_size=8)
+    assert gm.COUNTS["profile_kernel"] - before["profile_kernel"] == profiles
+    assert gm.COUNTS["stream_kernel"] - before["stream_kernel"] == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("is_local", [False, True])

@@ -304,8 +304,52 @@ def test_grouped_and_routes(monkeypatch, is_local):
     assert gm.COUNTS["stream_plain"] - before["stream_plain"] == 4  # 1 + 3 groups
     _equal(_port_scores(s1, s2, ms, ns, pm, is_local, engine="stream"), want)  # grouped: 1
     assert gm.COUNTS["stream_plain"] - before["stream_plain"] == 5
-    assert gm.COUNTS["profile_plain"] - before["profile_plain"] == 6
+    # one profile a call: the grouped calls' three groups fit one profile
+    assert gm.COUNTS["profile_plain"] - before["profile_plain"] == 4
     assert gm.COUNTS["pallas_kernel"] == before["pallas_kernel"]
+
+
+@pytest.mark.parametrize("kind", ["blosum62", "no_x", "asymmetric"])
+def test_device_tables_are_made_once_per_values(kind):
+    """The profile kernel's tables are kept per alphabet, matrix values and
+    device: they equal ``_tables``' (the extra row and column of a matrix
+    without X included), the byte table is ``ext[:, code]``, a second
+    matrix object with the same values gets the same tensors, and a change
+    of one value gets new ones."""
+    _, pm = _pair_of_matrices(kind)
+    code, ext, tab = gm.device_tables(pm, "cpu")
+    want_code, want_ext = gm._tables(pm, "cpu")
+    assert torch.equal(code, want_code) and torch.equal(ext, want_ext)
+    assert ext.shape[0] == len(pm.alphabet) + ("X" not in pm.alphabet)
+    assert tab.dtype == torch.int16 and torch.equal(tab, ext[:, code.long()].to(torch.int16))
+    same = subst.SubstMatrix(pm.alphabet, pm.matrix.copy(), "a copy")
+    assert all(a is b for a, b in zip(gm.device_tables(same, torch.device("cpu")),
+                                      (code, ext, tab)))
+    changed = pm.matrix.copy()
+    changed[1, 0] += 1
+    other = gm.device_tables(subst.SubstMatrix(pm.alphabet, changed), "cpu")
+    assert torch.equal(other[1], gm._tables(subst.SubstMatrix(pm.alphabet, changed), "cpu")[1])
+    assert not torch.equal(other[1], ext) and not torch.equal(other[2], tab)
+    assert torch.equal(gm.device_tables(pm, "cpu")[1], want_ext)
+
+
+@pytest.mark.parametrize("budget_groups", [None, 1])
+@pytest.mark.parametrize("is_local", [False, True])
+def test_grouped_batch_of_2048_pairs_matches_jax(monkeypatch, is_local, budget_groups):
+    """A batch of STREAM_GROUPED_MIN_B pairs at small lengths goes through
+    ``gotoh_scores_matrix``'s grouped route (two fill groups of 1,024) and
+    equals the JAX package's scan engine: one profile for both groups
+    under the default budget, one a group under a budget of one group."""
+    jm, pm = _pair_of_matrices("blosum62")
+    B = gm.STREAM_GROUPED_MIN_B
+    assert B >= 2048
+    s1, s2, ms, ns = _prot_batch(np.random.default_rng(2048 + is_local), B, 12, 10, lo=1)
+    if budget_groups:
+        monkeypatch.setattr(gms, "PROFILE_BUDGET_BYTES", 2 * 24 * 10 * 1024 * budget_groups)
+    before = dict(gm.COUNTS)
+    _equal(_port_scores(s1, s2, ms, ns, pm, is_local), _jax_scan(s1, s2, ms, ns, jm, is_local))
+    assert gm.COUNTS["profile_plain"] - before["profile_plain"] == (2 if budget_groups else 1)
+    assert gm.COUNTS["stream_plain"] - before["stream_plain"] == 2
 
 
 def test_matrix_guards_match_jax():

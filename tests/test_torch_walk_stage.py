@@ -1,17 +1,21 @@
-"""The staged chases of K4 and K11 (``csrc/traceback_walk.cu``), replayed on
-the host by ``ops/walk_stage``, against the plain walkers and JAX's.
+"""The staged chases of K2, K4 and K11 (``csrc/traceback_walk.cu``),
+replayed on the host by ``ops/walk_stage``, against the plain walkers and
+JAX's.
 
-``staged_walk_banded`` and ``staged_walk_many`` walk only through copies
-of the kernel's boxes (its box geometry, ring depth, window placement,
-reloads and register-decoded runs), a word outside every staged box
-reading as STOP codes. They are held equal to ``walk_banded_plain``,
-``walk_many_plain``, JAX's banded walker (``_walk_banded_jit``, through
-``walk_banded`` on the CPU) and JAX's ``walk_many(interpret=True)``, on
-edge paths built for the boxes (``walk_stage_cases.py``): gaps wider
-than the lane window both ways, paths along both band edges, starts on
-word-row boundaries, resumes at max_steps of 1, 15, 16, 17 and 1,000,
-the all-INS bitmap, lane offsets and stop cells. Exact equality
-throughout.
+``staged_walk``, ``staged_walk_banded`` and ``staged_walk_many`` walk
+only through copies of the kernel's boxes (its box geometry, ring depth,
+window placement, reloads and register-decoded runs under the kernel's
+caps), a word outside the current box reading as STOP codes. They are
+held equal to ``walk_block``, ``walk_banded_plain``, ``walk_many_plain``,
+JAX's ``walk_pallas(interpret=True)`` / ``walk_full``, JAX's banded walker
+(``_walk_banded_jit``, through ``walk_banded`` on the CPU) and JAX's
+``walk_many(interpret=True)``, on edge paths built for the boxes
+(``walk_stage_cases.py``): K2's block exits (up in the middle of a SUB
+run and off lane 0 after an INS run, left in SUB and INS runs, both at
+once), gaps wider than the lane window both ways, paths along both band
+edges, starts on word-row boundaries, resumes at max_steps of 1, 15, 16,
+17 and 1,000, the all-INS bitmap, lane offsets, stop cells, and the
+windows of a small checkpointed alignment. Exact equality throughout.
 """
 
 import re
@@ -25,20 +29,25 @@ import jax
 
 from genomics_rs_tpu.config import Scores as JaxScores
 from genomics_rs_tpu.ops import gotoh_banded as jgb
+from genomics_rs_tpu.ops import traceback_device as jax_td
 from genomics_rs_tpu.ops import traceback_pallas as jax_tp
 from genomics_rs_tpu.ops.gotoh_stream import gotoh_stream_fill_dirs as jax_fill_dirs
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.ops import gotoh_banded as gb
 from genomics_rs_tpu_torch.ops import gotoh_banded_batch as gbb
+from genomics_rs_tpu_torch.models import longalign
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+from genomics_rs_tpu_torch.ops import traceback_device as td
 from genomics_rs_tpu_torch.ops import traceback_walker as tw
 from genomics_rs_tpu_torch.ops import walk_stage as ws
 from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_INS, DIR_SUB
+from genomics_rs_tpu_torch.sequence import Sequence
 from walk_stage_cases import (
     BAND_EDGE_SPECS,
     band_edge_walk,
     band_path_bitmap,
     diag_edge_walks,
+    exit_walks,
 )
 
 SOURCE = Path(ws.__file__).resolve().parent.parent / "csrc" / "traceback_walk.cu"
@@ -69,6 +78,7 @@ def test_stage_constants_match_the_kernel_source():
     assert (const("BAND_ROWS"), const("BAND_LANES"), const("BAND_RING"), const("BAND_ABOVE")) \
         == (ws.BAND_ROWS, ws.BAND_LANES, ws.BAND_RING, ws.BAND_ABOVE)
     assert "BAND_BITS = BAND_ROWS / 2;" in src and ws.BAND_BITS == ws.BAND_ROWS // 2
+    assert const("META_SLOTS") == tw.META_SLOTS
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 1000])
@@ -278,3 +288,155 @@ def test_slide_words_cover_every_box(m):
 def test_whole_walk_steps_cover_the_longest_path():
     assert gb.whole_walk_steps([10, 300], [7, 299]) == 600
     assert gb.whole_walk_steps([1_078_175], [1_076_786]) == 2_154_962
+
+
+# ---- K2: the single walk, with its block exits ----
+
+EXIT_CASES = exit_walks()
+
+
+def _walk_ref(dirs, li, j, i0, max_steps, j0):
+    """walk_block's result as (codes, count, i_final, j_final, done)."""
+    moves, count, i_f, j_f, done = td.walk_block(dirs, li, j, i0, max_steps=max_steps, j0=j0)
+    return moves.numpy()[:count], count, i_f, j_f, done
+
+
+def _staged(dirs, li, j, i0, max_steps, j0, stats=None):
+    words, count, i_f, j_f, done = ws.staged_walk(dirs, li, j, i0, max_steps, j0, stats=stats)
+    return tw.unpack_moves(words, count), count, i_f, j_f, done
+
+
+def _staged_full(dirs, li, j, i0, max_steps, j0):
+    """The replay looped as walk_full loops the kernel."""
+    def step(a, b):
+        codes, _, i_f, j_f, done = _staged(dirs, a, b, i0, max_steps, j0)
+        return codes, i_f, j_f, done
+
+    return td.resume_walk(step, li, j, i0, windowed=j0 > 0)
+
+
+def _jax_walk(dirs, li, j, i0, max_steps, j0):
+    """JAX's walk_pallas (interpret mode), one launch, decoded."""
+    jw, jc, ji, jj, jd = jax_tp.walk_pallas(
+        jax.numpy.asarray(dirs.numpy()), np.int32(li), np.int32(j), np.int32(i0),
+        max_steps=max_steps, interpret=True, j0=np.int32(j0))
+    jc = int(jc)
+    return jax_tp.unpack_moves(np.asarray(jw)[: -(-jc // 16)], jc), jc, int(ji), int(jj), bool(jd)
+
+
+def _same_walk(got, want):
+    assert np.array_equal(np.asarray(got[0], np.int64), np.asarray(want[0], np.int64))
+    assert tuple(int(x) for x in got[1:]) == tuple(int(x) for x in want[1:])
+
+
+@pytest.mark.parametrize("k", range(len(EXIT_CASES)), ids=[c[0] for c in EXIT_CASES])
+def test_staged_walk_exits_match_plain_and_jax(k):
+    """K2's edge cases, one launch: the replay == walk_block == JAX's
+    walk_pallas, each ending as built (an up exit reports i0 - 1, a left
+    exit j == 0), the ring started once and never reloaded."""
+    name, dirs, li, j, i0, j0 = EXIT_CASES[k]
+    stats = ws._new_stats()
+    got = _staged(dirs, li, j, i0, 4096, j0, stats)
+    want = _walk_ref(dirs, li, j, i0, 4096, j0)
+    _same_walk(got, want)
+    _same_walk(got, _jax_walk(dirs, li, j, i0, 4096, j0))
+    if name.startswith("up exit") or name == "both exits on one move":
+        assert got[2] == i0 - 1 and not got[4]
+    elif name.startswith("left exit") or name.startswith("start on"):
+        assert got[3] == 0 and got[2] >= i0 and not got[4]
+    assert stats["restarts"] == 1 and stats["reloads"] == 0
+
+
+@pytest.mark.parametrize("max_steps", [1, 15, 16, 17])
+def test_staged_walk_resumes_match_plain_and_jax(max_steps):
+    """Launches capped at max_steps resume from their final cell (a
+    partial last word, runs cut by the buffer): the looped replay == one
+    walk_block call; on the random paths also == JAX's walk_full."""
+    for name, dirs, li, j, i0, j0 in EXIT_CASES:
+        got = _staged_full(dirs, li, j, i0, max_steps, j0)
+        want = _walk_ref(dirs, li, j, i0, 4096, j0)
+        _same_walk((got[0], len(got[0])) + tuple(got[1:]), want)
+        if name.startswith("a random path"):
+            jcodes, ji, jj, jd = jax_tp.walk_full(jax.numpy.asarray(dirs.numpy()), li, j, i0,
+                                                  max_steps=max_steps, interpret=True, j0=j0)
+            _same_walk((jcodes, len(jcodes), ji, jj, jd), want)
+
+
+@pytest.mark.parametrize("i0", [0, 7])
+@pytest.mark.parametrize("k", range(8))
+def test_staged_walk_edge_paths_match_plain(k, i0):
+    """walk_stage_cases' K4 edge paths as K2 walks of the lane-offset view
+    (word-row boundaries, a stop cell, 300-move gaps, li held at 0), at
+    i0 = 0 (saturation) and i0 = 7 (an up exit off lane 0): the replay ==
+    walk_block; without a lane offset also == JAX's walk_pallas."""
+    name, dirs, li, j, _, _, max_steps, lo = diag_edge_walks()[k]
+    view = dirs[:, lo[0]:].contiguous()
+    got = _staged(view, li[0], j[0], i0, max_steps, 0)
+    _same_walk(got, _walk_ref(view, li[0], j[0], i0, max_steps, 0))
+    if lo[0] == 0:
+        _same_walk(got, _jax_walk(view, li[0], j[0], i0, max_steps, 0))
+
+
+@pytest.mark.parametrize("V,shift", [(256, 0), (301, 0), (700, 3)])
+def test_staged_walk_random_codes_match_plain(V, shift):
+    """Mostly-SUB random codes with stop cells from random starts, at
+    block origins with and without exits: the replay == walk_block."""
+    rng = np.random.default_rng(V + shift)
+    dirs = _pack(rng.choice(4, size=(60 * 16, V), p=[0.8, 0.09, 0.09, 0.02]))
+    for _ in range(6):
+        li = int(rng.integers(0, min(V, 500)))
+        j = int(rng.integers(0, 900 - li))
+        i0, j0 = int(rng.integers(0, 3)) * 50, int(rng.integers(0, 2)) * (shift + 256)
+        _same_walk(_staged(dirs, li, j, i0, 2048, j0), _walk_ref(dirs, li, j, i0, 2048, j0))
+
+
+@pytest.mark.parametrize("case", ["blocks", "windows", "left exit"])
+def test_staged_walk_checkpointed_windows_match_jax(monkeypatch, case):
+    """The walks of a small checkpointed alignment on the CPU (row blocks
+    of 64 rows: up exits; blocks of 1,023 rows with n > 2V: windows at
+    captured columns, j0 > 0; a gap wider than the window: a left exit),
+    recorded where the aligner makes them: the replay, looped as
+    walk_full loops the kernel, == what walk_block returned there, and the
+    first three == JAX's walk_full (its XLA walker under walk_pallas's
+    DMA window of 34 word rows)."""
+    rng = np.random.default_rng(71)
+    if case == "blocks":
+        a = "".join(rng.choice(list("ACGT"), 240))
+        b = a[:100] + "".join(rng.choice(list("ACGT"), 9)) + a[100:230]
+        rows = 64
+    elif case == "windows":
+        a = "".join(rng.choice(list("ACGT"), 1100))
+        b = "".join(rng.choice(list("ACGT"), 7)) + a[:700] + a[712:] + a[:1000]
+        rows = 1023
+    else:
+        a = "".join(rng.choice(list("ACGT"), 300))
+        b = a[:150] + "".join(rng.choice(list("ACGT"), 2300)) + a[150:]
+        rows = 1023
+    walks = []
+
+    def rec(dirs, li, j, i0, max_steps, j0=0):
+        out = td.device_walk(dirs, li, j, i0, max_steps=max_steps, j0=j0)
+        walks.append(((dirs, int(li), int(j), int(i0), int(max_steps), int(j0)), out))
+        return out
+
+    monkeypatch.setattr(longalign, "device_walk", rec)
+    longalign.align_checkpointed(Sequence("a", a), Sequence("b", b), Scores(1, -2, -1, -5),
+                                 block_rows=rows, device="cpu")
+    assert walks
+    kinds = {("window " if args[5] > 0 else "")
+             + ("up" if out[1] < args[3] else "left" if args[5] > 0 and out[2] == 0 else "end")
+             for args, out in walks}
+    assert {"blocks": "up", "windows": "window up", "left exit": "window left"}[case] in kinds
+    for t, ((dirs, li, j, i0, max_steps, j0), out) in enumerate(walks):
+        got = _staged_full(dirs, li, j, i0, min(max_steps, tw.MAX_STEPS_CAP), j0)
+        _same_walk((got[0], len(got[0])) + tuple(got[1:]), (out[0], len(out[0])) + tuple(out[1:]))
+        if t < 3:
+            jd = jax.numpy.asarray(dirs.numpy())
+            if dirs.shape[0] >= jax_tp.PKW:
+                ref = jax_tp.walk_full(jd, li, j, i0, max_steps=max_steps, interpret=True, j0=j0)
+            else:  # under walk_pallas's DMA window JAX walks with its XLA walker
+                ref = jax_td.device_walk(jd, li, j, i0, max_steps=max_steps, interpret=True,
+                                         j0=j0)
+            jcodes = np.asarray(ref[0])
+            _same_walk((jcodes, len(jcodes)) + tuple(ref[1:]),
+                       (out[0], len(out[0])) + tuple(out[1:]))

@@ -1,8 +1,9 @@
-"""Seeded bitmaps whose staged walks (K4 and K11, ``csrc/traceback_walk.cu``)
-take the kernels' edge paths: gaps wider than K11's lane window, the band's
-edges, starts on word-row boundaries, stop cells and lane offsets. The CPU
-tests (``test_torch_walk_stage.py``), the card tests (``test_torch_cuda.py``)
-and ``chip_smoke.py`` walk them.
+"""Seeded bitmaps whose staged walks (K2, K4 and K11,
+``csrc/traceback_walk.cu``) take the kernels' edge paths: gaps wider than
+K11's lane window, the band's edges, starts on word-row boundaries, stop
+cells, lane offsets and K2's block exits. The CPU tests
+(``test_torch_walk_stage.py``), the card tests (``test_torch_cuda.py``) and
+``chip_smoke.py`` walk them.
 """
 
 from __future__ import annotations
@@ -141,3 +142,46 @@ def diag_edge_walks():
         dirs[:, loff:] = own
         out.append((name, dirs, [li], [j], [0], KW, 4096, [loff]))
     return out
+
+
+def _exit_moves(rng, li: int, j: int, i0: int, j0: int) -> list:
+    """A mostly-SUB random path from (li, j) up to the move that ends it:
+    an exit of the block (i0 > 0, j0 > 0) or the origin."""
+    moves = []
+    while True:
+        c = int(rng.choice(3, p=[0.8, 0.1, 0.1]))
+        moves.append(c)
+        ig, jn = max(i0 + li - (c != DIR_INS), 0), max(j - (c != DIR_DEL), 0)
+        if (ig == 0 and jn == 0 and j0 == 0) or ig < i0 or (jn == 0 and j0 > 0):
+            return moves
+        li, j = max(ig - i0, 0), jn
+
+
+def exit_walks():
+    """K2's edge cases as ``(name, dirs (48, 256), start_li, start_j, i0,
+    j0)`` (a shape JAX's ``walk_pallas`` takes): up exits (i0 > 0) in the
+    middle of a SUB run, off lane 0 after an INS run held there and after a
+    DEL run, left exits (j0 > 0) in a SUB run and in an INS run, a start on
+    a window's column 0, both exits on one move (the up exit wins), stop
+    cells (mid-path, on the first move), ``done`` at i0 = 1 and random
+    mostly-SUB paths to an exit."""
+    KW, V = 48, 256
+    S, I, D, X = DIR_SUB, DIR_INS, DIR_DEL, DIR_STOP
+    rng = np.random.default_rng(13)
+    specs = [  # (name, li, j, i0, j0, moves)
+        ("up exit in a SUB run", 5, 42, 40, 0, [S] * 6),
+        ("up exit off lane 0 after an INS run", 0, 300, 40, 0, [I] * 37 + [S]),
+        ("up exit after a DEL run", 20, 100, 40, 0, [S] * 3 + [D] * 18),
+        ("left exit in a SUB run", 197, 10, 0, 512, [S] * 10),
+        ("left exit in an INS run", 100, 9, 30, 512, [I] * 9),
+        ("start on a window's column 0", 50, 0, 0, 512, [D]),
+        ("both exits on one move", 0, 1, 40, 512, [S]),
+        ("a stop cell mid-path", 150, 400, 64, 0, [S] * 40 + [I] * 5 + [X]),
+        ("a stop on the first move", 10, 10, 0, 0, [X]),
+        ("done at i0 = 1", 3, 4, 1, 0, [S] * 4),
+        ("a random path to an up exit", 250, 500, 3, 0, _exit_moves(rng, 250, 500, 3, 0)),
+        ("a random path to a left exit", 240, 200, 9, 1024, _exit_moves(rng, 240, 200, 9, 1024)),
+        ("a random path to the origin", 200, 300, 0, 0, _exit_moves(rng, 200, 300, 0, 0)),
+    ]
+    return [(name, diag_path_bitmap(moves, li, j, KW, V, seed=q), li, j, i0, j0)
+            for q, (name, li, j, i0, j0, moves) in enumerate(specs)]

@@ -15,7 +15,11 @@ block at 256 and 512), K3 on 132 pairs of
 of ``chip_smoke.py`` phase 24's corpus that ``auto`` sends to it (and K7,
 K8 and K3 on its largest), K6 on bench.py's 16,384 x 152 bp reads, at
 the map shape and on 4,096 pairs of 256 bp (at each group size where the
-build takes one), the matrix fill
+build takes one), the walks (K2 on the 10 kb local fill's path through
+``walk_full`` and its launch alone; K4 alone on the dirs group of 9's
+walks; K11 alone on the 29,903 bp band walk), the query profile K15 at
+1,024 x 384 and 32,768 x 383 aa through its wrapper and its launch alone
+(each build's own launcher), the matrix fill
 (K14) on 8,192 BLOSUM62 pairs of 383 aa, the banded fill K10 on the
 29,903 bp pair at band 2048 (also on one block, where the build takes
 it) and on the 1 Mb pair, and
@@ -32,6 +36,7 @@ time and held equal for results. ``--only`` keeps the fills whose name
 holds one of its words.
 
     python3 tools/time_fills.py [--reps 5] [--only K9 K10]
+    python3 tools/time_fills.py --only K2 K4 K11 K15
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ def main() -> None:
     from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
     from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
     from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
     from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_left, global_boundary_top
     from genomics_rs_tpu_torch.ops.subst import blosum62
     from genomics_rs_tpu_torch.sequence import PAD_S2, round_up
@@ -149,6 +155,35 @@ def main() -> None:
     a10, b10 = related(10_000, 9_990)
     k1("K1 10 kb local+dirs", a10, b10, round_up(10_000, 128), round_up(9_990, 128), True,
        True, False)
+
+    # K2 on the 10 kb local fill's walk (the main path's single walk,
+    # chip_smoke.py phase 5): through walk_full and its launch alone (the
+    # launcher of whichever build runs: one output buffer, or words and
+    # meta apart).
+    lib = _build.library()
+    stream = _build.stream_handle(dev)
+    if wanted("K2 10 kb walk"):
+        s1, s2 = padded(a10, round_up(10_000, 128), 0xFE), padded(b10, round_up(9_990, 128), PAD_S2)
+        res = rb.gotoh_rowblock(s1, s2, global_boundary_top(0, s2.shape[0], sc, device=dev),
+                                len(a10), len(b10), 0, sc, True, emit_dirs=True, emit_bottom=False)
+        si, sj, cap = int(res.best[1]), int(res.best[2]), 24_576
+        run = lambda: tw.walk_full(res.dirs, si, sj, 0, max_steps=cap)  # noqa: E731
+        codes = run()[0]
+        walk_sum = int(codes.astype(np.int64).sum()) + len(codes)
+        out["K2 10 kb walk through walk_full"] = {"ms": cuda_ms(run), "sum": walk_sum,
+                                                  "moves": len(codes)}
+        KW, V = res.dirs.shape
+        nw = -(-cap // 16)
+        if hasattr(tw, "META_SLOTS"):
+            buf = torch.empty(tw.META_SLOTS + nw, dtype=torch.int32, device=dev)
+            ptrs = (_build.ptr(res.dirs), _build.ptr(buf))
+        else:
+            words = torch.empty(nw, dtype=torch.int32, device=dev)
+            meta = torch.empty(6, dtype=torch.int32, device=dev)
+            ptrs = (_build.ptr(res.dirs), _build.ptr(words), _build.ptr(meta))
+        run = lambda: _build.check(lib.traceback_walk_launch(  # noqa: E731
+            *ptrs, KW, V, si, sj, 0, 0, cap, stream), "traceback_walk")
+        out["K2 10 kb walk alone"] = {"ms": cuda_ms(run), "sum": walk_sum}
 
     # K5: the interior tile (row and column shard 1) of the P = 4 pipeline.
     T4 = round_up(-(-len(a30) // 4), 128)
@@ -446,6 +481,38 @@ def main() -> None:
     u1, u2 = (torch.from_numpy(prot[k]).to(dev) for k in ("u1", "u2"))
     q1, q2 = (torch.from_numpy(prot[k]).to(dev) for k in ("p1", "p2"))
     uns = np.full(u1.shape[0], u1.shape[1])
+    # K15 at the path's launch shape (1,024 x 384, chip_smoke.py phase 21)
+    # and at 32,768 x 383: through its wrapper and its launch alone (the
+    # launcher of whichever build runs: one byte table, or code and ext).
+    for name, s2x, nsx in (("K15 1024 x 384", q2, prot["pns"]), ("K15 32768 x 383", u2, uns)):
+        if not wanted(name):
+            continue
+        run = lambda: gm.matrix_profile(s2x, nsx, mx)  # noqa: E731
+        prof_sum = checksum(run())
+        out[f"{name} through the wrapper"] = {"ms": cuda_ms(run), "sum": prof_sum}
+        if "ns_dev" in inspect.signature(gm.matrix_profile).parameters:
+            # the grouped route's form: the lengths already on the card
+            ns_on = torch.as_tensor(np.asarray(nsx), dtype=torch.int32).to(dev)
+            run = lambda: gm.matrix_profile(s2x, nsx, mx, ns_on)  # noqa: E731
+            out[f"{name} through the wrapper, lengths on the card"] = {
+                "ms": cuda_ms(run), "sum": checksum(run())}
+        tables = (gm.device_tables(mx, dev)[2:] if hasattr(gm, "device_tables")
+                  else gm._tables(mx, dev))
+        A = gm._ext_matrix(mx).shape[0]
+        prof_x = torch.empty((s2x.shape[0], A, s2x.shape[1]), dtype=torch.int16, device=dev)
+        ns_x = torch.as_tensor(np.asarray(nsx), dtype=torch.int32).to(dev)
+        # a build whose launcher takes a cap on blocks an SM: at its default
+        # and at each cap of the sweep
+        caps = ([(gm.PROFILE_BLOCKS_PER_SM,), *((c,) for c in (1, 2, 8))]
+                if hasattr(gm, "PROFILE_BLOCKS_PER_SM") else [()])
+        for cap in caps:
+            run = lambda: _build.check(lib.matrix_profile_launch(  # noqa: E731
+                _build.ptr(s2x), _build.ptr(ns_x), *(_build.ptr(t) for t in tables),
+                _build.ptr(prof_x), s2x.shape[0], s2x.shape[1], A, *cap, stream), "matrix_profile")
+            tag = "" if cap in ((), (getattr(gm, "PROFILE_BLOCKS_PER_SM", 0),)) else (
+                f" blocks_per_sm={cap[0]}")
+            out[f"{name} alone{tag}"] = {"ms": cuda_ms(run), "sum": checksum(prof_x)}
+        del prof_x
     code_u, prof_u = gm.row_codes(u1, mx), gm.matrix_profile(u2, uns, mx)
     code_q, prof_q = gm.row_codes(q1, mx), gm.matrix_profile(q2, prot["pns"], mx)
     m_cases = [("matrix 32768 x 383 aa stream", (code_u, prof_u, uns, uns), False, "stream"),
@@ -474,6 +541,29 @@ def main() -> None:
                 run = lambda: gm._matrix_cuda(*inputs, -1, -11, False, dirs, route,  # noqa: E731
                                               **kw)
             out[name + tag] = {"ms": cuda_ms(run), "sum": fill_sum(run())}
+
+    # K4 and K11 alone (they share the staged ring with K2): K4 on the dirs
+    # group of 9's walks (chip_smoke.py phase 9), K11 on the 29.9 kb pair's
+    # band walk (phase 18).
+    def listed(fn, _reps):
+        return [cuda_ms(fn)]
+
+    if wanted("K4 dirs group of 9 walks alone"):
+        res9 = gs.gotoh_stream_fill_dirs(*group9, sc)
+        flat = res9.dirs.view(-1, res9.dirs.shape[2])
+        wargs = (res9.start_i, res9.start_j, np.arange(9) * res9.KW, res9.KW,
+                 round_up(2 * Lg + 1, 1024))
+        walked = tw.walk_many(flat, *wargs)
+        out["K4 dirs group of 9 walks alone"] = {
+            "ms": chip_smoke.k4_alone(torch, tw, flat, wargs, listed)[0],
+            "sum": int(np.asarray(walked[1], np.int64).sum()), "moves": int(np.sum(walked[1]))}
+    if wanted("K11 29.9 kb walk alone"):
+        _, dirs = gb.gotoh_banded(s1b, s2b, len(a30), len(b30), sc, V)
+        moves = gb.walk_banded(dirs, len(a30), len(b30), V)
+        out["K11 29.9 kb walk alone"] = {
+            "ms": chip_smoke.k11_alone(torch, gb, dirs[None], [len(a30)], [len(b30)], V,
+                                       (len(a30), len(b30)), listed)[0],
+            "sum": int(np.asarray(moves, np.int64).sum()), "moves": len(moves)}
 
     # The walls of the two batch aligners that run K3's and the matrix
     # fill's dirs: align_batch on the corpus's first 9 pairs (one dirs
