@@ -3,8 +3,9 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs a CUDA device, ``nvcc`` (it builds the kernels from
-``genomics_rs_tpu_torch/csrc/`` itself) and a host C++ compiler (for the
-``native/gotoh_cpu.cpp`` score oracle). Any failed check exits nonzero.
+``genomics_rs_tpu_torch/csrc/`` itself) and a host C++ compiler (for
+``native/``: the score oracle, the suffix tree and SA-IS). Any failed
+check exits nonzero.
 
 Phases, one line each:
   0  the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1
@@ -210,6 +211,26 @@ Phases, one line each:
      blocks; K16 there and on the whole
      batch, K5 on the interior tile, and one tile alone at each P against
      the phase 28 walls (times: CUDA events, median of 3)
+ 32  the suffix array and BWT on the card (torch ops, no hand-written
+     kernel): ``suffix_array`` of a seeded 1,078,175 bp genome (phase 13's)
+     == native SA-IS on the host over every entry, also on four contigs
+     joined by '#' and on edge texts ("", "A", "AAAAAAAA", "ACGT" x 50);
+     ``bwt_device`` == the SA-IS BWT; ``FMIndex.build(host=False)`` ==
+     ``build(host=True)`` field by field; times of the device suffix array,
+     SA-IS and both builds
+ 33  the FM-index search at size (counters reset just before it):
+     ``search_batch`` on the card over bench.py's fmindex_chr12 recipe
+     (100,000 patterns of 20-40 bp from default_rng(1)) plus patterns with
+     absent bytes, '$', '#' and empty ones == the host loop (counts and
+     (lo, hi)), every sampled pattern found, one device search and no host
+     range, the Occ table on the card; ``MultiFMIndex`` over 4 contigs ==
+     the host path (``locate_range``); the CLI ``search --locate`` on
+     10,000 reads, ``--engine device`` TSV == ``--engine host``; the
+     search's wall (median of 3 after a warm call) and patterns/s
+ 34  ``suffixtree --stats --suffix-links`` on a seeded 29,903 bp genome:
+     ``BWT_out`` == ``bwt_device`` on the card; ``compare --threads 4`` on
+     the phase 6 corpus: its TSV == ``compare_all_pairs``, and pair 0-1 cut
+     to 2,000 bp: native == the Python oracle; walls
 
 Bounds count interior DP cells (m x n per pair), band cells (rows x
 lanes), for a walk the code words its path must read, and for the
@@ -3520,6 +3541,237 @@ def seqpar_phases(torch, dev, card, sc, cuda_ms, rate, main) -> list[dict]:
     ]
 
 
+#: the suffix structures (phases 32-34): the FM-index over a random genome
+#: of chr12.fasta's length (phase 13's), bench.py's fmindex_chr12 query
+#: recipe (SEARCH_N patterns of 20-40 bp from default_rng(1)), the CLI
+#: ``search`` on SEARCH_CLI_N reads over four contigs, ``suffixtree`` on a
+#: 29,903 bp genome and ``compare`` on the phase 6 corpus, whose one pair is
+#: held against the Python oracle on a COMPARE_CUT bp cut.
+SEARCH_N, SEARCH_CLI_N, TREE_BP, COMPARE_CUT = 100_000, 10_000, 29_903, 2_000
+
+
+def suffix_phases(torch, dev, card, cuda_ms) -> None:
+    """Phases 32-34: the suffix array and BWT, the FM-index search and the
+    suffix tree and compare CLI. No hand-written kernel runs here: the
+    suffix array and the search are torch ops on the card (sort, scatter,
+    cumsum, gather), the tree and SA-IS host C++."""
+    from genomics_rs_tpu_torch import cli
+    from genomics_rs_tpu_torch.comparison.driver import (
+        compare_all_pairs,
+        load_fasta_dir,
+        recursive_lcs_similarity,
+    )
+    from genomics_rs_tpu_torch.ops.bwt_device import bwt_device, suffix_array
+    from genomics_rs_tpu_torch.sequence import Sequence
+    from genomics_rs_tpu_torch.suffixtree import fmindex as fm
+    from genomics_rs_tpu_torch.suffixtree.native import native_suffix_array, similarity_native
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    sep = chr(fm.SEPARATOR)
+    fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)  # noqa: E731
+
+    # ---- phase 32: the suffix array and BWT on the card ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1207)  # phase 13's genome
+    genome = acgt[rng.integers(0, 4, GENOME_BP)].tobytes().decode()
+    q = GENOME_BP // 4
+    contigs = [genome[k * q : (k + 1) * q - 11 * (k + 1)] for k in range(4)]
+    texts = {"genome": genome, "4 contigs joined by '#'": sep.join(contigs), "empty": "",
+             "A": "A", "AAAAAAAA": "AAAAAAAA", "ACGT x 50": "ACGT" * 50}
+    sa_ms = host_ms = None
+    for name, text in texts.items():
+        got = suffix_array(text, device=dev)
+        t0 = time.perf_counter()
+        want = native_suffix_array(text.encode("latin-1") + b"$")
+        t_host = (time.perf_counter() - t0) * 1e3
+        check(got.dtype == np.int32 and np.array_equal(got, want),
+              f"suffix array on the card != SA-IS on {name} ({len(text)} bp)")
+        if name == "genome":
+            host_ms = t_host
+            sa_ms = cuda_ms(lambda: suffix_array(text, device=dev), 3)
+            bwt_genome = bwt_device(text, device=dev)
+            s = np.frombuffer(text.encode("latin-1") + b"$", np.uint8)
+            check(bwt_genome == s[(want - 1) % len(s)].tobytes().decode("latin-1"),
+                  "bwt_device != the SA-IS BWT")
+    dev_idx = fm.FMIndex.build(genome, host=False, device=dev)
+    host_idx = fm.FMIndex.build(genome, host=True, device=dev)
+    for f in ("text", "sa", "bwt", "alphabet", "code", "cvec", "occ"):
+        a, b = getattr(dev_idx, f), getattr(host_idx, f)
+        check(a == b if isinstance(a, bytes) else np.array_equal(a, b),
+              f"FMIndex.build(host=False) != build(host=True) in {f}")
+    build_dev_ms = cuda_ms(lambda: fm.FMIndex.build(genome, host=False, device=dev), 3)
+    build_host_ms = cuda_ms(lambda: fm.FMIndex.build(genome, host=True, device=dev), 3)
+    del dev_idx
+    print(f"[phase 32] card {card} | suffix_array on the card == SA-IS on the host over all "
+          f"{GENOME_BP + 1:,} entries of the {GENOME_BP:,} bp genome, on 4 contigs joined by "
+          f"'#' and on {len(texts) - 2} edge texts; bwt_device == the SA-IS BWT; "
+          f"FMIndex.build(host=False) == build(host=True) (sa, bwt, occ, cvec) | times (CUDA "
+          f"events, ms, 3 runs after a warm call): suffix_array [{fmt(sa_ms)}] against SA-IS "
+          f"{host_ms:.1f} (host clock, one run); FMIndex.build device SA [{fmt(build_dev_ms)}], "
+          f"host SA [{fmt(build_host_ms)}] ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 33: search at size (the main path of this slice) ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)  # bench.py's fmindex_chr12 recipe
+    pats = []
+    for _ in range(SEARCH_N):
+        L = int(rng.integers(20, 40))
+        st = int(rng.integers(0, len(genome) - L))
+        pats.append(genome[st : st + L])
+    extra = ["", "ACGN", "NNNN", "$", "A$C", "#", "GA#TT", "", "A", "ACGT" * 10]
+    queries = pats + extra
+    for k in fm.COUNTS:
+        fm.COUNTS[k] = 0
+    t0 = time.perf_counter()
+    counts, ranges = host_idx.search_batch(queries, device=True)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    path_counts = dict(fm.COUNTS)
+    check(path_counts == {"device": 1, "host_range": 0},
+          f"search_batch(device=True) did not run one device search alone: {path_counts}")
+    check(host_idx._dev[0].device.type == "cuda" and host_idx._dev[1].device.type == "cuda",
+          "the Occ table is not on the card")
+    hc, hr = host_idx.search_batch(queries, device=False)
+    check(np.array_equal(counts, hc) and ranges == hr,
+          "device search != host search (counts or ranges)")
+    check(bool((counts[:SEARCH_N] >= 1).all()), "a sampled pattern missed its own text")
+    check(counts[SEARCH_N:].tolist() == [GENOME_BP + 1, 0, 0, 0, 0, 0, 0, GENOME_BP + 1,
+                                         host_idx.count("A"), host_idx.count("ACGT" * 10)],
+          f"edge patterns counted {counts[SEARCH_N:].tolist()}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_idx.search_batch(pats, device=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # One more under torch.profiler: the device's share of the wall.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host_idx.search_batch(pats, device=True)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    search_dev_ms = sum(device_ms(torch, prof).values())
+    multi = fm.MultiFMIndex.build([Sequence(f"chr{k} part", c) for k, c in enumerate(contigs)],
+                                  device=dev)
+    mq = pats[:20_000] + extra
+    mc, mr = multi.search_batch(mq, device=True)
+    hmc, hmr = multi.search_batch(mq, device=False)
+    check(np.array_equal(mc, hmc) and mr == hmr, "MultiFMIndex device search != host search")
+    located = [multi.locate_range(r) for r in mr]
+    check(located == [multi.locate_range(r) for r in hmr]
+          and all(len(h) == c for h, c in zip(located, mc)),
+          "MultiFMIndex locate_range differs from the host path")
+    # The CLI on 10,000 reads over the four contigs, both engines.
+    rng = np.random.default_rng(33)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, q = os.path.join(tmp, "ref.fasta"), os.path.join(tmp, "reads.fasta")
+        with open(ref, "w") as f:
+            f.writelines(f">chr{k} part\n{c}\n" for k, c in enumerate(contigs))
+        with open(q, "w") as f:
+            for r in range(SEARCH_CLI_N):
+                k = int(rng.integers(0, 4))
+                L = int(rng.integers(12, 40))
+                st = int(rng.integers(0, len(contigs[k]) - L))
+                f.write(f">read{r} c{k}\n{contigs[k][st : st + L]}\n")
+        tsvs, cli_s = {}, {}
+        for engine in ("device", "host"):
+            out = os.path.join(tmp, f"{engine}.tsv")
+            fm.COUNTS.update(device=0, host_range=0)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["-c", write_config(tmp), "search", "-r", ref, "-q", q, "--locate",
+                               "--engine", engine, "-o", out])
+            cli_s[engine] = time.perf_counter() - t0
+            check(rc == 0, f"search --engine {engine} exited {rc}")
+            with open(out, "rb") as f:
+                tsvs[engine] = f.read()
+            if engine == "device":
+                check(fm.COUNTS == {"device": 1, "host_range": 0},
+                      f"search --engine device ran {fm.COUNTS}")
+    check(tsvs["device"] == tsvs["host"], "search --locate TSV: device != host")
+    n_rows = tsvs["device"].count(b"\n") - 1
+    check(n_rows == SEARCH_CLI_N and b"\tchr0:" in tsvs["device"],
+          f"search TSV has {n_rows} rows")
+    print(f"[phase 33] card {card} | search_batch on the card == the host loop on "
+          f"{len(queries):,} patterns ({SEARCH_N:,} of 20-40 bp, all found, and {len(extra)} "
+          f"with absent bytes, '$', '#' or empty): counts and (lo, hi); one device search, "
+          f"0 host ranges; Occ on the card; MultiFMIndex over 4 contigs == host "
+          f"(locate_range); CLI search --locate on {SEARCH_CLI_N:,} reads: device TSV == host "
+          f"TSV ({len(tsvs['device']):,} bytes; walls device {cli_s['device']:.3f} s, host "
+          f"{cli_s['host']:.3f} s) | search wall (host clock, {SEARCH_N:,} patterns, first "
+          f"{t_first:.3f} s): [{fmt(walls)}] s, median {np.median(walls):.4f} s = "
+          f"{SEARCH_N / np.median(walls):,.0f} patterns/s; profiled {t_prof:.4f} s wall, "
+          f"device time {search_dev_ms:.2f} ms (busy {search_dev_ms / 10 / t_prof:.1f}%) "
+          f"({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    del host_idx, multi
+
+    # ---- phase 34: suffixtree and compare through the CLI ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(34)
+    tree_genome = acgt[rng.integers(0, 4, TREE_BP)].tobytes().decode()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        alphabet = os.path.join(tmp, "dna.txt")
+        with open(alphabet, "w") as f:
+            f.write("ACGT\n")
+        fasta = os.path.join(tmp, "tree29903.fasta")
+        with open(fasta, "w") as f:
+            f.write(f">tree test\n{tree_genome}\n")
+        cdir = os.path.join(tmp, "corpus")
+        write_fasta_dir(cdir, corpus_genomes())
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli.main(["-c", write_config(tmp), "suffixtree", "-a", alphabet, "-f", fasta,
+                               "--stats", "--suffix-links"])
+            t_tree = time.perf_counter() - t0
+            check(rc == 0, f"suffixtree exited {rc}")
+            with open(os.path.join("BWT_out", "tree29903_bwt.txt")) as f:
+                tree_bwt = f.read()
+            check(tree_bwt == "".join(c + "\n" for c in bwt_device(tree_genome, device=dev)),
+                  "suffixtree's BWT_out != bwt_device on the card")
+            check(f"BWT Length: {TREE_BP + 1}" in out.getvalue(), "suffixtree printed no stats")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli.main(["-c", write_config(tmp), "compare", "-a", alphabet, "-f", cdir,
+                               "--threads", "4"])
+            t_compare = time.perf_counter() - t0
+            check(rc == 0, f"compare exited {rc}")
+            with open("similarity_matrix.tsv") as f:
+                tsv = f.read()
+        finally:
+            os.chdir(cwd)
+        result = compare_all_pairs(load_fasta_dir(cdir), alphabet, threads=4)
+        n = N_GENOMES
+        want_tsv = "\t" + "\t".join(map(str, range(n))) + "\t\n" + "".join(
+            f"{j}\t" + "\t".join(str(int(result.matrix[j, i, 0])) for i in range(n)) + "\t\n"
+            for j in range(n))
+        check(tsv == want_tsv and want_tsv in out.getvalue(),
+              "compare's similarity TSV != compare_all_pairs' matrix")
+        a, b = (g[:COMPARE_CUT] for _, g in corpus_genomes()[:2])
+        t0 = time.perf_counter()
+        oracle = recursive_lcs_similarity(a, b, alphabet, engine="python")
+        t_oracle = time.perf_counter() - t0
+        check(similarity_native(a, b, alphabet) == oracle,
+              f"compare pair on a {COMPARE_CUT} bp cut: native != the Python oracle {oracle}")
+    print(f"[phase 34] suffixtree --stats --suffix-links on {TREE_BP:,} bp: BWT_out == "
+          f"bwt_device on the card ({t_tree:.3f} s); compare --threads 4 on {n} x "
+          f"{GENOME_LEN:,} bp: TSV == compare_all_pairs ({t_compare:.3f} s wall, "
+          f"{n * (n + 1) // 2} pairs); pair 0-1 cut to {COMPARE_CUT} bp == the Python oracle "
+          f"{oracle} ({t_oracle:.2f} s) ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
+def write_config(tmp: str) -> str:
+    cfg = os.path.join(tmp, "config.toml")
+    with open(cfg, "w") as f:
+        f.write("[scores]\ns_match = 1\ns_mismatch = -2\ng = -2\nh = -5\n")
+    return cfg
+
+
 def main() -> None:
     # ---- phase 0: the card ----
     card = card_line()
@@ -4057,6 +4309,7 @@ def main() -> None:
                               corpus_tsv=corpus_tsv))
     rows += seqpar_phases(torch, dev, card, sc, cuda_ms, rate,
                           dict(base=base, var=var, oracle=o30, k1_score=glob.score, glob=glob))
+    suffix_phases(torch, dev, card, cuda_ms)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

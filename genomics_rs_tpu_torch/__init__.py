@@ -15,8 +15,12 @@ with two more, the batched fill (``ops/gotoh_stream``) and the batched
 walker (``ops/traceback_walker.walk_many``); the read workloads
 (``models/reads``, ``models/mapper``, ``models/caller``); banded
 alignment (``models/banded``); protein alignment under a substitution
-matrix (``ops/gotoh_matrix``, ``ops/gotoh_matrix_stream``) and
-center-star MSA (``models/msa``).
+matrix (``ops/gotoh_matrix``, ``ops/gotoh_matrix_stream``),
+center-star MSA (``models/msa``), and the suffix structures: the suffix
+tree on the host (``suffixtree``), the suffix array and BWT as torch ops
+(``ops/bwt_device``), the FM-index with its batched device search
+(``suffixtree/fmindex``) and the all-pairs LCS comparison
+(``comparison``).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,12 @@
-"""Command-line interface (counterpart of ``genomics_rs_tpu/cli.py``; the
-``align``, ``align-matrix``, ``msa``, ``reads``, ``map`` and ``call``
-subcommands so far).
+"""Command-line interface (counterpart of ``genomics_rs_tpu/cli.py``; all
+nine of its subcommands).
 
   align         --alignment-type {local,global,1,0} --fasta-path FILE
                 [--band N | --matrix NAME_OR_FILE]
+  suffixtree    --alphabet-file FILE --fasta-path FILE [--suffix-links]
+                [--stats]
+  compare       --alphabet-file FILE --fasta-dir DIR [--suffix-links]
+                [--threads N]
   align-matrix  --fasta-dir DIR [--alignment-type global] [-o TSV]
                 [--alignments-out DIR] [--matrix NAME_OR_FILE]
   msa           --fasta-path FILE_OR_DIR... [--matrix NAME_OR_FILE]
@@ -14,14 +17,19 @@ subcommands so far).
                 [--format {sam,tsv}] [-o OUT]
   call          -q READS -r REF [-k 21] [--band 32] [--min-depth 8]
                 [--min-frac 0.7] [...] [-o VCF]
+  search        -r REF -q QUERIES [--locate] [--engine {device,host}]
+                [-o OUT]
 
-each with ``--device {cuda,cpu}``, plus the global ``--config-path``
-(default ``config.toml``). The flags, the standard output and the files
-written are those of the JAX package's subcommands (timing lines aside);
-``--device`` picks the CUDA kernels (default) or their plain CPU
-versions. ``is_local`` is true iff the type is exactly "local" or "1".
-The two options whose engines are not ported yet, ``--engine scan`` and
-``--seed-engine device``, exit 2 with "not yet ported".
+each but ``suffixtree`` and ``compare`` (host programs: the suffix tree
+and its C++ core) with ``--device {cuda,cpu}``, plus the global
+``--config-path`` (default ``config.toml``). The flags, the standard
+output and the files written are those of the JAX package's subcommands
+(timing lines aside); ``--device`` picks the CUDA kernels (default) or
+their plain CPU versions, and for ``search --engine device`` the device
+the backward search runs on. ``is_local`` is true iff the type is exactly
+"local" or "1". The two options whose engines are not ported yet,
+``--engine scan`` and ``--seed-engine device``, exit 2 with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genomics-rs-tpu-torch",
         description="FASTA pairwise alignment (Smith-Waterman / "
-        "Needleman-Wunsch) on PyTorch and CUDA",
+        "Needleman-Wunsch) on PyTorch and CUDA, suffix trees + BWT, all-pairs "
+        "genome comparison and FM-index search",
     )
     p.add_argument("-c", "--config-path", default="config.toml")
     sub = p.add_subparsers(dest="mode", required=True)
@@ -78,6 +87,19 @@ def _build_parser() -> argparse.ArgumentParser:
         "band — similar pairs; chromosome-scale in seconds)",
     )
     _device_flag(a)
+
+    st = sub.add_parser("suffixtree", help="suffix tree stats + BWT")
+    st.add_argument("-a", "--alphabet-file", required=True)
+    st.add_argument("--suffix-links", action="store_true")
+    st.add_argument("--stats", action="store_true")
+    st.add_argument("-f", "--fasta-path", required=True)
+
+    c = sub.add_parser("compare", help="all-pairs similarity matrix over a FASTA dir")
+    c.add_argument("-a", "--alphabet-file", required=True)
+    c.add_argument("-f", "--fasta-dir", required=True)
+    c.add_argument("--suffix-links", action="store_true",
+                   help="accepted and ignored: the per-pair trees always use suffix links")
+    c.add_argument("--threads", type=int, default=1)
 
     am = sub.add_parser(
         "align-matrix",
@@ -249,6 +271,22 @@ def _reads_parsers(sub) -> None:
     cl.add_argument("-o", "--output", default="calls.vcf")
     _device_flag(cl)
 
+    se = sub.add_parser(
+        "search",
+        help="FM-index substring search: count/locate every query in a reference "
+        "(host SA-IS build, batched backward search on the device)",
+    )
+    se.add_argument("-r", "--ref", required=True, help="reference FASTA")
+    se.add_argument("-q", "--queries", required=True,
+                    help="query patterns, FASTA or FASTQ (auto-detected)")
+    se.add_argument("--locate", action="store_true",
+                    help="also report every match position (comma-separated)")
+    se.add_argument("--engine", default="device", choices=["device", "host"],
+                    help="where the batched backward search runs: on --device, or in a "
+                    "host loop")
+    se.add_argument("-o", "--output", default="search_hits.tsv")
+    _device_flag(se)
+
 
 def _device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument(
@@ -309,11 +347,13 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     from genomics_rs_tpu_torch.device import resolve_device
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(e, file=sys.stderr)
-        return 2
+    device = None
+    if hasattr(args, "device"):
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            print(e, file=sys.stderr)
+            return 2
 
     if args.mode == "align":
         log.info("MODE: Alignment")
@@ -372,20 +412,84 @@ def main(argv: list[str] | None = None) -> int:
 
     from genomics_rs_tpu_torch.utils.profiling import trace
 
-    modes = {"align-matrix": _align_matrix, "msa": _msa, "reads": _reads, "map": _map,
-             "call": _call}
+    modes = {"suffixtree": _suffixtree, "compare": _compare, "align-matrix": _align_matrix,
+             "msa": _msa, "reads": _reads, "map": _map, "call": _call, "search": _search}
     with trace(args.mode):
         return modes[args.mode](args, config, device, log)
 
 
 def _unported_flags(args) -> list[str]:
     """The flags of this run whose engines are not ported yet."""
+    if args.mode in ("suffixtree", "compare", "search"):
+        return []
     if args.mode in ("align", "align-matrix", "msa", "reads"):
         used = (("--engine scan", args.engine == "scan"),)
     else:
         used = (("--engine scan", args.engine == "scan"),
                 ("--seed-engine device", getattr(args, "seed_engine", "host") == "device"))
     return [flag for flag, on in used if on]
+
+
+def _suffixtree(args, config, device, log) -> int:
+    from genomics_rs_tpu_torch.display.tree import format_tree, format_tree_stats
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+    from genomics_rs_tpu_torch.suffixtree import make_tree
+    from genomics_rs_tpu_torch.suffixtree.tree import SuffixTree
+
+    log.info("MODE: Suffix Tree")
+    log.info("Suffix links: %s", args.suffix_links)
+    seq = SequenceContainer().from_fasta(args.fasta_path).sequences[0].sequence
+    # Small trees take the Python tree, whose nodes the full display
+    # (Graphviz DOT for < 100 nodes) walks.
+    small = len(seq) < 64
+    tree = SuffixTree(args.alphabet_file, len(seq)) if small else make_tree(
+        args.alphabet_file, len(seq))
+    tree.insert_string(seq, args.suffix_links, True)
+    if args.stats:
+        tree.compute_stats(0)
+        stem = os.path.basename(args.fasta_path).replace(".fasta", "")
+        bwt_path = os.path.join("BWT_out", f"{stem}_bwt.txt")
+        log.info("BWT Path: %s", bwt_path)
+        os.makedirs("BWT_out", exist_ok=True)
+        with open(bwt_path, "w") as f:
+            for ch in tree.stats.bwt:
+                f.write(ch + "\n")
+        if small:
+            # LOG_LEVEL=DEBUG adds the string-depth dump, as RUST_LOG=debug
+            # does in the reference.
+            debug = os.environ.get("LOG_LEVEL", "INFO").upper() == "DEBUG"
+            print(format_tree(tree, debug=debug))
+        else:
+            print(format_tree_stats(tree.stats))
+    return 0
+
+
+def _compare(args, config, device, log) -> int:
+    from genomics_rs_tpu_torch.comparison.display import print_similarity_matrix
+    from genomics_rs_tpu_torch.comparison.driver import (
+        compare_all_pairs,
+        load_fasta_dir,
+        write_similarity_tsv,
+    )
+
+    log.info("MODE: Compare")
+    log.info("Alphabet file: %s", args.alphabet_file)
+    log.info("Suffix links: %s", args.suffix_links)
+    log.info("FASTA directory: %s", args.fasta_dir)
+    container = load_fasta_dir(args.fasta_dir)
+    log.info("Number of sequences: %d", len(container.sequences))
+    result = compare_all_pairs(container, args.alphabet_file, threads=args.threads)
+    print_similarity_matrix(result.matrix)
+    tsv = write_similarity_tsv(result)
+    print("Similarity TSV:")
+    print(tsv)
+    print("\nLCS Length TSV:")
+    num = len(result.names)
+    print(" \t" + "\t".join(str(i) for i in range(num)) + "\t")
+    for j in range(num):
+        print(f"{j}\t" + "\t".join(str(int(result.matrix[j, i, 3])) for i in range(num))
+              + "\t")
+    return 0
 
 
 def _align_matrix(args, config, device, log) -> int:
@@ -683,6 +787,44 @@ def _call(args, config, device, log) -> int:
     covered = sum(int((p.sum(axis=1) > 0).sum()) for p in pileups.values())
     print(f"{len(calls)} variants from {len(queries)} reads ({covered} reference positions "
           f"covered) in {dt:.3f}s")
+    print(f"wrote {args.output}")
+    return 0
+
+
+def _search(args, config, device, log) -> int:
+    import time
+
+    from genomics_rs_tpu_torch.models.reads import _sam_token
+    from genomics_rs_tpu_torch.sequence import SequenceContainer
+    from genomics_rs_tpu_torch.suffixtree.fmindex import MultiFMIndex
+
+    log.info("MODE: Search (FM-index substring queries)")
+    refs = SequenceContainer().from_fasta(args.ref).sequences
+    queries = SequenceContainer().from_reads(args.queries).sequences
+    if not refs or not queries:
+        log.error("no reference or no queries loaded")
+        return 1
+    t0 = time.perf_counter()
+    index = MultiFMIndex.build(refs, device=device)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts, ranges = index.search_batch([q.sequence for q in queries],
+                                        device=args.engine == "device")
+    t_search = time.perf_counter() - t0
+    multi = len(refs) > 1
+    with open(args.output, "w") as f:
+        pos_col = "\tpositions" if args.locate else ""
+        f.write(f"query\tcount{pos_col}\n")
+        for q, c, rng in zip(queries, counts, ranges):
+            tail = ""
+            if args.locate:
+                # The batch search gave the SA range: locating is a slice
+                # and an offset map.
+                tail = "\t" + ",".join(f"{_sam_token(name)}:{off}" if multi else str(off)
+                                       for name, off in index.locate_range(rng))
+            f.write(f"{q.name}\t{int(c)}{tail}\n")
+    print(f"indexed {int(index.lengths.sum())} bases ({len(refs)} contigs) in {t_build:.3f}s; "
+          f"{len(queries)} queries in {t_search:.3f}s ({sum(int(c) for c in counts)} total hits)")
     print(f"wrote {args.output}")
     return 0
 

@@ -1,13 +1,17 @@
-"""ctypes binding of the repository's C++ score oracles,
-``gotoh_score_cpu`` and ``gotoh_score_cpu_subst`` (a (256, 256) byte-pair
-score table: protein matrices) in ``native/gotoh_cpu.cpp``.
+"""ctypes binding of the repository's C++ host code in ``native/``: the
+score oracles ``gotoh_score_cpu`` and ``gotoh_score_cpu_subst`` (a
+(256, 256) byte-pair score table: protein matrices) in ``gotoh_cpu.cpp``,
+the suffix-tree arena core (``st_*``, ``suffixtree.cpp``) and SA-IS
+(``sais_u8``, ``sais.cpp``).
 
-An independent reference-equivalent CPU fill (int64, row-major, linear
-memory): the check for pair sizes no Python oracle reaches. It is
-compiled at first use with the host C++ compiler and the flags of
-``native/Makefile`` into the port's build directory (only this one
-source; the library that ``make -C native`` builds also holds the
-suffix-tree code, which the port does not need yet).
+The Gotoh oracle is an independent reference-equivalent CPU fill (int64,
+row-major, linear memory): the check for pair sizes no Python oracle
+reaches. The suffix-tree and SA-IS functions are wrapped by
+``suffixtree/native.py``. The three sources are compiled at first use
+into one library, as ``native/Makefile`` links them, with the host C++
+compiler and the Makefile's flags, into the port's build directory under
+a hash of the sources and flags (never into ``native/build/``, which
+``make -C native`` owns). A failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import numpy as np
 
 from genomics_rs_tpu_torch.ops._build import PKG_DIR, build_dir
 
-SOURCE = PKG_DIR.parent / "native" / "gotoh_cpu.cpp"
+NATIVE_DIR = PKG_DIR.parent / "native"
+SOURCES = [NATIVE_DIR / name for name in ("gotoh_cpu.cpp", "suffixtree.cpp", "sais.cpp")]
 #: native/Makefile's CXXFLAGS (it documents why -O2 and not -O3).
 CXXFLAGS = ["-O2", "-march=native", "-fPIC", "-shared", "-Wall", "-std=c++17"]
 
@@ -32,25 +37,51 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    i32, i64, vp, cp = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p
+    sigs = {
+        "gotoh_score_cpu": ([vp, i64, vp, i64, i64, i64, i64, i64, ctypes.c_int, vp],
+                            ctypes.c_int),
+        "gotoh_score_cpu_subst": ([vp, i64, vp, i64, vp, i64, i64, ctypes.c_int, vp],
+                                  ctypes.c_int),
+        "st_new": ([cp, i64], vp),
+        "st_free": ([vp], None),
+        "st_insert": ([vp, cp, i64, ctypes.c_int], ctypes.c_int),
+        "st_stats": ([vp, ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_double), cp, i64],
+                     ctypes.c_int),
+        "st_lcs": ([vp, i32, i32, ctypes.POINTER(i64)], ctypes.c_int),
+        "st_similarity": ([cp, i64, cp, i64, cp, i64, ctypes.c_char, ctypes.c_char,
+                           ctypes.POINTER(i64)], ctypes.c_int),
+        "sais_u8": ([cp, i64, ctypes.POINTER(i32)], ctypes.c_int),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+
+
 def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if not SOURCE.exists():
-            raise RuntimeError(f"{SOURCE} not found")
+        missing = [str(s) for s in SOURCES if not s.exists()]
+        if missing:
+            raise RuntimeError(f"{', '.join(missing)} not found")
         cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
         if cxx is None:
-            raise RuntimeError("no C++ compiler (g++/c++) to build the oracle")
-        h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXXFLAGS).encode())
+            raise RuntimeError("no C++ compiler (g++/c++) to build native/")
+        h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+        for s in SOURCES:
+            h.update(s.name.encode())
+            h.update(s.read_bytes())
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"libgotoh_cpu_{h.hexdigest()[:16]}.so"
+        so = out_dir / f"libgenomics_native_{h.hexdigest()[:16]}.so"
         if not so.exists():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             proc = subprocess.run(
-                [cxx, *CXXFLAGS, "-o", tmp, str(SOURCE)],
+                [cxx, *CXXFLAGS, "-o", tmp, *map(str, SOURCES)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
@@ -58,12 +89,7 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"C++ build failed:\n{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        i64, vp = ctypes.c_int64, ctypes.c_void_p
-        lib.gotoh_score_cpu.argtypes = [vp, i64, vp, i64, i64, i64, i64, i64,
-                                        ctypes.c_int, vp]
-        lib.gotoh_score_cpu.restype = ctypes.c_int
-        lib.gotoh_score_cpu_subst.argtypes = [vp, i64, vp, i64, vp, i64, i64, ctypes.c_int, vp]
-        lib.gotoh_score_cpu_subst.restype = ctypes.c_int
+        _declare(lib)
         _lib = lib
         return lib
 

@@ -240,7 +240,10 @@ def test_port_does_not_import_jax():
         "genomics_rs_tpu_torch.native, genomics_rs_tpu_torch.display.alignment, "
         "genomics_rs_tpu_torch.models.banded, genomics_rs_tpu_torch.ops.gotoh_banded_batch, "
         "genomics_rs_tpu_torch.ops.gotoh_matrix, genomics_rs_tpu_torch.ops.gotoh_matrix_stream, "
-        "genomics_rs_tpu_torch.ops.subst, genomics_rs_tpu_torch.models.msa; "
+        "genomics_rs_tpu_torch.ops.subst, genomics_rs_tpu_torch.models.msa, "
+        "genomics_rs_tpu_torch.suffixtree, genomics_rs_tpu_torch.suffixtree.tree, "
+        "genomics_rs_tpu_torch.suffixtree.native, genomics_rs_tpu_torch.suffixtree.fmindex, "
+        "genomics_rs_tpu_torch.ops.bwt_device, genomics_rs_tpu_torch.display.tree; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -306,7 +306,9 @@ def test_port_modules_do_not_import_jax():
         "genomics_rs_tpu_torch.ops.gotoh_segmented, genomics_rs_tpu_torch.ops.gotoh_stream8, "
         "genomics_rs_tpu_torch.ops.gotoh_pallas, genomics_rs_tpu_torch.ops.gotoh_tile, "
         "genomics_rs_tpu_torch.parallel.mesh, genomics_rs_tpu_torch.parallel.longseq, "
-        "genomics_rs_tpu_torch.parallel.distributed, genomics_rs_tpu_torch.parallel; "
+        "genomics_rs_tpu_torch.parallel.distributed, genomics_rs_tpu_torch.parallel, "
+        "genomics_rs_tpu_torch.comparison.display, genomics_rs_tpu_torch.suffixtree.fmindex, "
+        "genomics_rs_tpu_torch.suffixtree.native, genomics_rs_tpu_torch.ops.bwt_device; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

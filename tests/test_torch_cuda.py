@@ -20,7 +20,10 @@ edge paths and random codes, one launch and resumed, on both copy routes;
 K4 on random codes,
 TMA and 4-byte-copy rows and views, buffers ending mid-path, thousands of
 short walks and ``walk_stage_cases``' edge paths; K11 on its edge paths
-whole and resumed, rows of any width and one-launch batches).
+whole and resumed, rows of any width and one-launch batches); and the
+suffix structures' torch ops on the card (the prefix-doubling suffix
+array against host SA-IS, the lockstep FM-index search against the host
+loop).
 """
 
 import numpy as np
@@ -1341,3 +1344,68 @@ def test_two_shard_sharded_score_on_one_card(cuda, is_local):
         assert got[1] == [int(whole.score), int(whole.start_i), int(whole.start_j)]
     else:
         assert got[0] == int(whole.score)
+
+
+# ---- the suffix structures: torch ops on the card ----
+
+
+@pytest.mark.parametrize("text", ["", "A", "AAAAAAAA", "ACGT" * 50, "random", "contigs"])
+def test_suffix_array_cuda_matches_sais(cuda, text):
+    """The prefix-doubling suffix array on the card == SA-IS on the host
+    (and the CPU run of the same torch ops), BWT included."""
+    from genomics_rs_tpu_torch.ops.bwt_device import bwt_device, suffix_array
+    from genomics_rs_tpu_torch.suffixtree.native import native_suffix_array
+
+    rng = np.random.default_rng(15)
+    if text == "random":
+        text = BASES[rng.integers(0, 4, 70_000)].tobytes().decode()
+    elif text == "contigs":
+        text = "#".join(BASES[rng.integers(0, 4, n)].tobytes().decode() for n in (900, 1, 4_000))
+    got = suffix_array(text, device=cuda)
+    assert got.dtype == np.int32
+    assert got.tolist() == native_suffix_array(text.encode() + b"$").tolist()
+    assert got.tolist() == suffix_array(text, device="cpu").tolist()
+    assert bwt_device(text, device=cuda) == bwt_device(text, device="cpu")
+
+
+def test_search_batch_cuda_matches_host(cuda):
+    """The lockstep backward search on the card == the host ``_range``
+    loop: counts and (lo, hi) for substrings, absent bytes, '$', '#' and
+    empty patterns; one device search, no host range; the Occ table stays
+    on the card; the multi-contig ``locate_range`` equal too."""
+    from genomics_rs_tpu_torch.suffixtree import fmindex as fm
+
+    rng = np.random.default_rng(16)
+    genome = BASES[rng.integers(0, 4, 200_000)].tobytes().decode()
+    idx = fm.FMIndex.build(genome, device=cuda)
+    pats = []
+    for _ in range(5_000):
+        L = int(rng.integers(20, 40))
+        st = int(rng.integers(0, len(genome) - L))
+        pats.append(genome[st : st + L])
+    pats += ["", "ACGN", "$", "#", "A#C", "A", "ACGT" * 3]
+    before = dict(fm.COUNTS)
+    got = idx.search_batch(pats, device=True)
+    assert fm.COUNTS["device"] == before["device"] + 1
+    assert fm.COUNTS["host_range"] == before["host_range"]
+    assert idx._dev[0].device.type == "cuda"
+    want = idx.search_batch(pats, device=False)
+    assert got[0].tolist() == want[0].tolist() and got[1] == want[1]
+    assert (got[0][:5_000] >= 1).all()
+    multi = fm.MultiFMIndex.build(
+        [Sequence(f"c{k}", genome[k * 50_000 : (k + 1) * 50_000 - 7]) for k in range(4)],
+        device=cuda)
+    mc, mr = multi.search_batch(pats[:2_000], device=True)
+    hc, hr = multi.search_batch(pats[:2_000], device=False)
+    assert mc.tolist() == hc.tolist() and mr == hr
+    assert [multi.locate_range(r) for r in mr] == [multi.locate_range(r) for r in hr]
+
+
+def test_fmindex_device_build_matches_host_build(cuda):
+    from genomics_rs_tpu_torch.suffixtree import fmindex as fm
+
+    text = BASES[np.random.default_rng(17).integers(0, 4, 50_000)].tobytes().decode()
+    a = fm.FMIndex.build(text, host=True, device=cuda)
+    b = fm.FMIndex.build(text, host=False, device=cuda)
+    assert a.sa.tolist() == b.sa.tolist() and a.bwt == b.bwt
+    assert (a.occ == b.occ).all() and (a.cvec == b.cvec).all()
