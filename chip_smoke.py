@@ -231,6 +231,24 @@ Phases, one line each:
      ``BWT_out`` == ``bwt_device`` on the card; ``compare --threads 4`` on
      the phase 6 corpus: its TSV == ``compare_all_pairs``, and pair 0-1 cut
      to 2,000 bp: native == the Python oracle; walls
+ 35  the scan engines (the JAX package's oracle, torch ops on the card, no
+     kernel launched): ``align --engine scan`` on a 2,000 x 2,100 bp pair
+     global and local (score and start == the C++ oracle, path == the
+     kernel route's, CLI stdout == ``--engine auto``'s); ``batch_scores``
+     on one bucket of 64 x 1,024 bp, global and local, == the oracle and
+     ``score_pairs`` auto; ``align_reads(engine="scan")`` on 4,096 reads of
+     128 bp against 256 bp windows in pipelined rounds == ``engine="auto"``
+     (K6) and, sampled, the oracle; the matrix scan on 256 x 383 aa under
+     BLOSUM62 == the kernel route and the oracle; the sequence-parallel
+     scan at P = 2 shards of the card on a 2 kb pair == K5's and the
+     oracle; the wall of each beside its kernel route's
+ 36  device seeding at the map recipe's size: 100,000 x 128 bp reads, both
+     strands, against a seeded 1,078,175 bp genome at k = 15: the device
+     vote's five arrays == the host vote's; ``map -k 15 --seed-engine
+     device`` SAM == ``--seed-engine host``; seeding walls of both engines,
+     ``map``'s walls and device-busy shares (``torch.profiler``)
+ 37  ``entry()`` (the 256 bp global scan step) on the card == its CPU run;
+     ``dryrun_multichip(1)`` on the card
 
 Bounds count interior DP cells (m x n per pair), band cells (rows x
 lanes), for a walk the code words its path must read, and for the
@@ -238,7 +256,7 @@ profile the bytes it reads and writes.
 
 The second-to-last line is a JSON summary of the kernels (K1–K4, K6,
 ``walk_rows16``, K10–K12, K13–K15, K7–K9, K5 and K16, with each one's
-launches on its own path, bound and times); the last line is ``{"ok": true, "device": {...}}``.
+launches on its own path, bound and times; phases 32–37 add none); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3772,6 +3790,310 @@ def write_config(tmp: str) -> str:
     return cfg
 
 
+#: The scan engines (the JAX package's oracle, a Python loop of torch ops a
+#: diagonal) where an oracle is used: an ``align --engine scan`` pair of
+#: SCAN_PAIR bp, one bucket of SCAN_BUCKET pairs of SCAN_BUCKET_LEN bp,
+#: ``align_reads(engine="scan")`` on SCAN_READS 128 bp reads against 256 bp
+#: windows in rounds of SCAN_ROUND, SCAN_PROT pairs of SCAN_PROT_LEN aa and a
+#: SCAN_SEQPAR_LEN bp pair over two shards of the card.
+SCAN_PAIR = (2_000, 2_100)
+SCAN_BUCKET, SCAN_BUCKET_LEN = 64, 1_024
+SCAN_READS, SCAN_ROUND = 4_096, 1_024
+SCAN_PROT, SCAN_PROT_LEN = 256, 383
+SCAN_SEQPAR_LEN = 2_000
+#: Device seeding at the map recipe's size: SEED_N reads of MAP_LEN bp,
+#: both strands, against a seeded GENOME_BP genome, at k = SEED_K.
+SEED_N, SEED_K = 100_000, 15
+
+
+def scan_phases(torch, dev, card, sc) -> None:
+    """Phases 35-37: the scan engines held against the C++ oracle, the
+    kernel routes and ``engine="auto"``; device seeding at the map
+    recipe's size; the port's entry points. None of them launches a
+    hand-written kernel on a scan path; they add no row to the kernels'
+    line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from genomics_rs_tpu_torch import cli, native
+    from genomics_rs_tpu_torch.entry import dryrun_multichip, entry
+    from genomics_rs_tpu_torch.models import mapper
+    from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
+    from genomics_rs_tpu_torch.models.reads import align_reads, encode_batch
+    from genomics_rs_tpu_torch.ops import gotoh_matrix as gm
+    from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+    from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
+    from genomics_rs_tpu_torch.ops import gotoh_segmented as gseg
+    from genomics_rs_tpu_torch.ops import gotoh_shortread as gsr
+    from genomics_rs_tpu_torch.ops import gotoh_stream as gs
+    from genomics_rs_tpu_torch.ops import gotoh_stream8 as gs8
+    from genomics_rs_tpu_torch.ops import traceback_batch as tb
+    from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.ops.subst import blosum62
+    from genomics_rs_tpu_torch.parallel import batch as pb
+    from genomics_rs_tpu_torch.parallel import longseq
+    from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
+    from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
+
+    counters = [m.COUNTS for m in (rb, gs, gs8, gseg, gsr, tb, tw, gm, gp)]
+    counters += [gp.TILE_COUNTS, gp.BLOCKED_COUNTS]
+
+    def kernels() -> int:
+        return sum(v for c in counters for k, v in c.items() if k.endswith("kernel"))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def fields(r):
+        return (r.score, r.alignment, r.matches, r.mismatches, r.opening_gaps, r.gap_extensions)
+
+    # ---- phase 35: the scan engines ----
+    t_phase = time.perf_counter()
+    os.environ["LOG_LEVEL"] = "WARNING"
+    rng = np.random.default_rng(3535)
+    times = {}
+    before = kernels()
+    a = random_dna(rng, SCAN_PAIR[0])
+    b = mutate(rng, a, 0.02, 6)[: SCAN_PAIR[1] - 100] + random_dna(rng, 100)
+    x, y = Sequence("a", a), Sequence("b", b)
+    for is_local in (False, True):
+        mode = "local" if is_local else "global"
+        got, times[f"align {mode}"] = wall(
+            lambda: PairwiseAligner(sc, is_local, device=dev, engine="scan").align(x, y))
+        oracle = native.gotoh_score_cpu(a, b, sc, is_local)
+        start = (got.alignment[0][1], got.alignment[0][2]) if got.alignment else (0, 0)
+        check((got.score,) + start == oracle,
+              f"align --engine scan {mode}: {(got.score,) + start} != oracle {oracle}")
+        check(kernels() == before, "the scan aligner launched a kernel")
+        kern, times[f"align {mode} auto"] = wall(
+            lambda: PairwiseAligner(sc, is_local, device=dev).align(x, y))
+        check(fields(got) == fields(kern), f"align --engine scan {mode}: path != the kernels'")
+        before = kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "pair.fasta"), "w") as f:
+            f.write(f">a\n{a}\n>b\n{b}\n")
+        with open(os.path.join(tmp, "config.toml"), "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        outs = {}
+        for engine in ("scan", "auto"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-c", os.path.join(tmp, "config.toml"), "align", "-a", "global",
+                               "-f", os.path.join(tmp, "pair.fasta"), "--engine", engine,
+                               "--device", dev.type])
+            times[f"CLI align --engine {engine}"] = time.perf_counter() - t0
+            check(rc == 0, f"align --engine {engine} exited {rc}")
+            outs[engine] = buf.getvalue()
+        check(outs["scan"] == outs["auto"] and "Alignment Score" in outs["scan"],
+              "CLI align --engine scan != --engine auto")
+
+    B, L = SCAN_BUCKET, SCAN_BUCKET_LEN
+    pairs = []
+    for _ in range(B):
+        s = random_dna(rng, int(rng.integers(L - 120, L + 1)))
+        t = mutate(rng, s, 0.03, 3)[:L]
+        pairs.append((s, t))
+    s1b = np.stack([Sequence("a", s).encoded(L, PAD_S1) for s, _ in pairs])
+    s2b = np.stack([Sequence("b", t).encoded(L, PAD_S2) for _, t in pairs])
+    ms = np.array([len(s) for s, _ in pairs], np.int32)
+    ns = np.array([len(t) for _, t in pairs], np.int32)
+    s1d, s2d = torch.from_numpy(s1b).to(dev), torch.from_numpy(s2b).to(dev)
+    with ThreadPoolExecutor(8) as pool:
+        oracles = {loc: list(pool.map(lambda p: native.gotoh_score_cpu(p[0], p[1], sc, loc), pairs))
+                   for loc in (False, True)}
+    for is_local in (False, True):
+        mode = "local" if is_local else "global"
+        before = kernels()
+        got, times[f"bucket {mode}"] = wall(lambda: pb.batch_scores(s1d, s2d, ms, ns, sc, is_local))
+        check(kernels() == before, "batch_scores launched a kernel")
+        want = [tuple(o) for o in oracles[is_local]]
+        have = list(zip(got.score.tolist(), got.start_i.tolist(), got.start_j.tolist()))
+        check(have == want, f"batch_scores {mode} != the C++ oracle")
+        auto, times[f"bucket {mode} auto"] = wall(
+            lambda: pb.score_pairs(s1b, s2b, ms, ns, sc, is_local, device=dev))
+        check(all(np.array_equal(p, q) for p, q in zip(auto, got[:3])),
+              f"batch_scores {mode} != engine auto")
+
+    genome = random_dna(rng, 200_000)
+    pos = rng.integers(64, len(genome) - 200, SCAN_READS)
+    rreads, rrefs = [], []
+    for k, p in enumerate(pos):
+        q = mutate(rng, genome[p : p + 140], 0.01, int(k % 5 == 0))[:128]
+        rreads.append(Sequence(f"q{k}", revcomp(q) if k % 7 == 0 else q))
+        rrefs.append(Sequence(f"w{k}", genome[p - 64 : p + 192]))
+    kw = dict(is_local=True, with_paths=False, with_cigars=True, with_mapinfo=True)
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    scan_r, times["align_reads scan"] = wall(
+        lambda: align_reads(rreads, rrefs, sc, engine="scan", batch=SCAN_ROUND, device=dev, **kw))
+    diag_walks = tb.COUNTS["diag"]
+    check(kernels() == 0 and diag_walks >= 2,
+          f"align_reads(engine='scan'): {kernels()} kernel launches, {diag_walks} diag walks")
+    auto_r, times["align_reads auto"] = wall(
+        lambda: align_reads(rreads, rrefs, sc, batch=SCAN_ROUND, device=dev, **kw))
+    check([fields(r) for r in scan_r[0]] == [fields(r) for r in auto_r[0]]
+          and scan_r[1:] == auto_r[1:], "align_reads(engine='scan') != engine='auto'")
+    for k in range(0, SCAN_READS, SCAN_READS // 16):
+        o = native.gotoh_score_cpu(rreads[k].sequence, rrefs[k].sequence, sc, True)
+        check((scan_r[0][k].score, scan_r[2][k][2], scan_r[2][k][3]) == o,
+              f"align_reads scan read {k} != the C++ oracle {o}")
+
+    aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    P, PL = SCAN_PROT, SCAN_PROT_LEN
+    p1 = np.full((P, PL), PAD_S1, np.uint8)
+    p2 = np.full((P, PL), PAD_S2, np.uint8)
+    pm = rng.integers(PL // 2, PL + 1, P).astype(np.int32)
+    pn = rng.integers(PL // 2, PL + 1, P).astype(np.int32)
+    for i in range(P):
+        p1[i, : pm[i]] = aa[rng.integers(0, 20, pm[i])]
+        src = p1[i, : pm[i]].copy()
+        hit = rng.random(src.size) < 0.3
+        src[hit] = aa[rng.integers(0, 20, int(hit.sum()))]
+        p2[i, : pn[i]] = np.resize(src, pn[i])
+    mx = blosum62()
+    lut = mx.byte_lut()
+    for is_local in (False, True):
+        mode = "local" if is_local else "global"
+        before = kernels()
+        got, times[f"matrix {mode}"] = wall(lambda: gm.gotoh_scores_matrix(
+            torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev), pm, pn, mx, PROT_G, PROT_H,
+            is_local, engine="scan"))
+        check(kernels() == before, "the matrix scan launched a kernel")
+        auto, times[f"matrix {mode} auto"] = wall(lambda: gm.gotoh_scores_matrix(
+            torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev), pm, pn, mx, PROT_G, PROT_H,
+            is_local))
+        check(all(torch.equal(g_, w_) for g_, w_ in zip(got, auto)),
+              f"matrix scan {mode} != engine auto")
+        for i in range(0, P, P // 16):
+            o = native.gotoh_score_cpu_subst(p1[i, : pm[i]].tobytes().decode(),
+                                             p2[i, : pn[i]].tobytes().decode(), lut, PROT_G,
+                                             PROT_H, is_local)
+            check((int(got[0][i]), int(got[1][i]), int(got[2][i])) == o,
+                  f"matrix scan {mode} pair {i} != the C++ oracle {o}")
+
+    a2 = random_dna(rng, SCAN_SEQPAR_LEN)
+    b2 = mutate(rng, a2, 0.02, 4)
+    Lp = round_up(max(len(a2), len(b2)), 256)
+    e1 = Sequence("a", a2).encoded(Lp, PAD_S1)
+    e2 = Sequence("b", b2).encoded(Lp, PAD_S2)
+    mesh = make_mesh(2, SEQ_AXIS, devices=[dev, dev])
+    for is_local in (False, True):
+        mode = "local" if is_local else "global"
+        before = kernels()
+        got, times[f"seqpar {mode}"] = wall(lambda: longseq.sharded_gotoh_score(
+            mesh, e1, e2, len(a2), len(b2), sc, is_local, engine="scan"))
+        check(kernels() == before, "the sequence-parallel scan launched a kernel")
+        auto, times[f"seqpar {mode} auto"] = wall(lambda: longseq.sharded_gotoh_score(
+            mesh, e1, e2, len(a2), len(b2), sc, is_local))
+        o = native.gotoh_score_cpu(a2, b2, sc, is_local)
+        have = (tuple(got.best.tolist()) if is_local
+                else (int(got.score), len(a2), len(b2)))
+        check(have == o, f"sequence-parallel scan {mode} {have} != the C++ oracle {o}")
+        check((int(got.score), got.best.tolist()) == (int(auto.score), auto.best.tolist()),
+              f"sequence-parallel scan {mode} != engine auto (K5)")
+    print(f"[phase 35] card {card} | the scan engines (torch ops, no kernel launched) == the "
+          f"C++ oracle and the kernel routes: align --engine scan {len(a)} x {len(b)} bp "
+          f"global/local (paths == auto's, CLI stdout == auto's); batch_scores {B} x {L} bp "
+          f"global/local == oracle and auto; align_reads(engine='scan') {SCAN_READS} x 128 bp vs "
+          f"256 bp, rounds of {SCAN_ROUND} pipelined ({diag_walks} diag walks) == auto (K6) and "
+          f"oracle; matrix scan {P} x {PL} aa == auto and oracle; sequence-parallel scan P = 2 "
+          f"on {len(a2)} x {len(b2)} bp == K5 and oracle | walls (s, scan vs kernels): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 36: device seeding at the map recipe's size ----
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3636)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    gbytes = acgt[rng.integers(0, 4, GENOME_BP)]
+    gtxt = gbytes.tobytes().decode()
+    starts = rng.integers(0, GENOME_BP - MAP_LEN, SEED_N)
+    win = gbytes[starts[:, None] + np.arange(MAP_LEN)]
+    hit = rng.random(win.shape) < 0.01
+    win = np.where(hit, acgt[(np.searchsorted(acgt, win) + rng.integers(1, 4, win.shape)) % 4], win)
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    win[1::2] = comp[win[1::2, ::-1]]  # odd reads on the reverse strand
+    reads = [Sequence(f"m{i}", win[i].tobytes().decode()) for i in range(SEED_N)]
+    index = mapper.KmerIndex([Sequence("chr12s", gtxt)], SEED_K)
+    oriented = reads + [r.reverse_complement() for r in reads]
+    enc4 = mapper._BASE[encode_batch(oriented, MAP_LEN, 0xFE)]
+    stride, max_hits, band = SEED_K // 2, 64, 32
+    host, t_host = wall(lambda: mapper._vote_windows(index, enc4, stride, max_hits, band))
+    mapper._vote_windows_device(index, enc4[:4096], stride, max_hits, band, device=dev)  # warm
+    devv, t_dev = wall(lambda: mapper._vote_windows_device(index, enc4, stride, max_hits, band,
+                                                           device=dev))
+    for name, g_, h_ in zip(("votes", "wlo", "whi", "anchor", "votes2"), devv, host):
+        check(np.array_equal(g_, h_), f"device vote {name} != the host vote")
+    ties = int(((devv[0] == devv[4]) & (devv[0] > 0)).sum())
+    seeded = int((np.maximum(devv[0][:SEED_N], devv[0][SEED_N:]) >= 2).sum())
+    check(seeded >= 0.99 * SEED_N, f"device vote: only {seeded} of {SEED_N} reads have 2+ votes")
+    os.environ["LOG_LEVEL"] = "WARNING"
+    maps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        with open(path("config.toml"), "w") as f:
+            f.write(f"[scores]\ns_match = {sc.s_match}\ns_mismatch = {sc.s_mismatch}\n"
+                    f"g = {sc.g}\nh = {sc.h}\n")
+        with open(path("genome.fasta"), "w") as f:
+            f.write(f">chr12s random {GENOME_BP} bp\n{gtxt}\n")
+        with open(path("map.fasta"), "w") as f:
+            f.writelines(f">{r.name}\n{r.sequence}\n" for r in reads)
+        for engine in ("host", "device"):
+            buf = io.StringIO()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["-c", path("config.toml"), "map", "-q", path("map.fasta"),
+                                   "-r", path("genome.fasta"), "-k", str(SEED_K),
+                                   "--seed-engine", engine, "-o", path(f"{engine}.sam"),
+                                   "--device", dev.type])
+                sync()
+                t_map = time.perf_counter() - t0
+            check(rc == 0, f"map --seed-engine {engine} exited {rc}")
+            busy = sum(device_ms(torch, prof).values())
+            with open(path(f"{engine}.sam"), "rb") as f:
+                sam = f.read()
+            line = next((ln for ln in buf.getvalue().splitlines() if "mapped" in ln), "")
+            maps[engine] = (sam, line.split(" in ")[0], t_map, busy)
+    check(maps["device"][0] == maps["host"][0],
+          "map --seed-engine device SAM != --seed-engine host")
+    check(maps["device"][1] == maps["host"][1], f"map stdout differs: {maps['device'][1]!r} vs "
+          f"{maps['host'][1]!r}")
+    print(f"[phase 36] card {card} | device seeding, {SEED_N} x {MAP_LEN} bp reads, both strands, "
+          f"{GENOME_BP} bp genome, k = {SEED_K} ({len(index)} k-mers): vote arrays == the host "
+          f"vote on all {2 * SEED_N} rows ({ties} rows tied with their runner-up); seeding wall "
+          f"host {t_host:.3f} s, device {t_dev:.3f} s | map -k {SEED_K} (profiled): "
+          + "; ".join(f"--seed-engine {e} wall {v[2]:.3f} s, device {v[3]:.1f} ms (busy "
+                      f"{v[3] / 10 / v[2]:.2f}%)" for e, v in maps.items())
+          + f"; SAM bytes equal ({len(maps['host'][0])} B; {maps['host'][1]}) "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # ---- phase 37: the entry points ----
+    t_phase = time.perf_counter()
+    fn, args = entry(dev)
+    out, t_entry = wall(lambda: fn(*args))
+    cfn, cargs = entry("cpu")
+    want = cfn(*cargs)
+    check(all(torch.equal(g_.cpu(), w_) for g_, w_ in zip(out, want)),
+          "entry() on the card != its CPU run")
+    _, t_dry = wall(lambda: dryrun_multichip(1, devices=[dev]))
+    print(f"[phase 37] card {card} | entry(): the 256 bp global scan step on {dev} == its CPU "
+          f"run (score {int(out[0])}, dirs {tuple(out[3].shape)}) in {t_entry:.3f} s; "
+          f"dryrun_multichip(1) on the card in {t_dry:.3f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
 def main() -> None:
     # ---- phase 0: the card ----
     card = card_line()
@@ -4310,6 +4632,7 @@ def main() -> None:
     rows += seqpar_phases(torch, dev, card, sc, cuda_ms, rate,
                           dict(base=base, var=var, oracle=o30, k1_score=glob.score, glob=glob))
     suffix_phases(torch, dev, card, cuda_ms)
+    scan_phases(torch, dev, card, sc)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

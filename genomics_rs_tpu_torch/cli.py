@@ -27,9 +27,10 @@ output and the files written are those of the JAX package's subcommands
 (timing lines aside); ``--device`` picks the CUDA kernels (default) or
 their plain CPU versions, and for ``search --engine device`` the device
 the backward search runs on. ``is_local`` is true iff the type is exactly
-"local" or "1". The two options whose engines are not ported yet,
-``--engine scan`` and ``--seed-engine device``, exit 2 with "not yet
-ported".
+"local" or "1". ``--engine scan`` (``align``, ``align-matrix``, ``msa``,
+``reads``, ``map``, ``call``) runs the JAX package's scan oracle as torch
+ops on ``--device``; ``map --seed-engine device`` votes on ``--device``
+(``-k`` at most 15).
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ BANNER = r"""
         ~   `-~ `-`   `-~ `-`   `-~ `-
 """
 
-NOT_PORTED = "not yet ported (ROADMAP Queue A)"
-
-
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genomics-rs-tpu-torch",
@@ -68,8 +66,8 @@ def _build_parser() -> argparse.ArgumentParser:
         "--engine",
         default="auto",
         choices=["auto", "scan", "pallas"],
-        help="auto and pallas run the row-block fill; scan is "
-        + NOT_PORTED,
+        help="auto and pallas run the row-block fill; scan the scan fill and "
+        "the host walk (the oracle)",
     )
     a.add_argument(
         "--matrix",
@@ -112,7 +110,7 @@ def _build_parser() -> argparse.ArgumentParser:
         default="auto",
         choices=["auto", "scan", "pallas"],
         help="auto tiers each length bucket (K6, K7/K8, K3 or K9), pallas runs "
-        "K9 on every bucket; scan is " + NOT_PORTED,
+        "K9 on every bucket; scan the scan fill (the oracle)",
     )
     am.add_argument("-o", "--output", default="alignment_scores.tsv")
     am.add_argument(
@@ -147,7 +145,7 @@ def _build_parser() -> argparse.ArgumentParser:
         default="auto",
         choices=["auto", "scan", "pallas"],
         help="auto and pallas run the batched kernels (pallas: the DNA score pass "
-        "on K9); scan is " + NOT_PORTED,
+        "on K9); scan the scan fill and aligner (the oracle)",
     )
     ms.add_argument(
         "--matrix",
@@ -182,7 +180,8 @@ def _reads_parsers(sub) -> None:
         default="auto",
         choices=["auto", "shortread", "segmented", "stream", "stream8", "pallas", "scan"],
         help="auto tiers by padded length; shortread (K6), segmented (K7), stream8 "
-        "(K8), stream (K3) and pallas (K9) run that kernel; scan is " + NOT_PORTED,
+        "(K8), stream (K3) and pallas (K9) run that kernel; scan the scan fill "
+        "(the oracle)",
     )
     rd.add_argument(
         "--align",
@@ -232,9 +231,10 @@ def _reads_parsers(sub) -> None:
     mp.add_argument("--single-strand", action="store_true",
                     help="map the forward orientation only")
     mp.add_argument("--engine", default="auto", choices=["auto", "pallas", "scan"],
-                    help="auto and pallas extend on the kernels; scan is " + NOT_PORTED)
+                    help="auto and pallas extend on the kernels; scan on the scan fill")
     mp.add_argument("--seed-engine", default="host", choices=["host", "device"],
-                    help="where diagonal voting runs; device is " + NOT_PORTED)
+                    help="where diagonal voting runs; device needs -k <= 15 (int32 "
+                    "packed keys) and is bit-identical to host")
     mp.add_argument("--format", choices=["sam", "tsv"], default="sam")
     mp.add_argument("-o", "--output", default="mapped.sam")
     _device_flag(mp)
@@ -267,7 +267,7 @@ def _reads_parsers(sub) -> None:
     cl.add_argument("--single-strand", action="store_true",
                     help="map the forward orientation only")
     cl.add_argument("--engine", default="auto", choices=["auto", "pallas", "scan"],
-                    help="auto and pallas extend on the kernels; scan is " + NOT_PORTED)
+                    help="auto and pallas extend on the kernels; scan on the scan fill")
     cl.add_argument("-o", "--output", default="calls.vcf")
     _device_flag(cl)
 
@@ -341,10 +341,6 @@ def main(argv: list[str] | None = None) -> int:
 
     config = get_config(args.config_path)
 
-    unported = _unported_flags(args)
-    if unported:
-        print(f"{unported[0]} is {NOT_PORTED}", file=sys.stderr)
-        return 2
     from genomics_rs_tpu_torch.device import resolve_device
 
     device = None
@@ -405,7 +401,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             with trace("align"):
                 aligned = align_pair(container, sc, is_local=is_local, device=device,
-                                     matrix=matrix)
+                                     matrix=matrix, engine=args.engine)
         print_alignment_tables(aligned, sc, is_local, matrix=matrix)
         print(format_aligned_sequences(aligned))
         return 0
@@ -416,18 +412,6 @@ def main(argv: list[str] | None = None) -> int:
              "msa": _msa, "reads": _reads, "map": _map, "call": _call, "search": _search}
     with trace(args.mode):
         return modes[args.mode](args, config, device, log)
-
-
-def _unported_flags(args) -> list[str]:
-    """The flags of this run whose engines are not ported yet."""
-    if args.mode in ("suffixtree", "compare", "search"):
-        return []
-    if args.mode in ("align", "align-matrix", "msa", "reads"):
-        used = (("--engine scan", args.engine == "scan"),)
-    else:
-        used = (("--engine scan", args.engine == "scan"),
-                ("--seed-engine device", getattr(args, "seed_engine", "host") == "device"))
-    return [flag for flag, on in used if on]
 
 
 def _suffixtree(args, config, device, log) -> int:
@@ -537,7 +521,8 @@ def _align_matrix(args, config, device, log) -> int:
                 res = matrix_align_batch(batch, mx, g=config.scores.g, h=config.scores.h,
                                          is_local=is_local, device=device)
             else:
-                res = align_batch(batch, config.scores, is_local=is_local, device=device)
+                res = align_batch(batch, config.scores, is_local=is_local, device=device,
+                                  engine=args.engine)
             alns.update(zip(sub, res))
         for i, j in idx:
             name, text = pair_alignment_fasta(i, j, seqs[i], seqs[j], alns[(i, j)], is_local)
@@ -622,12 +607,15 @@ def _reads(args, config, device, log) -> int:
     if args.align:
         from genomics_rs_tpu_torch.models.reads import align_reads, write_sam
 
-        if args.engine != "auto":
+        # align_reads takes scan or auto; the score-only kernels' names
+        # mean auto routing.
+        rd_engine = args.engine if args.engine in ("scan", "auto") else "auto"
+        if rd_engine != args.engine:
             log.info("engine %s is score-only; --align uses auto routing", args.engine)
         want_sam = args.format == "sam"
         t0 = time.perf_counter()
-        res = align_reads(queries, refs, config.scores, is_local=is_local, with_paths=False,
-                          with_cigars=True, both_strands=args.both_strands,
+        res = align_reads(queries, refs, config.scores, is_local=is_local, engine=rd_engine,
+                          with_paths=False, with_cigars=True, both_strands=args.both_strands,
                           with_mapinfo=want_sam, device=device)
         aligned, cigars = res[0], res[1]
         strands = res[2] if args.both_strands else None
@@ -699,13 +687,15 @@ def _map(args, config, device, log) -> int:
     t0 = time.perf_counter()
     try:
         index = KmerIndex(refs, args.k)
+        if args.seed_engine == "device":
+            index.device_arrays(device)  # validates k and the length up front
     except ValueError as e:
         log.error("%s", e)
         return 1
     t_index = time.perf_counter() - t0
     kw = dict(index=index, stride=args.stride, band=args.band, max_hits=args.max_hits,
               min_seeds=args.min_seeds, both_strands=not args.single_strand,
-              engine=args.engine, device=device)
+              engine=args.engine, seed_engine=args.seed_engine, device=device)
     if args.queries2 is not None:
         from genomics_rs_tpu_torch.models.mapper import map_pairs, write_sam_paired
 

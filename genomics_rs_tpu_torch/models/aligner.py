@@ -21,6 +21,14 @@ matrix fill (``ops/gotoh_matrix``: query profile, then K3's pipeline):
 checkpointed route (as in the JAX package); :func:`matrix_align_batch`
 one fill with dirs per group and one K4 walk.
 
+``engine="scan"`` (the JAX package's ``lax.scan`` oracle) fills with
+``ops/gotoh_scan.gotoh_fill_scan`` instead, uint8 dirs a cell (under a
+matrix from its byte-pair table), and walks them on the host
+(``ops/traceback.traceback_host``), with no checkpointed route, as JAX's
+scan engine does; ``align_batch(engine="scan")`` runs it pair by pair.
+``"auto"`` and ``"pallas"`` are the kernel routes above; neither reaches
+the scan, and the scan reaches no kernel.
+
 Sequences are padded to multiples of ``PAD_MULTIPLE``, as in the JAX
 package, so both packages fill tables of the same shape.
 """
@@ -38,11 +46,15 @@ from genomics_rs_tpu_torch.ops.gotoh_matrix import gotoh_matrix_fill
 from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import gotoh_matrix_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_pallas import raise_on_err as raise_pipe_err
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, raise_on_err
-from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult
+from genomics_rs_tpu_torch.ops.gotoh_scan import FillResult, gotoh_fill_scan
 from genomics_rs_tpu_torch.ops.gotoh_stream import dirs_shape, gotoh_stream_fill_dirs
 from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
-from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
+from genomics_rs_tpu_torch.ops.traceback import (
+    AlignedSequences,
+    classify_moves,
+    traceback_host,
+)
 from genomics_rs_tpu_torch.ops.traceback_batch import NO_MOVE, walk_batch
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
 from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW
@@ -59,6 +71,9 @@ log = logging.getLogger(__name__)
 
 PAD_MULTIPLE = 128
 
+#: ``PairwiseAligner``/``align_batch`` engines.
+ENGINES = ("auto", "pallas", "scan")
+
 
 def _encode(seq: Sequence, pad_to: int, pad_value: int, device) -> torch.Tensor:
     arr = seq.encoded(pad_to=pad_to, pad_value=pad_value).copy()
@@ -66,9 +81,17 @@ def _encode(seq: Sequence, pad_to: int, pad_value: int, device) -> torch.Tensor:
 
 
 def _fill(s1e, s2e, m: int, n: int, scores: Scores, is_local: bool,
-          emit_dirs: bool = True, matrix=None) -> FillResult:
+          emit_dirs: bool = True, matrix=None, engine: str = "auto") -> FillResult:
     """The whole (m+1) x (n+1) table: one row block, or under ``matrix``
-    one matrix fill at B = 1."""
+    one matrix fill at B = 1; ``engine="scan"`` the scan fill (numpy
+    uint8 dirs). Scores and starts come back as ints."""
+    if engine == "scan":
+        lut = None if matrix is None else np.ascontiguousarray(matrix.byte_lut(), np.int32)
+        f = gotoh_fill_scan(s1e, s2e, m, n, scores, is_local, emit_dirs=emit_dirs,
+                            subst_lut=lut)
+        score, si, sj = torch.stack([f.score, f.start_i, f.start_j]).tolist()
+        return FillResult(dirs=f.dirs.cpu().numpy() if emit_dirs else None, score=score,
+                          start_i=si, start_j=sj)
     if matrix is not None:
         f = gotoh_matrix_fill(s1e[None], s2e[None], [m], [n], matrix, scores.g, scores.h,
                               is_local, emit_dirs, route="stream")
@@ -103,6 +126,8 @@ class PairwiseAligner:
         e.g. ``get_matrix("BLOSUM62")``) for protein alignment; gap costs
         still come from ``scores.g``/``scores.h``. Mutually exclusive with
         ``s_transition``.
+      engine: ``"auto"`` or ``"pallas"`` (the kernels, the same route) or
+        ``"scan"`` (the scan fill and the host walk, on ``device``).
     """
 
     #: Largest monolithic PACKED direction bitmap (bytes) before routing
@@ -111,11 +136,15 @@ class PairwiseAligner:
     #: Above this many rows, scores come from rolling row blocks.
     SCORE_ROWS_LIMIT = 131072
 
-    def __init__(self, scores: Scores, is_local: bool = False, device="cuda", matrix=None):
+    def __init__(self, scores: Scores, is_local: bool = False, device="cuda", matrix=None,
+                 engine: str = "auto"):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}")
         self.scores = scores
         self.is_local = is_local
         self.device = resolve_device(device)
         self.matrix = matrix
+        self.engine = engine
         if matrix is not None and scores.s_transition is not None:
             raise ValueError("matrix and scores.s_transition are mutually exclusive")
 
@@ -127,7 +156,8 @@ class PairwiseAligner:
         # The monolithic packed bitmap is (Lm+Ln+1) x roundup(Lm+1, 1024)
         # / 4 bytes; past the budget the checkpointed path bounds it.
         est_dirs = (Lm + Ln + 1) * (round_up(Lm + 1, 1024)) // 4
-        if self.matrix is None and est_dirs > self.DIRS_BYTE_BUDGET:
+        scan = self.engine == "scan"
+        if self.matrix is None and not scan and est_dirs > self.DIRS_BYTE_BUDGET:
             from genomics_rs_tpu_torch.models.longalign import align_checkpointed
 
             block_rows = min(65535, max(round_up(m + 1, 1024) - 1, 1023))
@@ -152,10 +182,14 @@ class PairwiseAligner:
         with spinner(
             "Computing sequence table...", "Sequence table computed"
         ), timer.span("fill table", cells=(m + 1.0) * (n + 1.0)):
-            res = _fill(s1e, s2e, m, n, self.scores, self.is_local, matrix=self.matrix)
+            res = _fill(s1e, s2e, m, n, self.scores, self.is_local, matrix=self.matrix,
+                        engine=self.engine)
         with spinner(
             "Retracing optimal alignment...", "Retrace complete"
         ), timer.span("retrace"):
+            if scan:
+                return traceback_host(res.dirs, res.start_i, res.start_j, res.score,
+                                      seq1, seq2, self.is_local)
             max_steps = round_up(Lm + Ln + 1, 8192)
             codes, i_f, j_f, done = device_walk(
                 res.dirs, res.start_i, res.start_j, 0, max_steps=max_steps
@@ -175,7 +209,7 @@ class PairwiseAligner:
     def score_only(self, seq1: Sequence, seq2: Sequence) -> int:
         """Alignment score without traceback (no direction bitmap)."""
         m, n = len(seq1), len(seq2)
-        if self.matrix is None and m > self.SCORE_ROWS_LIMIT:
+        if self.matrix is None and self.engine != "scan" and m > self.SCORE_ROWS_LIMIT:
             from genomics_rs_tpu_torch.models.longalign import score_long
 
             return int(
@@ -190,12 +224,14 @@ class PairwiseAligner:
             _encode(seq1, Lm, PAD_S1, self.device),
             _encode(seq2, Ln, PAD_S2, self.device),
             m, n, self.scores, self.is_local, emit_dirs=False, matrix=self.matrix,
+            engine=self.engine,
         )
         return int(res.score)
 
 
 def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
-                is_local: bool = False, device="cuda") -> list[AlignedSequences]:
+                is_local: bool = False, device="cuda",
+                engine: str = "auto") -> list[AlignedSequences]:
     """Full alignments (path + stats) for a batch of pairs, equal to
     :meth:`PairwiseAligner.align` pair by pair.
 
@@ -205,9 +241,12 @@ def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
     fill with dirs (K3) and one batched walk (K4), then host
     classification. When even two pairs bust the group budget, every
     pair goes to the per-pair aligner (its checkpointed route bounds
-    the memory).
+    the memory). ``engine="scan"`` aligns pair by pair with the scan
+    aligner, as the JAX package does.
     """
-    aligner = PairwiseAligner(scores, is_local=is_local, device=device)
+    aligner = PairwiseAligner(scores, is_local=is_local, device=device, engine=engine)
+    if engine == "scan":
+        return [aligner.align(a, b) for a, b in pairs]
     if not pairs:
         return []
     Lm = max(round_up(max(len(a) for a, _ in pairs), PAD_MULTIPLE), PAD_MULTIPLE)
@@ -345,10 +384,12 @@ def align_pair(
     is_local: bool = False,
     device="cuda",
     matrix=None,
+    engine: str = "auto",
 ) -> AlignedSequences:
     """Align the first two sequences of a container (the reference's
     Align mode: it warns and uses only the first two)."""
     if len(container.sequences) > 2:
         log.warning("More than two sequences found. Only the first two will be used.")
-    aligner = PairwiseAligner(scores, is_local=is_local, device=device, matrix=matrix)
+    aligner = PairwiseAligner(scores, is_local=is_local, device=device, matrix=matrix,
+                              engine=engine)
     return aligner.align(container.sequences[0], container.sequences[1])

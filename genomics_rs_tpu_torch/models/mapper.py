@@ -14,8 +14,13 @@ reverse-complemented reads ride the same seeding pass, the orientation
 with more votes wins (forward wins ties), and a ``"-"`` result's
 coordinates and CIGAR are those of the oriented read.
 
-Not ported: ``seed_engine="device"`` (the JAX package's jitted voting
-twin, ``_vote_windows_device``); it raises "not yet ported".
+``seed_engine="device"`` votes on the device instead
+(:func:`_vote_windows_device`, the JAX package's jitted twin as torch
+ops): every sampled seed owns ``max_hits`` hit slots, each read's bins
+are sorted, and a bin pair's vote is counted by two batched binary
+searches of the row into itself. It needs ``k <= 15`` (int32 keys,
+:meth:`KmerIndex.device_arrays`) and gives the host vote's results bit
+for bit.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from genomics_rs_tpu_torch.config import Scores
+from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.models.reads import (
     _sam_header,
     _sam_line,
@@ -36,8 +43,6 @@ from genomics_rs_tpu_torch.models.reads import (
 )
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences
 from genomics_rs_tpu_torch.sequence import Sequence
-
-NOT_PORTED = "not yet ported (ROADMAP Queue A item 8)"
 
 #: Row-chunk size for thread-parallel seeding (reads per chunk).
 _PAR_CHUNK = 16384
@@ -96,6 +101,7 @@ class KmerIndex:
         order = np.argsort(keys, kind="stable")
         self._keys = keys[order]
         self._pos = pos[order]
+        self._dev: dict = {}
 
     @property
     def ref(self) -> Sequence:
@@ -108,6 +114,27 @@ class KmerIndex:
 
     def __len__(self) -> int:
         return int(self._keys.size)
+
+    def device_arrays(self, device="cuda"):
+        """The index as int32 tensors ``(keys, positions)`` on ``device``,
+        made once a device. Device seeding needs ``k <= 15``, so packed
+        keys fit 30 bits, and a total length below 2^31."""
+        if self.k > 15:
+            raise ValueError(
+                f"device seeding requires k <= 15 (int32 keys); index has k={self.k}"
+            )
+        if int(self.starts[-1]) > np.iinfo(np.int32).max:
+            raise ValueError(
+                "device seeding requires total reference length "
+                f"< 2^31 (got {int(self.starts[-1])}); use the host seed engine"
+            )
+        dev = resolve_device(device)
+        if dev not in self._dev:
+            self._dev[dev] = (
+                torch.from_numpy(self._keys.astype(np.int64).astype(np.int32)).to(dev),
+                torch.from_numpy(self._pos.astype(np.int32)).to(dev),
+            )
+        return self._dev[dev]
 
     def lookup(self, key: int) -> np.ndarray:
         lo = np.searchsorted(self._keys, np.uint64(key), "left")
@@ -230,6 +257,89 @@ def _vote_windows(index: KmerIndex, enc4: np.ndarray, stride: int, max_hits: int
     return votes, wlo, wlo + 2 * band, anchor, votes2
 
 
+def _device_vote(enc4c: torch.Tensor, keys: torch.Tensor, pos: torch.Tensor,
+                 offs: torch.Tensor, k: int, H: int, band: int):
+    """The fixed-shape vote of one chunk of reads, as torch ops on the
+    device of ``enc4c`` (the JAX package's ``_device_vote_fn``): ``(votes,
+    wlo, anchor, votes2)`` int32 (C,).
+
+    Every sampled seed owns ``H`` hit slots (masked past its true count; a
+    seed over the cap gives none, like the host filter). Each read's bins
+    are sorted, and the bin-pair vote at every hit is its bin's count plus
+    bin+1's, by two batched binary searches of the row into itself. The
+    winner is the first maximum of the sorted row, the smallest bin
+    holding it (the host tie-break), found by a masked min over positions
+    rather than ``argmax``.
+    """
+    C = enc4c.shape[0]
+    S = offs.numel()
+    skeys = torch.zeros((C, S), dtype=torch.int32, device=enc4c.device)
+    bad = torch.zeros((C, S), dtype=torch.bool, device=enc4c.device)
+    for i in range(k):
+        col = enc4c[:, offs + i].to(torch.int32)
+        skeys = (skeys << 2) | (col & 3)
+        bad = bad | (col >= 4)
+    flat = skeys.reshape(-1)
+    lo = torch.searchsorted(keys, flat).reshape(C, S)
+    cnt = torch.searchsorted(keys, flat, right=True).reshape(C, S) - lo
+    seed_ok = ~bad & (cnt > 0) & (cnt <= H)
+    slot = torch.arange(H, device=enc4c.device)
+    idx = (lo[:, :, None] + slot).clamp(0, pos.numel() - 1)
+    hitmask = seed_ok[:, :, None] & (slot < cnt[:, :, None])
+    hitpos = pos[idx]
+    bins = torch.div(hitpos - offs[None, :, None].to(torch.int32), band, rounding_mode="floor")
+    big = 1 << 28  # above any real bin; +1 never wraps
+    rows = torch.where(hitmask, bins, big).reshape(C, S * H).sort(dim=1).values
+
+    def count(v):
+        return (torch.searchsorted(rows, v, right=True) - torch.searchsorted(rows, v))
+
+    pair = torch.where(rows < big, count(rows) + count(rows + 1), -1)
+    vmax = pair.amax(1)
+    at = torch.arange(S * H, device=enc4c.device)
+    best = torch.where(pair == vmax[:, None], at, S * H).amin(1)
+    bw = rows.gather(1, best[:, None])[:, 0]
+    v = vmax.clamp_min(0).to(torch.int32)
+    # Contig anchor: the smallest hit position inside the winning bin pair.
+    inwin = hitmask & ((bins == bw[:, None, None]) | (bins == bw[:, None, None] + 1))
+    amin = torch.where(inwin, hitpos, np.iinfo(np.int32).max).reshape(C, S * H).amin(1)
+    anchor = torch.where(v > 0, amin, -1)
+    # Second-best non-overlapping bin pair (|bin - winner| > 1): the MAPQ
+    # margin.
+    v2 = torch.where((rows - bw[:, None]).abs() <= 1, -1, pair).amax(1).clamp_min(0)
+    return v, torch.where(v > 0, bw * band, 0), anchor, v2
+
+
+def _vote_windows_device(index: KmerIndex, enc4: np.ndarray, stride: int, max_hits: int,
+                         band: int, chunk: int = 16384, device="cuda"):
+    """Device twin of :func:`_vote_windows` on ``device``: the same results,
+    computed with fixed shapes chunk by chunk of ``chunk`` reads (the last
+    chunk padded with invalid rows when there are several, so every chunk
+    has one shape)."""
+    R, L = enc4.shape
+    k = index.k
+    n = L - k + 1
+    votes = np.zeros(R, np.int64)
+    votes2 = np.zeros(R, np.int64)
+    wlo = np.zeros(R, np.int64)
+    anchor = np.full(R, -1, np.int64)
+    if n <= 0:
+        return votes, wlo, wlo, anchor, votes2
+    dev = resolve_device(device)
+    keys, pos = index.device_arrays(dev)
+    offs = torch.arange(0, n, stride, device=dev)
+    outs = []
+    for s in range(0, R, chunk):
+        part = enc4[s : s + chunk]
+        if part.shape[0] < chunk and R > chunk:
+            part = np.concatenate([part, np.full((chunk - part.shape[0], L), 0xFE, enc4.dtype)])
+        part = torch.from_numpy(np.ascontiguousarray(part)).to(dev)
+        outs.append(torch.stack(_device_vote(part, keys, pos, offs, k, max_hits, band)))
+    got = torch.cat(outs, 1)[:, :R].cpu().numpy().astype(np.int64)
+    votes[:], wlo[:], anchor[:], votes2[:] = got
+    return votes, wlo, wlo + 2 * band, anchor, votes2
+
+
 def map_reads(queries, ref, scores: Scores, *, index: KmerIndex | None = None, k: int = 21,
               stride: int | None = None, band: int = 32, max_hits: int = 64,
               min_seeds: int = 2, both_strands: bool = True, engine: str = "auto",
@@ -243,15 +353,15 @@ def map_reads(queries, ref, scores: Scores, *, index: KmerIndex | None = None, k
     a read is unmapped without an extension. A prebuilt ``index`` is
     reused (its ``k`` wins). Extension windows are ``read_len + 4*band``
     wide: up to 256 bytes they extend on K6, wider on K3. ``engine`` and
-    ``device`` go to :func:`align_reads`.
+    ``device`` go to :func:`align_reads`. ``seed_engine="device"`` votes
+    on ``device`` (the first, given a list) by :func:`_vote_windows_device`
+    (``k <= 15``), bit-identical to the host vote.
     """
     if band < 1:
         raise ValueError(f"band={band} must be >= 1 (diagonal bin width)")
     if max_hits < 1:
         raise ValueError(f"max_hits={max_hits} must be >= 1")
-    if seed_engine == "device":
-        raise NotImplementedError(f"seed_engine 'device' is {NOT_PORTED}")
-    if seed_engine != "host":
+    if seed_engine not in ("host", "device"):
         raise ValueError(f"unknown seed_engine {seed_engine!r}")
     refs = [ref] if isinstance(ref, Sequence) else list(ref)
     if index is None:
@@ -278,7 +388,12 @@ def map_reads(queries, ref, scores: Scores, *, index: KmerIndex | None = None, k
     L = max(max(len(q) for q in oriented), 1)
     enc4 = _BASE[encode_batch(oriented, L, 0xFE)]
     lens = np.array([len(q) for q in oriented], np.int64)
-    votes, wlo, whi, anchor, votes2 = _vote_windows(index, enc4, stride, max_hits, band)
+    if seed_engine == "device":
+        vote_dev = device[0] if isinstance(device, (list, tuple)) else device
+        votes, wlo, whi, anchor, votes2 = _vote_windows_device(
+            index, enc4, stride, max_hits, band, device=vote_dev)
+    else:
+        votes, wlo, whi, anchor, votes2 = _vote_windows(index, enc4, stride, max_hits, band)
     if both_strands:
         use_rc = votes[B:] > votes[:B]  # forward wins ties
         pick = np.where(use_rc, np.arange(B) + B, np.arange(B))

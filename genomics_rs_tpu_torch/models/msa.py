@@ -29,7 +29,6 @@ import numpy as np
 
 from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
-from genomics_rs_tpu_torch.ops.gotoh_matrix import NOT_PORTED
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, AlignmentChoice
 from genomics_rs_tpu_torch.sequence import Sequence, SequenceContainer, round_up
 from genomics_rs_tpu_torch.utils.profiling import PhaseTimer
@@ -256,7 +255,10 @@ def center_star_msa(container: SequenceContainer, scores: Scores, engine: str = 
 
     ``engine``: ``"auto"`` and ``"pallas"`` take the batched route, the
     DNA score pass on that engine (``"pallas"``: K9 on every bucket);
-    ``"scan"`` is not ported. ``matrix`` (a ``SubstMatrix``) switches
+    ``"scan"`` scores with the scan fill and aligns each sequence to the
+    center with the scan aligner, as the JAX package does (under a
+    matrix, as JAX, the score pass and star stage stay on the matrix
+    fill). ``matrix`` (a ``SubstMatrix``) switches
     to full-matrix scoring, protein MSA: ``allpairs_matrix_scores`` and
     ``matrix_align_batch``; gap costs still come from
     ``scores.g``/``scores.h``.
@@ -264,9 +266,7 @@ def center_star_msa(container: SequenceContainer, scores: Scores, engine: str = 
     from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, matrix_align_batch
     from genomics_rs_tpu_torch.parallel.allpairs import allpairs_matrix_scores, allpairs_scores
 
-    if engine == "scan":
-        raise NotImplementedError(f"msa --engine scan is {NOT_PORTED}")
-    if engine not in ("auto", "pallas"):
+    if engine not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     seqs = container.sequences
@@ -302,10 +302,10 @@ def center_star_msa(container: SequenceContainer, scores: Scores, engine: str = 
             alns = matrix_align_batch([(cseq, o) for o in others], matrix, g=scores.g,
                                       h=scores.h, is_local=False, device=dev)
             ops_list = [_alignment_ops(al) for al in alns]
-        elif est_dirs <= STAR_PAIR_DIRS_BUDGET:
+        elif engine != "scan" and est_dirs <= STAR_PAIR_DIRS_BUDGET:
             ops_list = _star_ops_batched(cseq, others, scores, dev)
         else:
-            aligner = PairwiseAligner(scores, is_local=False, device=dev)
+            aligner = PairwiseAligner(scores, is_local=False, device=dev, engine=engine)
             ops_list = [_alignment_ops(aligner.align(cseq, o)) for o in others]
         master, rows = _build_rows(cseq.sequence, [o.sequence for o in others], ops_list)
 

@@ -11,6 +11,9 @@ O(m*n) fill and the O(m+n) walks batched on the device, round by round:
   ``models/aligner.stream_walk_group`` (``align_batch``'s group step,
   and its byte budget sizes the round): the contract of the JAX scan
   fill's ``"diag"`` route, with the same paths;
+* ``engine="scan"`` takes the scan fill (``ops/gotoh_scan``), one uint8
+  code a cell, and the ``"diag"`` walk (``ops/traceback_batch``), both
+  torch ops on the device: the JAX package's oracle route;
 * classification (the reference's ``is_match`` off-by-one and
   open-vs-extend quirks) is whole-batch numpy
   (``ops/traceback_batch.classify_batch``); per-read results equal
@@ -22,8 +25,8 @@ reference (the DP's INSERT move, a gap in s1).
 
 Given a list of devices, a round of at least two reads a device is cut
 into equal slices, one a device (the JAX package's split over its local
-devices). Not ported: the JAX package's one-deep asynchronous pipeline
-(ROADMAP Queue A item 8); rounds run one after another.
+devices). Rounds run in the JAX package's one-deep pipeline: the next
+round is launched before this one is read and classified.
 """
 
 from __future__ import annotations
@@ -39,13 +42,17 @@ from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.models.aligner import _stream_group_pairs, stream_walk_group
 from genomics_rs_tpu_torch.ops.gotoh_shortread import gotoh_scores_shortread
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, AlignmentChoice
-from genomics_rs_tpu_torch.ops.traceback_batch import classify_batch, walk_batch
+from genomics_rs_tpu_torch.ops.gotoh_scan import gotoh_fill_scan_batch
+from genomics_rs_tpu_torch.ops.traceback_batch import classify_batch, walk_batch_launch
 from genomics_rs_tpu_torch.parallel.batch import pad_batch, shortread_fits
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
 
 log = logging.getLogger(__name__)
 
-NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
+#: Resident direction-table bytes a scan-engine round may hold (the JAX
+#: package's bound): the scan fill keeps (L1 + L2 + 1) * (L1 + 1) bytes of
+#: uint8 codes a read.
+_SCAN_DIRS_BUDGET = 2 << 30
 
 
 def cigar(aligned: AlignedSequences) -> str:
@@ -191,34 +198,63 @@ def encode_batch(seqs: list[Sequence], pad_to: int, pad_value: int) -> np.ndarra
     return out
 
 
-def _split_round(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs):
-    """One round on ``devs``: equal slices when there are several devices
-    and at least two reads a device, else the whole round on ``devs[0]``.
-    Returns :func:`_fill_and_walk`'s arrays for the round's reads."""
+def _fill_batch(s1b: torch.Tensor, s2b: torch.Tensor, ms, ns, scores: Scores, is_local: bool):
+    """The scan fill over a batch (the JAX package's ``vmap`` of
+    ``gotoh_fill_scan``), on the tensors' device: ``(dirs (B, K, Mp)
+    uint8, score, start_i, start_j)``."""
+    f = gotoh_fill_scan_batch(s1b, s2b, ms, ns, scores, is_local)
+    return f.dirs, f.score, f.start_i, f.start_j
+
+
+def _launch_round(s1b, s2b, ms, ns, scores, is_local, route, max_steps, devs):
+    """Issue one round on ``devs`` and return its reader, which gives the
+    numpy (moves, counts, i_f, j_f, done, score, si, sj) of the round's
+    reads. Equal slices go to the devices when there are several and at
+    least two reads a device (padding rows replicate read 0 and are cut
+    off), else the whole round goes to ``devs[0]``."""
     Bq = len(ms)
     if len(devs) < 2 or Bq < 2 * len(devs):
-        return _fill_and_walk(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs[0])
+        return _launch_part(s1b, s2b, ms, ns, scores, is_local, route, max_steps, devs[0])
     (s1p, s2p, mp, np_), Bp = pad_batch((s1b, s2b, ms, ns), Bq, len(devs))
     per = Bp // len(devs)
-    parts = [_fill_and_walk(s1p[k * per : (k + 1) * per], s2p[k * per : (k + 1) * per],
-                            mp[k * per : (k + 1) * per], np_[k * per : (k + 1) * per],
-                            scores, is_local, use_k6, max_steps, d)
+    parts = [_launch_part(s1p[k * per : (k + 1) * per], s2p[k * per : (k + 1) * per],
+                          mp[k * per : (k + 1) * per], np_[k * per : (k + 1) * per],
+                          scores, is_local, route, max_steps, d)
              for k, d in enumerate(devs)]
-    return tuple(np.concatenate([p[f] for p in parts])[:Bq] for f in range(8))
+
+    def read():
+        got = [r() for r in parts]
+        return tuple(np.concatenate([g[f] for g in got])[:Bq] for f in range(8))
+
+    return read
 
 
-def _fill_and_walk(s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, dev):
-    """One round on the device: the fill with direction codes and every
-    walk. Returns numpy (moves, counts, i_f, j_f, done, score, si, sj)."""
-    if not use_k6:
-        return stream_walk_group(s1b, s2b, ms, ns, scores, is_local, max_steps, dev)
+def _launch_part(s1b, s2b, ms, ns, scores, is_local, route, max_steps, dev):
+    """One device's fill with direction codes and every walk, issued;
+    returns the reader. ``route``: ``"k6"`` (K6 and ``walk_rows16``) and
+    ``"scan"`` (the scan fill and the ``"diag"`` walk) issue their work
+    without reading anything back; ``"k3"`` (K3 and K4 through
+    ``models/aligner.stream_walk_group``) reads its fill's error word and
+    starts inside."""
+    if route == "k3":
+        out = stream_walk_group(s1b, s2b, ms, ns, scores, is_local, max_steps, dev)
+        return lambda: out
     s1 = torch.from_numpy(np.ascontiguousarray(s1b)).to(dev)
     s2 = torch.from_numpy(np.ascontiguousarray(s2b)).to(dev)
-    sc, si, sj, codes = gotoh_scores_shortread(s1, s2, ms, ns, scores, is_local,
-                                               emit_dirs=True)
-    sc, si, sj = (x.cpu().numpy().astype(np.int64) for x in (sc, si, sj))
-    walked = walk_batch(codes, si, sj, scores, is_local, "rows16", max_steps)
-    return walked + (sc, si, sj)
+    if route == "k6":
+        sc, si, sj, codes = gotoh_scores_shortread(s1, s2, ms, ns, scores, is_local,
+                                                   emit_dirs=True)
+        layout = "rows16"
+    else:
+        codes, sc, si, sj = _fill_batch(s1, s2, ms, ns, scores, is_local)
+        layout = "diag"
+    read_walk = walk_batch_launch(codes, si, sj, scores, is_local, layout, max_steps)
+
+    def read():
+        walked = read_walk()
+        return walked + tuple(x.cpu().numpy().astype(np.int64) for x in (sc, si, sj))
+
+    return read
 
 
 def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int = 4096,
@@ -229,11 +265,18 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
     Reads go in rounds of ``batch`` (each round one fill and one walk
     launch). ``engine`` picks the fill: ``"auto"`` takes K6 when the
     round's padded lengths fit it (``parallel/batch.shortread_fits``)
-    and K3 otherwise, ``"pallas"`` always K6; ``"scan"`` is not ported.
-    ``with_paths=False`` skips each result's per-move ``alignment`` list;
-    pair it with ``with_cigars=True``, which returns ``(aligned,
-    cigars)`` with the batch-vectorized CIGARs. Output order matches
-    input.
+    and K3 otherwise, ``"pallas"`` always K6, ``"scan"`` the scan fill
+    with the ``"diag"`` walk, its rounds sized by the JAX package's
+    ``_SCAN_DIRS_BUDGET``. ``with_paths=False`` skips each result's
+    per-move ``alignment`` list; pair it with ``with_cigars=True``, which
+    returns ``(aligned, cigars)`` with the batch-vectorized CIGARs.
+    Output order matches input.
+
+    Rounds run one deep in a pipeline, as in the JAX package: round k+1's
+    fill and walk are launched before round k's results are copied home
+    and classified, so the host classifies one round while the device
+    runs the next (on the scan route the round is halved then, so two
+    rounds' direction tables fit the budget).
 
     ``device`` is one device or a list of them: with more than one, each
     round of at least two reads a device is split into equal slices
@@ -254,8 +297,6 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
         raise ValueError(f"query/ref count mismatch: {len(queries)} vs {len(refs)}")
     if engine not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "scan":
-        raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
     devs = [resolve_device(d) for d in (device if isinstance(device, (list, tuple))
                                         else [device])]
     L1 = max(round_up(max((len(s) for s in queries), default=1), 128), 128)
@@ -263,18 +304,29 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
     max_steps = L1 + L2 + 1
     ms_all = [len(s) for s in queries]
     ns_all = [len(s) for s in refs]
-    use_k6 = engine == "pallas" or shortread_fits(L1, L2, ms_all, ns_all)
+    if engine == "scan":
+        route = "scan"
+    elif engine == "pallas" or shortread_fits(L1, L2, ms_all, ns_all):
+        route = "k6"
+    else:
+        route = "k3"
+    if route == "scan":
+        # Bound the resident per-round direction tables.
+        batch = max(16, min(batch, _SCAN_DIRS_BUDGET // ((L1 + L2 + 1) * (L1 + 1))))
     if both_strands:
         batch = max(8, batch // 2)  # the device batch doubles
-    if not use_k6:
+    if route == "k3":
         per_round = _stream_group_pairs(L1, L2, max_steps) // (2 if both_strands else 1)
         batch = max(1, min(batch, per_round))
+    if route == "scan" and len(queries) > batch:
+        batch = max(16, batch // 2)  # two rounds' tables are resident at once
 
     out: list[AlignedSequences] = []
     all_cigars: list[str] = []
     all_strands: list[str] = []
     all_mapinfo: list[tuple[int, int, int, int]] = []
-    for k0 in range(0, len(queries), batch):
+
+    def launch(k0: int):
         qs = queries[k0 : k0 + batch]
         rs = refs[k0 : k0 + batch]
         b = len(qs)
@@ -285,8 +337,12 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
         s2b = encode_batch(rs, L2, PAD_S2)
         ms = np.array([len(s) for s in qs], dtype=np.int32)
         ns = np.array([len(s) for s in rs], dtype=np.int32)
-        moves, counts, i_f, j_f, done, sc_h, si_h, sj_h = _split_round(
-            s1b, s2b, ms, ns, scores, is_local, use_k6, max_steps, devs)
+        read = _launch_round(s1b, s2b, ms, ns, scores, is_local, route, max_steps, devs)
+        return k0, b, qs, rs, s1b, s2b, ms, ns, read
+
+    def harvest(state) -> None:
+        k0, b, qs, rs, s1b, s2b, ms, ns, read = state
+        moves, counts, i_f, j_f, done, sc_h, si_h, sj_h = read()
         # A global retrace is complete only at (0, 0): a mid-table stop
         # there means a corrupt fill.
         complete = done if is_local else done & (i_f == 0) & (j_f == 0)
@@ -311,6 +367,18 @@ def align_reads(queries, refs, scores: Scores, is_local: bool = True, batch: int
         all_cigars.extend(cigars)
         if with_mapinfo:
             all_mapinfo.extend((int(r[0]), int(r[1]), int(r[2]), int(r[3])) for r in info)
+
+    # One round deep: round k is read and classified only after round
+    # k+1 is launched; rounds are harvested in order, so the output keeps
+    # the input order.
+    pending = None
+    for k0 in range(0, len(queries), batch):
+        current = launch(k0)
+        if pending is not None:
+            harvest(pending)
+        pending = current
+    if pending is not None:
+        harvest(pending)
     ret = [out]
     if with_cigars:
         ret.append(all_cigars)

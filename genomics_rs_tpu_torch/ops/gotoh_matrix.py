@@ -29,8 +29,13 @@ counted by route: ``"pallas"`` (K13's contract, scores and starts) and
 aligners).
 
 :func:`gotoh_scores_matrix` keeps the JAX router's engines: ``"auto"``,
-``"pallas"`` and ``"stream"`` all run the matrix fill; ``"scan"`` is not
-ported yet.
+``"pallas"`` and ``"stream"`` all run the matrix fill; ``"scan"`` runs
+:func:`matrix_scores_scan`, the JAX package's ``lax.scan`` twin
+(``_matrix_scores_call``): the scan fill (``ops/gotoh_scan``) with the
+substitution gathered from the byte table ``ext[code(a), code(b)]``
+where JAX shears one-hot products; the scores and starts are the same.
+``"auto"`` never picks it: JAX sends matrices with ``127 < |v| <= 256``
+there, the port runs the kernel on them.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genomics_rs_tpu_torch.config import Scores
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops import _build
 from genomics_rs_tpu_torch.ops import gotoh_pallas as gp
+from genomics_rs_tpu_torch.ops.gotoh_scan import gotoh_fill_scan_batch
 from genomics_rs_tpu_torch.ops.gotoh_stream import (
     StreamFill,
     _lengths,
@@ -60,8 +67,6 @@ COUNTS = {"profile_kernel": 0, "profile_plain": 0, "pallas_kernel": 0, "pallas_p
 STREAM_MIN_B = 8
 #: ...and at least this large its grouped form.
 STREAM_GROUPED_MIN_B = 2048
-
-NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
 
 #: the profile kernel's blocks an SM (each stages the whole byte table):
 #: 2 was the fastest of 1, 2, 4 and 8 at 32,768 x 383 on one H100 and tied
@@ -307,6 +312,19 @@ def matrix_fill_plain(code1, prof, ms, ns, g: int, h: int, is_local: bool = Fals
     return wavefront_plain(sub_at, B, Lm, Ln, ms_h, ns_h, g, h, is_local, emit_dirs, dev)
 
 
+def matrix_scores_scan(s1b: torch.Tensor, s2b: torch.Tensor, ms, ns, matrix, g: int, h: int,
+                       is_local: bool = False):
+    """``(score, start_i, start_j)`` int32 (B,) tensors of a batch under a
+    full matrix by the scan fill, on the tensors' device: every byte pair
+    scores ``ext[code(a), code(b)]`` (:func:`_alpha_code`,
+    :func:`_ext_matrix`)."""
+    code, ext = _alpha_code(matrix), _ext_matrix(matrix)
+    lut = ext[code[:, None], code[None, :]]
+    fill = gotoh_fill_scan_batch(s1b, s2b.to(s1b.device), ms, ns, Scores(0, 0, g, h),
+                                 is_local, emit_dirs=False, subst_lut=lut)
+    return fill.score, fill.start_i, fill.start_j
+
+
 def _on_device(x, dev) -> torch.Tensor:
     """A uint8 batch as a tensor: tensors keep their device, numpy goes
     to ``dev``."""
@@ -337,7 +355,8 @@ def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool
     then, as in the JAX package, a batch mostly outside the alphabet is
     warned about). ``engine``: ``"auto"``, ``"pallas"`` (K13's route) or
     ``"stream"`` (K14's, grouped from ``STREAM_GROUPED_MIN_B`` pairs)
-    run the matrix fill; ``"scan"`` is not ported. Returns ``(score,
+    run the matrix fill; ``"scan"`` runs :func:`matrix_scores_scan`.
+    Returns ``(score,
     start_i, start_j)``, int32 tensors of shape (B,) on the fill's
     device, with the reference's local keep-last argmax.
     """
@@ -348,9 +367,7 @@ def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool
                               + [s2b[i, : ns_np[i]] for i in range(s2b.shape[0])])
         warn_unknown_bytes(matrix, live, where="matrix batch")
     vmax = _check_matrix(matrix)
-    if engine == "scan":
-        raise NotImplementedError(f"the matrix scan engine is {NOT_PORTED}")
-    if engine not in ("auto", "pallas", "stream"):
+    if engine not in ("auto", "pallas", "stream", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "pallas" and vmax > 127:
         raise ValueError(
@@ -360,6 +377,8 @@ def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool
     dev = resolve_device(device) if host else None
     s1, s2 = _on_device(s1b, dev), _on_device(s2b, dev)
     B = s1.shape[0]
+    if engine == "scan":
+        return matrix_scores_scan(s1, s2, ms, ns, matrix, g, h, is_local)
     if engine == "auto":
         engine = "stream" if vmax <= 127 and B >= STREAM_MIN_B else "pallas"
     if engine == "stream":

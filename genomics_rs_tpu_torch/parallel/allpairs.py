@@ -9,7 +9,8 @@ matrix. Pairs are grouped by power-of-two length class, each group
 padded to its own longest lengths (round 128) and scored in one
 ``score_pairs`` call on the given engine: under ``"auto"`` the router's
 tier for the bucket's shape (K6, K7/K8, K3 or K9), one launch a bucket on
-a CUDA device. With a ``mesh=`` of more than one device each bucket is
+a CUDA device; under ``"scan"`` the scan fill (``batch_scores``) on the
+bucket's device or on each device of the mesh. With a ``mesh=`` of more than one device each bucket is
 spread over the mesh as the JAX package does: ``batch_scores_sharded``
 on the engine ``mesh_bucket_engine`` picks, or, for long-pair buckets,
 equal K3 slices by ``device_loop_scores``.

@@ -2,16 +2,18 @@
 ``score_pairs``, ``_kernel_scores``, ``pad_batch`` and the router's tier
 bounds).
 
-Five engines, each a kernel on a CUDA device and its plain version on the
-CPU: ``"shortread"`` (K6, a group of 8-32 lanes a pair, up to 256
+Five kernel engines, each a kernel on a CUDA device and its plain version
+on the CPU: ``"shortread"`` (K6, a group of 8-32 lanes a pair, up to 256
 bytes), ``"segmented"`` (K7: the warp-strip kernel, one warp a pair at
 any length), ``"stream8"`` (K8) and ``"stream"`` (K3), both the
 warp-strip pipeline at their own launch counts, and ``"pallas"`` (K9);
 the last three pipeline one pair's row strips over many warps, K3's and
 K8's launches returning their error words unread. ``"auto"`` tiers a bucket
 by padded length as the JAX router does on its device
-(:func:`route_engine`). ``"scan"`` is not ported (ROADMAP Queue A item
-3).
+(:func:`route_engine`). ``"scan"`` is the JAX package's oracle engine,
+:func:`batch_scores`: the scan fill (``ops/gotoh_scan``) over the whole
+batch as torch ops on the batch's device. The router never picks it, and
+no named engine falls back to it.
 
 The mesh paths: :func:`batch_scores_sharded` gives each device of a mesh
 axis an equal slice of the batch, scored on that device by the engine
@@ -29,6 +31,7 @@ import torch
 
 from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_scores_pallas_batch, raise_on_err
+from genomics_rs_tpu_torch.ops.gotoh_scan import gotoh_fill_scan_batch
 from genomics_rs_tpu_torch.ops.gotoh_segmented import gotoh_scores_segmented
 from genomics_rs_tpu_torch.ops.gotoh_shortread import SHORTREAD_MAX_LEN, gotoh_scores_shortread
 from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream, gotoh_stream_fill
@@ -41,8 +44,6 @@ from genomics_rs_tpu_torch.parallel.mesh import DATA_AXIS, axis_devices
 SEGMENTED_MAX_LEN = 8192
 #: ...with the 8-stream tier above this one in global mode at B >= 2.
 STREAM8_MIN_LEN = 1024
-
-NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
 
 _ENGINES = {
     "shortread": gotoh_scores_shortread,
@@ -84,7 +85,8 @@ def _kernel_scores(engine: str, s1b, s2b, ms, ns, scores, is_local: bool):
     K3's or K8's unread error word (None from the other engines, which
     read their own): the caller reads it with the scores (:func:`_read`)."""
     if engine == "scan":
-        raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
+        fill = gotoh_fill_scan_batch(s1b, s2b, ms, ns, scores, is_local, emit_dirs=False)
+        return fill.score, fill.start_i, fill.start_j, None
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine in _FILLS:
@@ -107,14 +109,37 @@ def score_pairs(s1b, s2b, ms, ns, scores, is_local: bool = False,
     """Score a batch of encoded pairs (uint8 (B, Lm) and (B, Ln), true
     lengths ``ms``/``ns``) on ``device``: ``engine`` is ``"auto"``
     (:func:`route_engine`) or one of ``"shortread"``, ``"segmented"``,
-    ``"stream8"``, ``"stream"``, ``"pallas"``. Returns numpy ``(score,
-    start_i, start_j)`` int32 arrays of shape (B,)."""
+    ``"stream8"``, ``"stream"``, ``"pallas"``, ``"scan"``. Returns numpy
+    ``(score, start_i, start_j)`` int32 arrays of shape (B,)."""
     dev = resolve_device(device)
     if engine == "auto":
         engine = route_engine(s1b.shape[0], s1b.shape[1], s2b.shape[1], is_local, ms, ns)
     s1 = torch.as_tensor(np.ascontiguousarray(s1b), dtype=torch.uint8).to(dev)
     s2 = torch.as_tensor(np.ascontiguousarray(s2b), dtype=torch.uint8).to(dev)
     return _read([_kernel_scores(engine, s1, s2, ms, ns, scores, is_local)])
+
+
+def _cells(ms, ns) -> np.float32:
+    """True DP cells, sum of (m + 1)(n + 1), in float32 as JAX sums them."""
+    f = np.float32
+    return np.sum((np.asarray(ms).astype(f) + f(1)) * (np.asarray(ns).astype(f) + f(1)),
+                  dtype=f)
+
+
+def batch_scores(s1eb, s2eb, ms, ns, scores, is_local: bool) -> "BatchScores":
+    """Score a batch of pairs on one device with the scan fill (the JAX
+    package's ``vmap`` over ``gotoh_fill_scan``): uint8 (B, Lm) and (B, Ln)
+    tensors (their device runs the fill) or numpy arrays (on the CPU), true
+    lengths ``ms``/``ns``. Returns :class:`BatchScores` with numpy
+    per-pair results."""
+    s1 = torch.as_tensor(np.ascontiguousarray(s1eb)) if not torch.is_tensor(s1eb) else s1eb
+    s2 = torch.as_tensor(np.ascontiguousarray(s2eb)) if not torch.is_tensor(s2eb) else s2eb
+    sc, si, sj = _read([_kernel_scores("scan", s1, s2.to(s1.device), ms, ns, scores,
+                                       is_local)])
+    ms_h = ms.cpu().numpy() if torch.is_tensor(ms) else ms
+    ns_h = ns.cpu().numpy() if torch.is_tensor(ns) else ns
+    return BatchScores(score=sc, start_i=si, start_j=sj, max_score=int(sc.max()),
+                       total_cells=_cells(ms_h, ns_h))
 
 
 def pad_batch(arrs, batch: int, multiple: int, pad_values=None):
@@ -176,7 +201,8 @@ def batch_scores_sharded(mesh, s1eb, s2eb, ms, ns, scores, is_local: bool,
 
     The batch must divide by the axis size (:func:`pad_batch`). Each
     device scores its slice with ``engine`` (``"auto"``:
-    :func:`mesh_bucket_engine`'s pick for the padded shape); a short slice
+    :func:`mesh_bucket_engine`'s pick for the padded shape; ``"scan"``:
+    :func:`batch_scores`' fill on that device); a short slice
     K6 does not take (an empty sequence, ``L2 % 16 != 0``) runs on the
     segmented kernel, as :func:`route_engine` sends it. Per-pair results
     come back as numpy; ``max_score``/``total_cells`` are merged over the
@@ -198,8 +224,7 @@ def batch_scores_sharded(mesh, s1eb, s2eb, ms, ns, scores, is_local: bool,
         s1 = torch.as_tensor(np.ascontiguousarray(s1eb[sl]), dtype=torch.uint8).to(d)
         s2 = torch.as_tensor(np.ascontiguousarray(s2eb[sl]), dtype=torch.uint8).to(d)
         outs.append(_kernel_scores(e, s1, s2, ms[sl], ns[sl], scores, is_local))
-        f = np.float32
-        cells.append(np.sum((ms[sl].astype(f) + f(1)) * (ns[sl].astype(f) + f(1)), dtype=f))
+        cells.append(_cells(ms[sl], ns[sl]))
     sc, si, sj = _read(outs)
     return BatchScores(score=sc, start_i=si, start_j=sj, max_score=int(sc.max()),
                        total_cells=np.sum(np.array(cells, np.float32), dtype=np.float32))

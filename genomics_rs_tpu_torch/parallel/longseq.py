@@ -19,9 +19,11 @@ devices from a host loop over the waves:
   same memory when they share one;
 * the merges run on shard 0's device with JAX's tie-break;
 * a tile is K5 (``ops/gotoh_pallas.gotoh_tile_pallas``) on a CUDA shard
-  and its plain version ``tile_fill`` on a CPU shard. The loop issues
-  only active tiles; JAX's masked form computes the others and drops
-  them.
+  and its plain version ``tile_fill`` on a CPU shard. ``engine="scan"``
+  runs ``ops/gotoh_tile.tile_fill`` on every shard, as JAX's scan engine
+  does: torch ops on the shard's device, never the kernel. The loop
+  issues only active tiles; JAX's masked form computes the others and
+  drops them.
 
 :func:`align_sharded` adds the full traceback: the forward keeps every
 tile's entry top row and left column (:func:`sharded_fill_checkpoints`),
@@ -43,13 +45,15 @@ from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_pallas import gotoh_tile_pallas
 from genomics_rs_tpu_torch.ops.gotoh_rowblock import gotoh_rowblock, lane_count, raise_on_err
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN
-from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_left, global_boundary_top
+from genomics_rs_tpu_torch.ops.gotoh_tile import (
+    global_boundary_left,
+    global_boundary_top,
+    tile_fill,
+)
 from genomics_rs_tpu_torch.ops.traceback import classify_moves
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
 from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, axis_devices
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, round_up
-
-NOT_PORTED = "not yet ported (ROADMAP Queue A item 3)"
 
 
 class LongSeqResult(NamedTuple):
@@ -112,9 +116,7 @@ def _hand_off(bottom, src_stream, dst_dev, dst_stream, xfer):
 
 
 def _check_engine(engine: str) -> None:
-    if engine == "scan":
-        raise NotImplementedError(f"engine 'scan' is {NOT_PORTED}")
-    if engine not in ("auto", "pallas"):
+    if engine not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -185,13 +187,19 @@ def _seq_core(devs, s1e, s2e, m: int, n: int, scores, is_local: bool, n_blocks: 
                 if emit_ckpt:
                     tops[p].append(top)
                     lefts[p].append(left[p])
-                res = gotoh_tile_pallas(
-                    s1_sh[p], s2_sh[p][j0 : j0 + B], top, left[p], m, n, p * R, j0,
-                    scores, is_local, emit_dirs=False, emit_bottom=True, emit_right=True)
+                if engine == "scan":
+                    res = tile_fill(s1_sh[p], s2_sh[p][j0 : j0 + B], top, left[p], scores,
+                                    is_local, p * R, j0, m, n)
+                    tile_mn = res.at_mn
+                else:
+                    res = gotoh_tile_pallas(
+                        s1_sh[p], s2_sh[p][j0 : j0 + B], top, left[p], m, n, p * R, j0,
+                        scores, is_local, emit_dirs=False, emit_bottom=True, emit_right=True)
+                    tile_mn = res.score_at_mn
+                    errs[p] = torch.maximum(errs[p], res.err)
                 left[p] = res.right
                 best[p] = _merge_best(best[p], res.best)
-                at_mn[p] = torch.maximum(at_mn[p], res.score_at_mn)
-                errs[p] = torch.maximum(errs[p], res.err)
+                at_mn[p] = torch.maximum(at_mn[p], tile_mn)
             if p + 1 < P:
                 incoming[p + 1] = _hand_off(res.bottom, streams[p], devs[p + 1],
                                             streams[p + 1], xfer[p + 1])
@@ -232,7 +240,8 @@ def sharded_gotoh_score(mesh, s1e, s2e, m, n, scores, is_local: bool = False,
     ``s1e`` length must be divisible by the axis size, ``s2e`` length by
     ``n_blocks`` (default: the axis size). Pad with ``PAD_S1``/``PAD_S2``
     and pass the true lengths in ``m``/``n``. ``engine``: ``"auto"`` or
-    ``"pallas"`` (K5 on CUDA shards, ``tile_fill`` on CPU shards).
+    ``"pallas"`` (K5 on CUDA shards, ``tile_fill`` on CPU shards), or
+    ``"scan"`` (``tile_fill`` on every shard).
     Returns 0-d ``score`` and (3,) ``best`` int32 tensors on the axis's
     first device, once the tiles' error words are read (one
     synchronisation, after every tile is issued).

@@ -298,9 +298,9 @@ def test_cli_align_stdout_matches_jax(tmp_path, capsys, monkeypatch, kind, score
     "extra", [["--matrix", "BLOSUM62"], ["--matrix", "BLOSUM62", "--band", "8"], ["--engine", "scan"]]
 )
 def test_cli_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, extra):
-    """``--engine scan`` is not ported and exits 2; ``--matrix`` is ported
-    and gives the JAX CLI's bytes and exit code (with ``--band`` its
-    "mutually exclusive" error, rc 2)."""
+    """``--engine scan`` and ``--matrix`` give the JAX CLI's bytes and exit
+    code (``--matrix`` with ``--band`` its "mutually exclusive" error, rc
+    2)."""
     from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
@@ -309,10 +309,6 @@ def test_cli_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, extra)
     argv = ["-c", cfg, "align", "-a", "global", "-f", fasta, *extra]
     rc = cli.main(argv + ["--device", "cpu"])
     got = capsys.readouterr()
-    if "--engine" in extra:
-        assert rc == 2
-        assert "not yet ported (ROADMAP Queue A)" in got.err
-        return
     assert jax_cli.main(argv) == rc == (2 if "--band" in extra else 0)
     want = capsys.readouterr()
     assert _after_banner(got.out) == _after_banner(want.out)

@@ -98,7 +98,7 @@ def test_pad_batch_matches_jax(pad_values):
 
 @pytest.mark.parametrize("engine", ["segmented", "stream8", "pallas", "scan"])
 def test_unported_engines_raise(engine):
-    """Only ``"scan"`` is left unported; the K7–K9 tiers give the scan
+    """The K7–K9 tiers and the port's own scan engine give the JAX scan
     oracle's scores and start cells."""
     from genomics_rs_tpu.parallel.batch import batch_scores
 
@@ -106,10 +106,6 @@ def test_unported_engines_raise(engine):
     s1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), (3, 384))
     s2 = rng.choice(np.frombuffer(b"ACGT", np.uint8), (3, 128))
     ms, ns = np.array([384, 300, 0], np.int32), np.array([128, 99, 5], np.int32)
-    if engine == "scan":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            batch.score_pairs(s1, s2, ms, ns, Scores(), engine=engine, device="cpu")
-        return
     got = batch.score_pairs(s1, s2, ms, ns, Scores(), True, engine=engine, device="cpu")
     want = batch_scores(s1, s2, ms, ns, JaxScores(), True)
     for g, w in zip(got, (want.score, want.start_i, want.start_j)):
@@ -241,8 +237,8 @@ def test_cli_align_matrix_matches_jax(tmp_path, capsys, monkeypatch, kind, score
 
 @pytest.mark.parametrize("extra", [["--matrix", "BLOSUM62"], ["--engine", "scan"]])
 def test_cli_align_matrix_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, extra):
-    """``--engine scan`` is not ported and exits 2; ``--matrix`` is ported
-    and gives the JAX CLI's exit code, standard output and TSV."""
+    """``--engine scan`` and ``--matrix`` give the JAX CLI's exit code,
+    standard output and TSV."""
     from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
@@ -251,10 +247,6 @@ def test_cli_align_matrix_unported_options_fail_clearly(tmp_path, capsys, monkey
     argv = ["-c", cfg, "align-matrix", "-f", fasta_dir, *extra]
     rc = cli.main(argv + ["-o", str(tmp_path / "port.tsv"), "--device", "cpu"])
     got = capsys.readouterr()
-    if "--engine" in extra:
-        assert rc == 2
-        assert "not yet ported (ROADMAP Queue A)" in got.err
-        return
     assert rc == 0 and jax_cli.main(argv + ["-o", str(tmp_path / "jax.tsv")]) == 0
     assert _stdout_without_timing(got.out) == _stdout_without_timing(capsys.readouterr().out)
     assert (tmp_path / "port.tsv").read_bytes() == (tmp_path / "jax.tsv").read_bytes()
@@ -308,7 +300,9 @@ def test_port_modules_do_not_import_jax():
         "genomics_rs_tpu_torch.parallel.mesh, genomics_rs_tpu_torch.parallel.longseq, "
         "genomics_rs_tpu_torch.parallel.distributed, genomics_rs_tpu_torch.parallel, "
         "genomics_rs_tpu_torch.comparison.display, genomics_rs_tpu_torch.suffixtree.fmindex, "
-        "genomics_rs_tpu_torch.suffixtree.native, genomics_rs_tpu_torch.ops.bwt_device; "
+        "genomics_rs_tpu_torch.suffixtree.native, genomics_rs_tpu_torch.ops.bwt_device, "
+        "genomics_rs_tpu_torch.entry, genomics_rs_tpu_torch.ops.gotoh_scan, "
+        "genomics_rs_tpu_torch.models.aligner; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'genomics_rs_tpu' or k.startswith('genomics_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -182,13 +182,17 @@ def test_cli_call_matches_jax(tmp_path, capsys, monkeypatch, extra):
     assert len(body) >= 3
 
 
-def test_cli_call_scan_exits_2(tmp_path, capsys):
-    from genomics_rs_tpu_torch import cli
-
+def test_cli_call_scan_exits_2(tmp_path, capsys, monkeypatch):
+    """``call --engine scan`` prints and writes the JAX CLI's bytes."""
+    ref, reads = _tiled(5, quality=True)
     r = tmp_path / "ref.fasta"
-    r.write_text(">c\nACGTACGTAC\n")
+    r.write_text(f">chr1 test\n{ref}\n")
+    q = tmp_path / "reads.fastq"
+    q.write_text("".join(f"@{n}\n{s}\n+\n{ql}\n" for n, s, ql in reads[:60]))
     cfg = tmp_path / "config.toml"
     cfg.write_text("[scores]\ns_match = 1\ns_mismatch = -2\ng = -1\nh = -5\n")
-    assert cli.main(["-c", str(cfg), "call", "-q", str(r), "-r", str(r), "--engine", "scan",
-                     "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    argv = ["-c", str(cfg), "call", "-q", str(q), "-r", str(r), "-k", "15", "--min-depth", "3",
+            "--engine", "scan"]
+    runs = run_both_clis(tmp_path, capsys, monkeypatch, argv, "calls.vcf")
+    assert runs["port"] == runs["jax"]
+    assert runs["port"][1].startswith(b"##fileformat=VCF")

@@ -23,7 +23,8 @@ short walks and ``walk_stage_cases``' edge paths; K11 on its edge paths
 whole and resumed, rows of any width and one-launch batches); and the
 suffix structures' torch ops on the card (the prefix-doubling suffix
 array against host SA-IS, the lockstep FM-index search against the host
-loop).
+loop); and the scan engines and the device vote, torch ops on the card,
+against their CPU runs and the host vote.
 """
 
 import numpy as np
@@ -1409,3 +1410,112 @@ def test_fmindex_device_build_matches_host_build(cuda):
     b = fm.FMIndex.build(text, host=False, device=cuda)
     assert a.sa.tolist() == b.sa.tolist() and a.bwt == b.bwt
     assert (a.occ == b.occ).all() and (a.cvec == b.cvec).all()
+
+
+# ---- the scan engines and device seeding: torch ops on the card ----
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("st", [None, -1])
+def test_scan_fill_cuda_matches_cpu(cuda, is_local, st):
+    """The scan fill on the card gives the CPU run's dirs, scores and
+    starts, one pair and a batch; the ``"diag"`` walk its moves; the batch
+    engine and the matrix scan their scores."""
+    from genomics_rs_tpu_torch.ops.gotoh_scan import gotoh_fill_scan, gotoh_fill_scan_batch
+    from genomics_rs_tpu_torch.parallel.batch import batch_scores
+
+    rng = np.random.default_rng(150 + is_local)
+    sc = Scores(2, -3, -2, -4, st)
+    B, Lm, Ln = 6, 256, 384
+    s1 = BASES[rng.integers(0, 4, (B, Lm))]
+    s2 = BASES[rng.integers(0, 4, (B, Ln))]
+    ms = np.array([256, 200, 1, 0, 255, 31], np.int32)
+    ns = np.array([384, 100, 7, 40, 0, 383], np.int32)
+    for b in range(B):
+        s1[b, ms[b]:], s2[b, ns[b]:] = 0xFE, PAD_S2
+    args = (torch.from_numpy(s1), torch.from_numpy(s2), ms, ns, sc, is_local)
+    got = gotoh_fill_scan_batch(args[0].to(cuda), args[1].to(cuda), *args[2:])
+    want = gotoh_fill_scan_batch(*args)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    one = gotoh_fill_scan(args[0][1].to(cuda), args[1][1].to(cuda), 200, 100, sc, is_local)
+    assert torch.equal(one.dirs.cpu(), want.dirs[1])
+    walk = tb.walk_batch(got.dirs, got.start_i, got.start_j, sc, is_local, "diag", Lm + Ln + 1)
+    walk_cpu = tb.walk_batch(want.dirs, want.start_i, want.start_j, sc, is_local, "diag",
+                             Lm + Ln + 1)
+    assert all(np.array_equal(a, b) for a, b in zip(walk, walk_cpu))
+    bs = batch_scores(args[0].to(cuda), args[1].to(cuda), ms, ns, sc, is_local)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(bs[:3], want[1:]))
+    if st is None:
+        aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+        p1, p2 = aa[rng.integers(0, 20, (B, 96))], aa[rng.integers(0, 20, (B, 80))]
+        mm, nn = np.minimum(ms, 96), np.minimum(ns, 80)
+        mat = subst.blosum62()
+        g = gm.gotoh_scores_matrix(torch.from_numpy(p1).to(cuda), torch.from_numpy(p2).to(cuda),
+                                   mm, nn, mat, -1, -10, is_local, engine="scan")
+        w = gm.gotoh_scores_matrix(torch.from_numpy(p1), torch.from_numpy(p2), mm, nn, mat, -1,
+                                   -10, is_local, engine="scan")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, w))
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_scan_paths_cuda_match_cpu(cuda, is_local):
+    """The scan aligner, ``align_reads(engine="scan")`` over pipelined
+    rounds and the sequence-parallel scan on two shards of one card give
+    the CPU runs' results, and launch no kernel."""
+    from genomics_rs_tpu_torch.models.reads import align_reads
+    from genomics_rs_tpu_torch.parallel import longseq
+    from genomics_rs_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
+
+    rng = np.random.default_rng(160 + is_local)
+    a = BASES[rng.integers(0, 4, 600)].tobytes().decode()
+    b = a[5:300] + "ACGTAC" + a[320:590]
+    sc = Scores()
+    kernels = lambda: (rb.COUNTS["kernel"], tw.COUNTS["kernel"], tw.COUNTS["many_kernel"],  # noqa: E731
+                       gp.TILE_COUNTS["kernel"], gsr.COUNTS["kernel"], tb.COUNTS["kernel"])
+    before = kernels()
+    al = PairwiseAligner(sc, is_local, device=cuda, engine="scan")
+    al_cpu = PairwiseAligner(sc, is_local, device="cpu", engine="scan")
+    x, y = Sequence("a", a), Sequence("b", b)
+    assert _aln(al.align(x, y)) == _aln(al_cpu.align(x, y))
+    reads = [Sequence(f"q{k}", a[k * 20 : k * 20 + 90]) for k in range(25)]
+    refs = [Sequence(f"r{k}", a[k * 20 : k * 20 + 150]) for k in range(25)]
+    kw = dict(is_local=is_local, with_cigars=True, engine="scan", batch=16)
+    got = align_reads(reads, refs, sc, device=cuda, **kw)
+    want = align_reads(reads, refs, sc, device="cpu", **kw)
+    assert [_aln(r) for r in got[0]] == [_aln(r) for r in want[0]] and got[1] == want[1]
+    s1 = Sequence("a", a).encoded(pad_to=768, pad_value=0xFE)
+    s2 = Sequence("b", b).encoded(pad_to=768, pad_value=PAD_S2)
+    g = longseq.sharded_gotoh_score(make_mesh(2, SEQ_AXIS, devices=[cuda, cuda]), s1, s2, len(a),
+                                    len(b), sc, is_local, engine="scan")
+    w = longseq.sharded_gotoh_score(make_mesh(2, SEQ_AXIS, devices=["cpu", "cpu"]), s1, s2,
+                                    len(a), len(b), sc, is_local, engine="scan")
+    assert (int(g.score), g.best.tolist()) == (int(w.score), w.best.tolist())
+    assert kernels() == before
+
+
+def _aln(r):
+    return (r.score, [(c.value, i, j) for c, i, j in r.alignment], r.matches, r.mismatches,
+            r.opening_gaps, r.gap_extensions)
+
+
+def test_device_vote_cuda_matches_host(cuda):
+    """The device vote on the card equals the host vote (ties included:
+    the smallest bin wins, by a masked min, not ``argmax``), over two
+    chunks with a padded last one."""
+    from genomics_rs_tpu_torch.models import mapper
+
+    rng = np.random.default_rng(170)
+    g = BASES[rng.integers(0, 4, 20_000)].tobytes().decode()
+    g = g[:8000] + g[1000:3000] + g[8000:]  # a 2 kb repeat: tied bins
+    ix = mapper.KmerIndex(Sequence("g", g), 15)
+    starts = rng.integers(0, len(g) - 130, 3000)
+    reads = [g[s : s + 128] for s in starts]
+    reads = [r if k % 5 else r[::-1] for k, r in enumerate(reads)]
+    enc = np.stack([np.frombuffer(r.encode(), np.uint8) for r in reads])
+    enc4 = mapper._BASE[enc]
+    host = mapper._vote_windows(ix, enc4, 7, 64, 32)
+    got = mapper._vote_windows_device(ix, enc4, 7, 64, 32, chunk=2048, device=cuda)
+    for a_, b_ in zip(got, host):
+        assert np.array_equal(a_, b_)
+    assert (got[0] == got[4]).sum() > 10  # reads in the repeat tie

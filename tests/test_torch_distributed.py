@@ -196,8 +196,8 @@ def test_align_reads_device_split_matches_jax(monkeypatch):
     reads = ["".join(rng.choice(list("ACGT"), 60)) if k % 3 == 0 else ref[k * 9 : k * 9 + 70]
              for k in range(7)]
     calls = []
-    real = port_reads._fill_and_walk
-    monkeypatch.setattr(port_reads, "_fill_and_walk",
+    real = port_reads._launch_part
+    monkeypatch.setattr(port_reads, "_launch_part",
                         lambda s1b, *a: calls.append(len(s1b)) or real(s1b, *a))
     got = port_reads.align_reads([Sequence(f"r{k}", r) for k, r in enumerate(reads)],
                                  [Sequence("ref", ref)], Scores(*SCORES), device=[CPU] * 3)

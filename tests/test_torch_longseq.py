@@ -176,7 +176,7 @@ def test_meshes():
 
 def test_unported_and_bad_inputs_raise():
     s1e, s2e, m, n, _, _ = _score_cases(False)[0]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ls.sharded_gotoh_score(_cpu_mesh(2), s1e, s2e, m, n, Scores(*SCORES), engine="scan")
+    with pytest.raises(ValueError, match="unknown engine"):
+        ls.sharded_gotoh_score(_cpu_mesh(2), s1e, s2e, m, n, Scores(*SCORES), engine="bogus")
     with pytest.raises(ValueError, match="divide into"):
         ls.sharded_gotoh_score(_cpu_mesh(3), s1e, s2e, m, n, Scores(*SCORES))

@@ -107,7 +107,7 @@ def test_map_reads_matches_jax(band, route, both_strands):
 
 def test_map_reads_knobs():
     ref = Sequence("r", "".join(np.random.default_rng(1).choice(list("ACGT"), 500)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="k <= 15"):
         mapper.map_reads([ref], ref, Scores(), seed_engine="device", device="cpu")
     for bad in (dict(band=0), dict(max_hits=0), dict(seed_engine="gpu")):
         with pytest.raises(ValueError):
@@ -169,9 +169,22 @@ def test_cli_map_matches_jax(tmp_path, capsys, monkeypatch, extra, out_name):
 
 
 @pytest.mark.parametrize("extra", [["--seed-engine", "device"], ["--engine", "scan"]])
-def test_cli_map_unported_options_exit_2(tmp_path, capsys, extra):
+def test_cli_map_unported_options_exit_2(tmp_path, capsys, monkeypatch, extra):
+    """At the default k = 21 ``--seed-engine device`` exits 1 with the JAX
+    CLI's message; ``--engine scan`` gives the JAX CLI's bytes."""
+    from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
     q, _, r, cfg = _write_map_inputs(tmp_path, 1)
-    assert cli.main(["-c", cfg, "map", "-q", q, "-r", r, "--device", "cpu", *extra]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    argv = ["-c", cfg, "map", "-q", q, "-r", r, *extra]
+    if "--seed-engine" in extra:
+        caplog = []
+        for mod, tail in ((jax_cli, []), (cli, ["--device", "cpu"])):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr("logging.Logger.error",
+                           lambda self, msg, *a, **k: caplog.append(msg % a))
+                assert mod.main(argv + ["-o", str(tmp_path / "x.sam")] + tail) == 1
+        assert caplog == ["device seeding requires k <= 15 (int32 keys); index has k=21"] * 2
+        return
+    runs = run_both_clis(tmp_path, capsys, monkeypatch, argv, "out.sam")
+    assert runs["port"] == runs["jax"]

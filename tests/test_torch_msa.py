@@ -95,8 +95,8 @@ def test_star_routes_and_groups_agree(monkeypatch):
             gp.COUNTS["plain"] - before[2]) == (2, 0, 1)
     monkeypatch.setattr(msa, "STAR_PAIR_DIRS_BUDGET", 0)
     assert msa.center_star_msa(pc, sc, device="cpu").rows == whole
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        msa.center_star_msa(pc, sc, engine="scan", device="cpu")
+    # The scan engine: the scan score pass and the per-pair scan aligner.
+    assert msa.center_star_msa(pc, sc, engine="scan", device="cpu").rows == whole
     one = msa.center_star_msa(SequenceContainer([Sequence("x", "ACGT")]), sc, device="cpu")
     assert (one.rows, one.center_index) == (["ACGT"], 0)
 
@@ -187,15 +187,21 @@ def test_cli_msa_matches_jax(tmp_path, capsys, monkeypatch, protein, fmt):
     assert outs["port"] == outs["jax"]
 
 
-def test_cli_msa_fails_clearly(tmp_path, capsys):
+def test_cli_msa_fails_clearly(tmp_path, capsys, monkeypatch):
+    """``msa --engine scan`` prints the JAX CLI's bytes; one sequence
+    exits 1."""
+    from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
+    monkeypatch.setenv("GENOMICS_TPU_JAX_CACHE", str(tmp_path / "jaxcache"))
     fasta = tmp_path / "x.fasta"
-    fasta.write_text(">a\nACGT\n>b\nACGA\n")
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in _family(57, "ACGT", 4, 90)))
     cfg = _config(tmp_path, DNA_SCORES)
-    assert cli.main(["-c", cfg, "msa", "-f", str(fasta), "--engine", "scan",
-                     "--device", "cpu"]) == 2
-    assert "not yet ported (ROADMAP Queue A)" in capsys.readouterr().err
+    argv = ["-c", cfg, "msa", "-f", str(fasta), "--engine", "scan"]
+    assert jax_cli.main(argv) == 0
+    want = _after_banner(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert _after_banner(capsys.readouterr().out) == want
     one = tmp_path / "one.fasta"
     one.write_text(">a\nACGT\n")
     assert cli.main(["-c", cfg, "msa", "-f", str(one), "--device", "cpu"]) == 1

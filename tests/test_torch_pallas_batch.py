@@ -218,9 +218,9 @@ def test_allpairs_pallas_engine_matches_auto():
         pairs = [(i, j) for j in range(4) for i in range(j + 1)]
         buckets = ap.bucketize_pairs(pairs, [len(s) for _, s in seqs])
         assert gp.COUNTS["plain"] - before == len(buckets) > 1  # one call a bucket
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="unknown engine"):
         batch.score_pairs(np.zeros((1, 8), np.uint8), np.zeros((1, 8), np.uint8), [1], [1],
-                          Scores(), engine="scan", device="cpu")
+                          Scores(), engine="bogus", device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["global", "local"])

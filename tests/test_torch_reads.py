@@ -130,13 +130,18 @@ def test_encode_batch_matches_jax():
 def test_align_reads_rejects_incomplete_global_walk(monkeypatch):
     """A global walk that stops short of (0, 0) is a corrupt fill and
     raises, naming the read."""
-    real = reads.walk_batch
+    real = reads.walk_batch_launch
 
     def short_walk(*args):
-        moves, counts, i_f, j_f, done = real(*args)
-        return moves, counts, i_f + 1, j_f, done
+        read = real(*args)
 
-    monkeypatch.setattr(reads, "walk_batch", short_walk)
+        def short_read():
+            moves, counts, i_f, j_f, done = read()
+            return moves, counts, i_f + 1, j_f, done
+
+        return short_read
+
+    monkeypatch.setattr(reads, "walk_batch_launch", short_walk)
     q = [Sequence("q", "ACGTACGT")]
     with pytest.raises(RuntimeError, match="read 0 retrace did not terminate"):
         reads.align_reads(q, q, Scores(), is_local=False, device="cpu")
@@ -144,9 +149,18 @@ def test_align_reads_rejects_incomplete_global_walk(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["scan", "bogus"])
 def test_align_reads_engines(engine):
+    """``"scan"`` gives the JAX scan engine's alignment; an unknown engine
+    raises as JAX's does."""
     q = [Sequence("q", "ACGT")]
-    with pytest.raises(NotImplementedError if engine == "scan" else ValueError):
-        reads.align_reads(q, q, Scores(), engine=engine, device="cpu")
+    if engine == "bogus":
+        with pytest.raises(ValueError):
+            reads.align_reads(q, q, Scores(), engine=engine, device="cpu")
+        return
+    got = reads.align_reads(q, q, Scores(), engine=engine, device="cpu", with_cigars=True)
+    jq = [JaxSequence("q", "ACGT")]
+    want = jax_reads.align_reads(jq, jq, JaxScores(), engine=engine, with_cigars=True)
+    assert [_fields(a) for a in got[0]] == [_fields(a) for a in want[0]]
+    assert got[1] == want[1] == ["4M"]
 
 
 # ---- the CLI ----
@@ -229,12 +243,14 @@ def test_cli_reads_align_matches_jax(tmp_path, capsys, monkeypatch, fmt, extra, 
 @pytest.mark.parametrize(
     "extra", [["--engine", "scan"], ["--both-strands", "--engine", "scan"],
               ["--align", "--engine", "scan"]])
-def test_cli_reads_unported_engines_exit_2(tmp_path, capsys, extra):
-    from genomics_rs_tpu_torch import cli
-
+def test_cli_reads_unported_engines_exit_2(tmp_path, capsys, monkeypatch, extra):
+    """``reads --engine scan`` (scores, both strands, ``--align``) prints
+    and writes the JAX CLI's bytes."""
     q, r, cfg = _write_inputs(tmp_path, *_reads(1, 2, 10, 20), CLASSIC)
-    assert cli.main(["-c", cfg, "reads", "-q", q, "-r", r, "--device", "cpu", *extra]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    argv = ["-c", cfg, "reads", "-q", q, "-r", r, *extra]
+    runs = run_both_clis(tmp_path, capsys, monkeypatch, argv, "out.tsv")
+    assert runs["port"] == runs["jax"]
+    assert len(runs["port"][1].splitlines()) == 3
 
 
 def test_cli_reads_sam_needs_align(tmp_path):

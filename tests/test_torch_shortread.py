@@ -238,7 +238,7 @@ def test_walk_batch_diag16_matches_jax(is_local):
 def test_walk_batch_rejects_unknown_layout():
     with pytest.raises(ValueError, match="layout"):
         tb.walk_batch(torch.zeros((1, 2, 2), dtype=torch.int32), [1], [1], Scores(), False,
-                      "diag", 5)
+                      "rows4", 5)
 
 
 @pytest.mark.parametrize("layout", ["rows16", "diag16"])
