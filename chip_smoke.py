@@ -133,7 +133,11 @@ Phases, one line each:
      1,024 x 192-384 aa and 32,768 x 383 aa batches (global and local; 512
      sampled scores and starts == the C++ LUT oracle), its pallas route on
      1,024 pairs == the stream route, ``matrix_align_batch`` of 256 x 383
-     aa (3 pairs == ``PairwiseAligner(matrix=)``), the CLI ``align
+     aa global and local (3 pairs == ``PairwiseAligner(matrix=)``; every
+     alignment of both modes == per-pair ``classify_moves`` of the same
+     walked moves, every group classified by one ``classify_moves_batch``
+     pass; each mode's wall and its classification
+     step, in the run and alone batched and per pair), the CLI ``align
      --matrix``, ``align-matrix --matrix`` on 256 seeded proteins of
      100-1,000 aa (TSV == the library's, a sample == the oracle) and with
      ``--alignments-out`` on a 32-protein family, ``msa --matrix`` on
@@ -2116,6 +2120,7 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     from genomics_rs_tpu_torch.comparison.driver import load_fasta_dir
     from genomics_rs_tpu_torch.config import Scores
     from genomics_rs_tpu_torch.display.alignment import format_aligned_sequences
+    from genomics_rs_tpu_torch.models import aligner as aligner_mod
     from genomics_rs_tpu_torch.models.aligner import PairwiseAligner, matrix_align_batch
     from genomics_rs_tpu_torch.models.msa import center_star_msa, format_msa_clustal
     from genomics_rs_tpu_torch.ops import _build
@@ -2127,6 +2132,7 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     from genomics_rs_tpu_torch.ops import traceback_batch as tb
     from genomics_rs_tpu_torch.ops import traceback_device as td
     from genomics_rs_tpu_torch.ops import traceback_walker as tw
+    from genomics_rs_tpu_torch.ops.traceback import classify_moves, classify_moves_batch
     from genomics_rs_tpu_torch.parallel.allpairs import allpairs_matrix_scores
     from genomics_rs_tpu_torch.sequence import (
         PAD_S1,
@@ -2332,9 +2338,28 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
     walls["pallas_route"] = time.perf_counter() - t0
     apairs = [(Sequence(f"a{i}", data["u1"][i].tobytes().decode()),
                Sequence(f"b{i}", data["u2"][i].tobytes().decode())) for i in range(PROT_ALIGN_B)]
-    t0 = time.perf_counter()
-    alns = matrix_align_batch(apairs, b62, PROT_G, PROT_H)
-    walls["matrix_align_batch"] = time.perf_counter() - t0
+    # matrix_align_batch in both modes, each group's classification step
+    # (``_classify_group``: the end-of-walk check, then the classifier)
+    # recorded with its walked moves and timed inside the run.
+    alns, classified = {}, {}
+    real_classify = aligner_mod._classify_group
+    for is_local in (False, True):
+        rec = classified[is_local] = []
+
+        def record_classify(chunk, walked, *args, rec=rec, **kw):
+            t0 = time.perf_counter()
+            got = real_classify(chunk, walked, *args, **kw)
+            rec.append((chunk, walked, time.perf_counter() - t0, got))
+            return got
+
+        aligner_mod._classify_group = record_classify
+        try:
+            t0 = time.perf_counter()
+            alns[is_local] = matrix_align_batch(apairs, b62, PROT_G, PROT_H, is_local=is_local)
+            walls[f"matrix_align_batch {'local' if is_local else 'global'}"] = (
+                time.perf_counter() - t0)
+        finally:
+            aligner_mod._classify_group = real_classify
     three = [0, PROT_ALIGN_B // 2, PROT_ALIGN_B - 1]
     one = PairwiseAligner(psc, device="cuda", matrix=b62)
     t0 = time.perf_counter()
@@ -2445,8 +2470,43 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
                                                          results["stream", False]])),
           "the pallas route != the stream route on the first 1,024 pairs")
     for t, ref in zip(three, per_pair):
-        check(fields(alns[t]) == fields(ref),
+        check(fields(alns[False][t]) == fields(ref),
               f"matrix_align_batch pair {t} != PairwiseAligner(matrix=)")
+    # Every alignment of both modes against per-pair classify_moves of the
+    # same walked moves; the classification step alone, batched and per
+    # pair, timed on those moves (median of 3).
+    classify_line = []
+    for is_local in (False, True):
+        mode = "local" if is_local else "global"
+        rec = classified[is_local]
+        check(sum(len(c) for c, *_ in rec) == PROT_ALIGN_B,
+              f"matrix_align_batch {mode}: groups {[len(c) for c, *_ in rec]} "
+              f"!= its {PROT_ALIGN_B} pairs")
+        check([fields(a) for *_, got in rec for a in got] == [fields(a) for a in alns[is_local]],
+              f"matrix_align_batch {mode}: the recorded groups != its result")
+        t_batch, t_pair = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            by_batch = [a for chunk, w, *_ in rec
+                        for a in classify_moves_batch(w[0], w[1], w[6], w[7], w[5], chunk)]
+            t_batch.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            by_pair = [classify_moves(w[0][t, : w[1][t]], int(w[6][t]), int(w[7][t]),
+                                      int(w[5][t]), a, b)
+                       for chunk, w, *_ in rec for t, (a, b) in enumerate(chunk)]
+            t_pair.append(time.perf_counter() - t0)
+        same = [fields(a) for a in by_pair]
+        check([fields(a) for a in alns[is_local]] == same
+              and [fields(a) for a in by_batch] == same,
+              f"matrix_align_batch {mode}: an alignment != per-pair classify_moves")
+        classify_line.append(
+            f"{mode} {walls[f'matrix_align_batch {mode}']:.4f} s wall (classification in the run "
+            f"{sum(r[2] for r in rec):.4f} s over groups of "
+            f"{', '.join(str(len(r[0])) for r in rec)}; alone: batched {med(t_batch):.4f} s, "
+            f"per pair {med(t_pair):.4f} s)")
+    print(f"[phase 21] card {card} | matrix_align_batch of {PROT_ALIGN_B} x {PROT_STREAM_L} aa: "
+          + "; ".join(classify_line) + f"; all {PROT_ALIGN_B} x 2 alignments == per-pair "
+          f"classify_moves of the same walked moves", flush=True)
     check(stdout["align"].splitlines()[-6:]
           == format_aligned_sequences(per_pair[0]).splitlines()[-6:],
           "align --matrix's stats != the library's")
@@ -2492,7 +2552,8 @@ def protein_phases(torch, dev, card, cuda_ms, codes_at, rate) -> list[dict]:
           f"{walls['stream_batch_local']:.3f} s, grouped), {len(samples)} sampled scores and "
           f"starts == C++ oracle; the pallas route on {PROT_B} pairs == the stream route "
           f"({walls['pallas_route']:.3f} s); matrix_align_batch of {PROT_ALIGN_B} x "
-          f"{PROT_STREAM_L} aa ({walls['matrix_align_batch']:.3f} s), 3 pairs == "
+          f"{PROT_STREAM_L} aa ({walls['matrix_align_batch global']:.3f} / "
+          f"{walls['matrix_align_batch local']:.3f} s global / local), 3 pairs == "
           f"PairwiseAligner(matrix=); CLI: align --matrix stats == the library's "
           f"({walls['cli align']:.3f} s), align-matrix --matrix on {PROT_DIR_N} proteins of "
           f"{lens.min()}-{lens.max()} aa ({npairs} pairs, {walls['cli align-matrix']:.3f} s): "

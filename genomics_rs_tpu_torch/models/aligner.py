@@ -19,7 +19,8 @@ Under a substitution matrix (``matrix=``, protein) both fill with the
 matrix fill (``ops/gotoh_matrix``: query profile, then K3's pipeline):
 ``PairwiseAligner`` one pair with dirs, walked by K2, with no
 checkpointed route (as in the JAX package); :func:`matrix_align_batch`
-one fill with dirs per group and one K4 walk.
+one fill with dirs per group and one K4 walk, then host classification:
+one 2-D ``classify_moves_batch`` pass a group.
 
 ``engine="scan"`` (the JAX package's ``lax.scan`` oracle) fills with
 ``ops/gotoh_scan.gotoh_fill_scan`` instead, uint8 dirs a cell (under a
@@ -53,6 +54,7 @@ from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
 from genomics_rs_tpu_torch.ops.traceback import (
     AlignedSequences,
     classify_moves,
+    classify_moves_batch,
     traceback_host,
 )
 from genomics_rs_tpu_torch.ops.traceback_batch import NO_MOVE, walk_batch
@@ -239,7 +241,9 @@ def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
     batches with ``parallel/allpairs.bucketize_pairs``) and cut into
     groups of :func:`_stream_group_pairs`; each group is one batched
     fill with dirs (K3) and one batched walk (K4), then host
-    classification. When even two pairs bust the group budget, every
+    classification in one ``classify_moves_batch`` pass (the JAX package
+    classifies this path pair by pair, with the same results). When even
+    two pairs bust the group budget, every
     pair goes to the per-pair aligner (its checkpointed route bounds
     the memory). ``engine="scan"`` aligns pair by pair with the scan
     aligner, as the JAX package does.
@@ -271,14 +275,14 @@ def align_batch(pairs: list[tuple[Sequence, Sequence]], scores: Scores,
 def _classify_group(chunk, walked, is_local: bool, what: str) -> list[AlignedSequences]:
     """The alignments of a walked group (``walked`` as
     :func:`stream_walk_group` returns it), after checking that every
-    walk ended (at (0, 0) for a global fill)."""
+    walk ended (at (0, 0) for a global fill): one ``classify_moves_batch``
+    pass over the group."""
     moves, counts, i_f, j_f, done, scv, sci, scj = walked
     ok = done if is_local else done & (i_f == 0) & (j_f == 0)
     if not ok.all():
         t = int(np.flatnonzero(~ok)[0])
         raise RuntimeError(f"{what} retrace left the table at ({i_f[t]}, {j_f[t]})")
-    return [classify_moves(moves[t, : counts[t]], int(sci[t]), int(scj[t]), int(scv[t]), a, b)
-            for t, (a, b) in enumerate(chunk)]
+    return classify_moves_batch(moves, counts, sci, scj, scv, chunk)
 
 
 #: device bytes of K3 bitmaps and walk buffers one group (of
@@ -345,9 +349,10 @@ def matrix_align_batch(pairs: list[tuple[Sequence, Sequence]], matrix, g: int, h
     Groups of :func:`_stream_group_pairs` pairs, each one matrix fill
     with dirs (``ops/gotoh_matrix_stream.gotoh_matrix_stream_fill_dirs``)
     and one K4 walk (``walk_batch(..., "diag16")``), then host
-    classification. As in the JAX package, a path longer than the walk
-    buffer (``Lm + Ln + 1 > MAX_STEPS_CAP``) or a group the stream entry
-    refuses (a zero length, ``|v| > 127``) goes to the per-pair aligner.
+    classification, one ``classify_moves_batch`` pass a group. As in the
+    JAX package, a path longer than the walk buffer (``Lm + Ln + 1 >
+    MAX_STEPS_CAP``) or a group the stream entry refuses (a zero length,
+    ``|v| > 127``) goes to the per-pair aligner.
     """
     aligner = PairwiseAligner(Scores(0, 0, g, h), is_local=is_local, device=device,
                               matrix=matrix)

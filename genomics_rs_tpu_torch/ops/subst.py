@@ -86,6 +86,18 @@ def sub_score_np(a: np.ndarray, b, sm: int, sx: int, st=None):
     return np.where(ea == eb, sm, np.where((ea ^ eb) == 2, st, sx))
 
 
+def kimura_byte_lut(scores) -> np.ndarray:
+    """(256, 256) int32 byte-pair scores under kimura scoring (two-score
+    when ``scores.s_transition`` is None): every byte pair through
+    :func:`sub_score_np`. The JAX package's helper under its name; the
+    port itself has no caller. Not ``dna_matrix(scores).byte_lut()``,
+    which scores bytes outside ACGT at the matrix minimum where this
+    table scores equal bytes as a match."""
+    b = np.arange(256, dtype=np.uint8)
+    return sub_score_np(b[:, None], b[None, :], scores.s_match, scores.s_mismatch,
+                        scores.s_transition).astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # Full substitution matrices (protein scoring)
 # ---------------------------------------------------------------------------

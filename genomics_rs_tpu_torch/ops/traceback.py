@@ -18,7 +18,9 @@ bit-for-bit:
 
 The traceback is O(m+n) and pointer-chasing, so it runs on host over a
 numpy view of the direction array. A copy of
-``genomics_rs_tpu/ops/traceback.py`` without the batch classifier.
+``genomics_rs_tpu/ops/traceback.py``: :func:`classify_moves` classifies
+one walked path, :func:`classify_moves_batch` a batch of them in one
+2-D pass (and one path, for ``classify_moves``, outside DEBUG logging).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class AlignmentChoice(enum.Enum):
     OPEN_DELETE = "OpenDelete"
 
 
-#: choice object by numeric code (classify_moves' vectorized path).
+#: choice object by numeric code (the numpy classifiers' paths).
 _CHOICE_ARR = np.array(
     [
         AlignmentChoice.MATCH,
@@ -103,6 +105,15 @@ def classify_moves(
     used by the checkpointed long-pair traceback whose walking happens
     on device (``ops/traceback_device.py``).
     """
+    if not log.isEnabledFor(logging.DEBUG):
+        # Whole-path numpy classification (a chromosome-scale path is
+        # millions of moves; the per-move loop below, kept for the debug
+        # trace and the empty path, costs seconds there): the batch
+        # classifier on a batch of one, so both share one numpy body.
+        codes_a = np.asarray(codes, dtype=np.uint8)
+        if codes_a.size:
+            return classify_moves_batch(codes_a[None], [codes_a.size], [start_i], [start_j],
+                                        [score], [(seq1, seq2)])[0]
     s1 = seq1.sequence.encode("ascii")
     s2 = seq2.sequence.encode("ascii")
     i, j = int(start_i), int(start_j)
@@ -121,68 +132,6 @@ def classify_moves(
     # reference also prints the cell max, which the 2-bit direction
     # codes no longer carry — documented deviation.
     dbg = log.isEnabledFor(logging.DEBUG)
-    if not dbg:
-        # Whole-path numpy classification: a chromosome-scale path is
-        # millions of moves — the per-move Python loop below (kept for
-        # the debug-trace parity path) costs seconds. Same semantics.
-        codes_a = np.asarray(codes, dtype=np.uint8)
-        T = codes_a.shape[0]
-        is_sub = codes_a == DIR_SUB
-        is_ins = codes_a == DIR_INS
-        is_del = codes_a == DIR_DEL
-        if T and not bool((is_sub | is_ins | is_del).all()):
-            bad = codes_a[~(is_sub | is_ins | is_del)][0]
-            raise ValueError(f"Unexpected move code {int(bad)}")
-        di = np.where(is_ins, 0, 1)
-        dj = np.where(is_del, 0, 1)
-        # Position each move is taken AT (pre-move). Saturation never
-        # disagrees with the cumsum in a valid table (a clamped axis
-        # only receives codes that no longer move it); clip anyway so
-        # corrupt inputs can't index negatively.
-        i_at = np.maximum(i - np.cumsum(di) + di, 0)
-        j_at = np.maximum(j - np.cumsum(dj) + dj, 0)
-        # Reference is_match quirk: bytes AT (i, j) (algo.rs:354) with
-        # None == None past both ends (sentinel 0x100).
-        s1a = np.frombuffer(s1, np.uint8).astype(np.int32)
-        s2a = np.frombuffer(s2, np.uint8).astype(np.int32)
-        c1 = np.where(
-            i_at < len(s1a),
-            s1a[np.minimum(i_at, max(len(s1a) - 1, 0))]
-            if len(s1a)
-            else 0x100,
-            0x100,
-        )
-        c2 = np.where(
-            j_at < len(s2a),
-            s2a[np.minimum(j_at, max(len(s2a) - 1, 0))]
-            if len(s2a)
-            else 0x100,
-            0x100,
-        )
-        match = is_sub & (c1 == c2)
-        mismatch = is_sub & ~match
-        prev = np.empty_like(codes_a)
-        prev[0:1] = 255
-        prev[1:] = codes_a[:-1]
-        ins_open = is_ins & (prev != DIR_INS)
-        del_open = is_del & (prev != DIR_DEL)
-        out.matches = int(match.sum())
-        out.mismatches = int(mismatch.sum())
-        out.opening_gaps = int(ins_open.sum() + del_open.sum())
-        out.gap_extensions = int(
-            (is_ins & ~ins_open).sum() + (is_del & ~del_open).sum()
-        )
-        choice_code = np.zeros(T, np.uint8)
-        choice_code[mismatch] = 1
-        choice_code[is_ins & ~ins_open] = 2
-        choice_code[ins_open] = 3
-        choice_code[is_del & ~del_open] = 4
-        choice_code[del_open] = 5
-        ch_objs = _CHOICE_ARR[choice_code]
-        out.alignment = list(
-            zip(ch_objs.tolist(), i_at.tolist(), j_at.tolist())
-        )
-        return out
     last_choice = AlignmentChoice.MATCH
     for code in codes:
         code = int(code)
@@ -227,6 +176,101 @@ def classify_moves(
             i = max(i - 1, 0)
         else:
             raise ValueError(f"Unexpected move code {code}")
+    return out
+
+
+def classify_moves_batch(
+    moves: np.ndarray,
+    counts: np.ndarray,
+    start_is: np.ndarray,
+    start_js: np.ndarray,
+    scores: np.ndarray,
+    pairs: list[tuple[Sequence, Sequence]],
+) -> list[AlignedSequences]:
+    """:func:`classify_moves` over a whole batch in ONE 2-D numpy pass.
+
+    ``moves`` is (B, T) uint8, row ``b`` holding pair ``b``'s codes in
+    traceback order up to ``counts[b]``; what lies past ``counts[b]``
+    (the walks' ``NO_MOVE`` padding) is never read. The result is
+    bit-identical to :func:`classify_moves`' per-move loop, the
+    reference's off-by-one ``is_match`` included, with one set of numpy
+    calls for the batch in place of one a pair (``classify_moves`` runs
+    this body on a batch of one). Under DEBUG logging (the per-move
+    trace) and for ``T == 0`` it classifies pair by pair.
+    """
+    B, T = moves.shape
+    counts = np.asarray(counts, np.int64)
+    if log.isEnabledFor(logging.DEBUG) or T == 0:
+        return [classify_moves(moves[b, : int(counts[b])], int(start_is[b]),
+                               int(start_js[b]), int(scores[b]), a, s)
+                for b, (a, s) in enumerate(pairs)]
+    if not B:
+        return []
+    # Only the live prefix: a walk buffer is padded far past its paths.
+    T = min(T, max(int(counts.max()), 1))
+    mask = np.arange(T)[None, :] < counts[:, None]
+    codes = np.where(mask, moves[:, :T], 255).astype(np.uint8, copy=False)
+    is_sub = codes == DIR_SUB
+    is_ins = codes == DIR_INS
+    is_del = codes == DIR_DEL
+    valid = is_sub | is_ins | is_del
+    if (valid != mask).any():
+        raise ValueError(f"Unexpected move code {int(codes[mask & ~valid][0])}")
+    # Position each move is taken AT (pre-move). Saturation never
+    # disagrees with the cumsum in a valid table (a clamped axis only
+    # receives codes that no longer move it); clip at 0 anyway so corrupt
+    # inputs can't index negatively. Padding moves neither axis.
+    di = mask & ~is_ins
+    dj = mask & ~is_del
+    i_at = np.maximum(np.asarray(start_is, np.int64)[:, None] - np.cumsum(di, axis=1) + di, 0)
+    j_at = np.maximum(np.asarray(start_js, np.int64)[:, None] - np.cumsum(dj, axis=1) + dj, 0)
+    # Both sequences' bytes at (i, j), 0x100 past either end (the
+    # reference's None == None): each row ends in the sentinel, and an
+    # index past a sequence's end is clipped onto it.
+    l1 = np.array([len(a.sequence) for a, _ in pairs], np.int64)
+    l2 = np.array([len(b.sequence) for _, b in pairs], np.int64)
+    s1mat = np.full((B, int(l1.max()) + 1), 0x100, np.int16)
+    s2mat = np.full((B, int(l2.max()) + 1), 0x100, np.int16)
+    for b, (a, s) in enumerate(pairs):
+        s1mat[b, : l1[b]] = np.frombuffer(a.sequence.encode("ascii"), np.uint8)
+        s2mat[b, : l2[b]] = np.frombuffer(s.sequence.encode("ascii"), np.uint8)
+    rows = np.arange(B)[:, None]
+    c1 = s1mat[rows, np.minimum(i_at, l1[:, None])]
+    c2 = s2mat[rows, np.minimum(j_at, l2[:, None])]
+    match = is_sub & (c1 == c2)
+    mismatch = is_sub & ~match
+    prev = np.empty_like(codes)
+    prev[:, 0] = 255
+    prev[:, 1:] = codes[:, :-1]
+    ins_open = is_ins & (prev != DIR_INS)
+    del_open = is_del & (prev != DIR_DEL)
+    ins_ext = is_ins & ~ins_open
+    del_ext = is_del & ~del_open
+    choice_code = np.zeros((B, T), np.uint8)
+    choice_code[mismatch] = 1
+    choice_code[ins_ext] = 2
+    choice_code[ins_open] = 3
+    choice_code[del_ext] = 4
+    choice_code[del_open] = 5
+    n_match = np.count_nonzero(match, axis=1)
+    n_mis = np.count_nonzero(mismatch, axis=1)
+    n_open = np.count_nonzero(ins_open | del_open, axis=1)
+    n_ext = np.count_nonzero(ins_ext | del_ext, axis=1)
+    out: list[AlignedSequences] = []
+    for b, (a, s) in enumerate(pairs):
+        c = int(counts[b])
+        # Choice objects over the real path only, never the padding.
+        out.append(AlignedSequences(
+            s1=a,
+            s2=s,
+            alignment=list(zip(_CHOICE_ARR[choice_code[b, :c]].tolist(),
+                               i_at[b, :c].tolist(), j_at[b, :c].tolist())),
+            score=int(scores[b]),
+            matches=int(n_match[b]),
+            mismatches=int(n_mis[b]),
+            gap_extensions=int(n_ext[b]),
+            opening_gaps=int(n_open[b]),
+        ))
     return out
 
 

@@ -85,6 +85,10 @@ def balanced_deal(costs, n_shares: int) -> list[list[int]]:
     return shares
 
 
+#: the JAX package's older name of :func:`balanced_deal`.
+snake_deal = balanced_deal
+
+
 #: column blocks per seq shard in the hybrid split's pipeline model: a
 #: k-shard pipeline of C blocks keeps a shard busy C of C + k - 1 waves.
 PIPELINE_BLOCKS = 8

@@ -20,6 +20,15 @@ from genomics_rs_tpu_torch import native
 from genomics_rs_tpu_torch.suffixtree.tree import STRING_TERMINATORS, TreeStats, load_alphabet
 
 
+def native_available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        native.library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def native_suffix_array(text: bytes) -> np.ndarray:
     """Linear-time host suffix array of ``text`` (int32).
 

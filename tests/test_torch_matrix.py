@@ -573,17 +573,16 @@ def test_cli_align_matrix_flag_matches_jax(tmp_path, capsys, monkeypatch, kind):
     assert _after_banner(got) == _after_banner(want)
 
 
-@pytest.mark.parametrize("kind", ["global", "local"])
-def test_cli_align_matrix_mode_with_matrix_matches_jax(tmp_path, capsys, monkeypatch, kind):
-    """``align-matrix --matrix BLOSUM62 --alignments-out``: stdout, the TSV
-    and every pair's file."""
+def _align_matrix_cli_runs(tmp_path, capsys, monkeypatch, kind, corpus):
+    """``align-matrix --matrix BLOSUM62 --alignments-out`` over ``corpus``
+    by both CLIs: for each, (stdout, the TSV's bytes, every pair's file)."""
     from genomics_rs_tpu import cli as jax_cli
     from genomics_rs_tpu_torch import cli
 
     monkeypatch.setenv("GENOMICS_TPU_JAX_CACHE", str(tmp_path / "jaxcache"))
     d = tmp_path / "fasta"
     d.mkdir()
-    for k, (name, s) in enumerate(_prot_corpus(41, (60, 140, 75, 90))):
+    for k, (name, s) in enumerate(corpus):
         (d / f"p{k:02d}.fasta").write_text(f">{name}\n{s}\n")
     cfg = _write_config(tmp_path)
     runs = {}
@@ -595,5 +594,31 @@ def test_cli_align_matrix_mode_with_matrix_matches_jax(tmp_path, capsys, monkeyp
         stdout = capsys.readouterr().out.replace(str(out_dir), "OUT")
         files = {f: (out_dir / f).read_bytes() for f in sorted(os.listdir(out_dir))}
         runs[name] = (_after_banner(stdout), (tmp_path / f"{name}.tsv").read_bytes(), files)
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["global", "local"])
+def test_cli_align_matrix_mode_with_matrix_matches_jax(tmp_path, capsys, monkeypatch, kind):
+    """``align-matrix --matrix BLOSUM62 --alignments-out``: stdout, the TSV
+    and every pair's file."""
+    runs = _align_matrix_cli_runs(tmp_path, capsys, monkeypatch, kind,
+                                  _prot_corpus(41, (60, 140, 75, 90)))
     assert len(runs["port"][2]) == 6
+    assert runs["port"] == runs["jax"]
+
+
+@pytest.mark.parametrize("kind", ["global", "local"])
+def test_cli_align_matrix_mode_batched_classifier_matches_jax(tmp_path, capsys, monkeypatch,
+                                                               kind):
+    """Seven proteins of 40-90 aa: one length bucket of 21 pairs, which the
+    port classifies in one ``classify_moves_batch`` pass; the bytes still
+    equal the JAX CLI's."""
+    sizes = []
+    real = port_aligner.classify_moves_batch
+    monkeypatch.setattr(port_aligner, "classify_moves_batch",
+                        lambda moves, *a: sizes.append(moves.shape[0]) or real(moves, *a))
+    runs = _align_matrix_cli_runs(tmp_path, capsys, monkeypatch, kind,
+                                  _prot_corpus(42, (40, 90, 55, 72, 64, 81, 47)))
+    assert sizes == [21]
+    assert len(runs["port"][2]) == 21
     assert runs["port"] == runs["jax"]
