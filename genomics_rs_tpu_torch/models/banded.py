@@ -14,7 +14,6 @@ band covers the whole matrix and the output equals the full aligner's.
 from __future__ import annotations
 
 import logging
-import time
 
 import torch
 
@@ -23,6 +22,7 @@ from genomics_rs_tpu_torch.device import resolve_device
 from genomics_rs_tpu_torch.ops.gotoh_banded import gotoh_banded, walk_banded
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -47,20 +47,13 @@ def align_banded(seq1: Sequence, seq2: Sequence, scores: Scores, band: int = 204
         )
     dev = resolve_device(device)
     V = max(round_up(band, 1024), 1024)
-    s1e = torch.from_numpy(seq1.encoded(pad_to=max(round_up(m, 128), 128),
-                                        pad_value=PAD_S1).copy()).to(dev)
-    s2e = torch.from_numpy(seq2.encoded(pad_to=max(round_up(n, 128), V),
-                                        pad_value=PAD_S2).copy()).to(dev)
+    with annotate("genomics/banded.encode"):
+        s1e = torch.from_numpy(seq1.encoded(pad_to=max(round_up(m, 128), 128),
+                                            pad_value=PAD_S1).copy()).to(dev)
+        s2e = torch.from_numpy(seq2.encoded(pad_to=max(round_up(n, 128), V),
+                                            pad_value=PAD_S2).copy()).to(dev)
 
-    t0 = time.perf_counter()
     score, dirs = gotoh_banded(s1e, s2e, m, n, scores, V)
-    t_fill = time.perf_counter() - t0
-    t0 = time.perf_counter()
     codes = walk_banded(dirs, m, n, V)
-    t_walk = time.perf_counter() - t0
-    log.info(
-        "[Banded] %dx%d band=%d (%.3g band cells): fill %.2fs "
-        "(%.3g cells/s), walk %.2fs",
-        m, n, V, (m + 1.0) * V, t_fill, (m + 1.0) * V / max(t_fill, 1e-9), t_walk,
-    )
+    log.info("[Banded] %dx%d band=%d (%.3g band cells)", m, n, V, (m + 1.0) * V)
     return classify_moves(codes, m, n, score, seq1, seq2)

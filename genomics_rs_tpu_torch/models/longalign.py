@@ -34,6 +34,7 @@ from genomics_rs_tpu_torch.ops.gotoh_tile import global_boundary_top
 from genomics_rs_tpu_torch.ops.traceback import AlignedSequences, classify_moves
 from genomics_rs_tpu_torch.ops.traceback_device import device_walk
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -71,7 +72,8 @@ def _forward_blocks(
             cols.append(res.cols)
         outs.append(torch.stack([res.score_at_mn, *res.best, res.err]))
         top = res.bottom
-    r = torch.stack(outs).cpu().numpy().astype(np.int64)
+    with annotate("genomics/longalign.wait"):
+        r = torch.stack(outs).cpu().numpy().astype(np.int64)
     raise_on_err(r[:, 4].max())
     at_mn = int(r[:, 0].max())
     if is_local:
@@ -89,9 +91,10 @@ def _encode_blocks(seq1, seq2, R: int, device):
     m, n = len(seq1), len(seq2)
     Lm = max(round_up(m, R), R)
     Ln = max(round_up(n, 128), 128)
-    s1e = torch.from_numpy(seq1.encoded(pad_to=Lm, pad_value=PAD_S1).copy())
-    s2e = torch.from_numpy(seq2.encoded(pad_to=Ln, pad_value=PAD_S2).copy())
-    return s1e.to(device), s2e.to(device), Lm // R
+    with annotate("genomics/longalign.encode"):
+        s1e = torch.from_numpy(seq1.encoded(pad_to=Lm, pad_value=PAD_S1).copy())
+        s2e = torch.from_numpy(seq2.encoded(pad_to=Ln, pad_value=PAD_S2).copy())
+        return s1e.to(device), s2e.to(device), Lm // R
 
 
 def score_long(
@@ -193,26 +196,18 @@ def align_checkpointed(
     R = block_rows
     s1e, s2e, NB = _encode_blocks(seq1, seq2, R, device)
 
-    t0 = time.perf_counter()
     tops, cols, best, at_mn = _forward_blocks(
         s1e, s2e, m, n, R, NB, scores, is_local,
         keep_tops=True, keep_cols=True,
     )
-    t_fwd = time.perf_counter() - t0
     if is_local:
         score, start_i, start_j = best
     else:
         score, start_i, start_j = at_mn, m, n
 
-    t0 = time.perf_counter()
     codes = _walk_span_windowed(
         s1e, s2e, tops, cols, R, m, scores, is_local, start_i, start_j
     )
-    t_bwd = time.perf_counter() - t0
-    log.info(
-        "[LongAlign] %dx%d in %d blocks of %d rows: forward %.2fs, "
-        "traceback %.2fs",
-        m, n, NB, R, t_fwd, t_bwd,
-    )
+    log.info("[LongAlign] %dx%d in %d blocks of %d rows", m, n, NB, R)
     all_codes = np.concatenate(codes) if codes else np.zeros(0, np.uint8)
     return classify_moves(all_codes, start_i, start_j, score, seq1, seq2)

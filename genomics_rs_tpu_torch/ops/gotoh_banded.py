@@ -52,6 +52,7 @@ from genomics_rs_tpu_torch.ops.gotoh_scan import (
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
 from genomics_rs_tpu_torch.ops.traceback_walker import MAX_STEPS_CAP, MPW, unpack_moves
 from genomics_rs_tpu_torch.ops.walk_stage import slide_words
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: 2-bit codes per packed word (rows per int32).
 PACK = 16
@@ -213,34 +214,39 @@ def run_band(lib, s1b, s2b, ms, ns, scores, V: int, resident: int, counts: dict,
     dev = s1b.device
     B, Lm = s1b.shape
     Ln = s2b.shape[1]
-    ms = np.asarray(ms, np.int64)
-    ns = np.asarray(ns, np.int64)
-    M, N = int(ms.max()), int(ns.max())
-    KW = -(-M // PACK)
-    off, _, _ = plan_streams(M, N, V)
-    slotw = band_slot_width(off, ms, ns, V)
-    plan_h, nlevels, total, blocks, nslots = gp.pipeline_plan(
-        ms, ns, slotw - 1, BAND_STRIP_ROWS, resident, row0=1,
-        inflight=band_strips_in_flight(off, ms, ns, V))
-    i32 = dict(dtype=torch.int32, device=dev)
-    plan = torch.from_numpy(plan_h).to(dev)
-    offs = torch.from_numpy(off.astype(np.int32)).to(dev)
-    s1c = encode_chars(s1b, scores).contiguous()
-    s2c = encode_chars(s2b, scores).contiguous()
-    dirs = torch.zeros((B, KW, V), **i32)
-    score = torch.full((B,), INT_MIN, **i32)
-    work = torch.zeros(gp.WORK_HEAD + 5 * total + B, **i32)
-    ring = torch.empty(max(nslots, 1) * 2 * slotw, **i32)
-    kim = kimura_active(scores)
-    err = lib.gotoh_banded_launch(
-        _build.ptr(s1c), _build.ptr(s2c), _build.ptr(offs), _build.ptr(plan), _build.ptr(work),
-        _build.ptr(ring), _build.ptr(dirs), _build.ptr(score), B, Lm, Ln, V, KW, nlevels, total,
-        slotw, scores.s_match, scores.s_mismatch, scores.s_transition if kim else 0, int(kim),
-        scores.g, scores.h, blocks, int(spin_ns), stream,
-    )
+    with annotate("genomics/gotoh_banded.plan"):
+        ms = np.asarray(ms, np.int64)
+        ns = np.asarray(ns, np.int64)
+        M, N = int(ms.max()), int(ns.max())
+        KW = -(-M // PACK)
+        off, _, _ = plan_streams(M, N, V)
+        slotw = band_slot_width(off, ms, ns, V)
+        plan_h, nlevels, total, blocks, nslots = gp.pipeline_plan(
+            ms, ns, slotw - 1, BAND_STRIP_ROWS, resident, row0=1,
+            inflight=band_strips_in_flight(off, ms, ns, V))
+        i32 = dict(dtype=torch.int32, device=dev)
+        plan = torch.from_numpy(plan_h).to(dev)
+        offs = torch.from_numpy(off.astype(np.int32)).to(dev)
+        s1c = encode_chars(s1b, scores).contiguous()
+        s2c = encode_chars(s2b, scores).contiguous()
+        dirs = torch.zeros((B, KW, V), **i32)
+        score = torch.full((B,), INT_MIN, **i32)
+        work = torch.zeros(gp.WORK_HEAD + 5 * total + B, **i32)
+        ring = torch.empty(max(nslots, 1) * 2 * slotw, **i32)
+        kim = kimura_active(scores)
+    with annotate("genomics/gotoh_banded.launch"):
+        err = lib.gotoh_banded_launch(
+            _build.ptr(s1c), _build.ptr(s2c), _build.ptr(offs), _build.ptr(plan),
+            _build.ptr(work), _build.ptr(ring), _build.ptr(dirs), _build.ptr(score), B, Lm, Ln,
+            V, KW, nlevels, total, slotw, scores.s_match, scores.s_mismatch,
+            scores.s_transition if kim else 0, int(kim), scores.g, scores.h, blocks,
+            int(spin_ns), stream,
+        )
     _build.check(err, "gotoh_banded")
     counts["kernel"] += 1
-    if int(work[1]) != 0:  # the launch's error word (synchronises)
+    with annotate("genomics/gotoh_banded.wait"):
+        err = int(work[1])  # the launch's error word (synchronises)
+    if err != 0:
         raise RuntimeError("gotoh_banded: a strip pipeline wait passed its bound")
     return score, dirs
 
@@ -347,7 +353,8 @@ def walk_banded_batch(dirs, ms, ns, V: int, geom: tuple[int, int] | None = None,
     if not _build.uses_kernel(dirs):
         return [walk_banded_plain(dirs[b], int(ms[b]), int(ns[b]), V, (gM, gN))
                 for b in range(ms.size)]
-    return _walk_banded_cuda(dirs, ms, ns, V, gM, gN, max_steps)
+    with annotate("genomics/gotoh_banded.walk"):
+        return _walk_banded_cuda(dirs, ms, ns, V, gM, gN, max_steps)
 
 
 def whole_walk_steps(ms, ns) -> int:

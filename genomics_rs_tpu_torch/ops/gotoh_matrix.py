@@ -56,6 +56,7 @@ from genomics_rs_tpu_torch.ops.gotoh_stream import (
     wavefront_plain,
 )
 from genomics_rs_tpu_torch.ops.subst import warn_unknown_bytes
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: launches of the two kernels and calls of their plain versions, the
 #: fill's by route.
@@ -175,18 +176,19 @@ def _profile_cuda(s2eb, ns, matrix, ns_dev=None) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"the profile kernel takes CUDA tensors, not {dev}")
     B, Ln = s2eb.shape
-    _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
-    ns_h = _col_lengths(ns, B, Ln)
-    _, _, tab = device_tables(matrix, dev)
-    A = tab.shape[0]
-    prof = torch.empty((B, A, Ln), dtype=torch.int16, device=dev)
-    if B == 0 or Ln == 0:
-        return prof.zero_()
-    if ns_dev is None:  # staged by the driver: no wait on the stream
-        ns_dev = torch.from_numpy(ns_h).to(dev, non_blocking=True)
-    _build.require(ns_dev, "ns_dev", torch.int32, dev, (B,))
-    lib = _build.library()
-    with torch.cuda.device(dev):
+    with annotate("genomics/gotoh_matrix.plan"):
+        _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
+        ns_h = _col_lengths(ns, B, Ln)
+        _, _, tab = device_tables(matrix, dev)
+        A = tab.shape[0]
+        prof = torch.empty((B, A, Ln), dtype=torch.int16, device=dev)
+        if B == 0 or Ln == 0:
+            return prof.zero_()
+        if ns_dev is None:  # a non-blocking copy: no wait on the stream
+            ns_dev = torch.from_numpy(ns_h).to(dev, non_blocking=True)
+        _build.require(ns_dev, "ns_dev", torch.int32, dev, (B,))
+        lib = _build.library()
+    with torch.cuda.device(dev), annotate("genomics/gotoh_matrix.launch"):
         err = lib.matrix_profile_launch(
             _build.ptr(s2eb), _build.ptr(ns_dev), _build.ptr(tab), _build.ptr(prof), B, Ln, A,
             PROFILE_BLOCKS_PER_SM, _build.stream_handle(dev),
@@ -238,17 +240,18 @@ def _matrix_cuda(code1, prof, ms, ns, g, h, is_local, emit_dirs, route, rows_per
         raise ValueError(f"the matrix fill kernel takes CUDA tensors, not {dev}")
     B, Lm = code1.shape
     A, Ln = prof.shape[1], prof.shape[2]
-    _build.require(code1, "code1", torch.int32, dev, (B, Lm))
-    _build.require(prof, "prof", torch.int16, dev, (B, A, Ln))
-    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
-    rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
-            else int(rows_per_strip))
-    gp.check_rows(rows, "gotoh_matrix")
-    lib = _build.library()
     with torch.cuda.device(dev):
-        per_sm = gp.blocks_per_sm(lib.gotoh_matrix_blocks_per_sm, rows // 32, int(is_local),
-                                  int(emit_dirs))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        with annotate("genomics/gotoh_matrix.plan"):
+            _build.require(code1, "code1", torch.int32, dev, (B, Lm))
+            _build.require(prof, "prof", torch.int16, dev, (B, A, Ln))
+            ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+            rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
+                    else int(rows_per_strip))
+            gp.check_rows(rows, "gotoh_matrix")
+            lib = _build.library()
+            per_sm = gp.blocks_per_sm(lib.gotoh_matrix_blocks_per_sm, rows // 32, int(is_local),
+                                      int(emit_dirs))
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
         return run_matrix(lib, code1, prof, ms_h, ns_h, g, h, is_local, emit_dirs, route, rows,
                           gp.resident_blocks(per_sm, sms, max_blocks),
                           gp.SPIN_NS if spin_ns is None else spin_ns,
@@ -366,21 +369,22 @@ def gotoh_scores_matrix(s1b, s2b, ms, ns, matrix, g: int, h: int, is_local: bool
         live = np.concatenate([s1b[i, : ms_np[i]] for i in range(s1b.shape[0])]
                               + [s2b[i, : ns_np[i]] for i in range(s2b.shape[0])])
         warn_unknown_bytes(matrix, live, where="matrix batch")
-    vmax = _check_matrix(matrix)
-    if engine not in ("auto", "pallas", "stream", "scan"):
-        raise ValueError(f"unknown engine {engine!r}")
-    if engine == "pallas" and vmax > 127:
-        raise ValueError(
-            "pallas matrix engine streams int8 substitution "
-            f"scores; |matrix| max {vmax} > 127"
-        )
-    dev = resolve_device(device) if host else None
-    s1, s2 = _on_device(s1b, dev), _on_device(s2b, dev)
-    B = s1.shape[0]
+    with annotate("genomics/gotoh_matrix.plan"):
+        vmax = _check_matrix(matrix)
+        if engine not in ("auto", "pallas", "stream", "scan"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine == "pallas" and vmax > 127:
+            raise ValueError(
+                "pallas matrix engine streams int8 substitution "
+                f"scores; |matrix| max {vmax} > 127"
+            )
+        dev = resolve_device(device) if host else None
+        s1, s2 = _on_device(s1b, dev), _on_device(s2b, dev)
+        B = s1.shape[0]
+        if engine == "auto":
+            engine = "stream" if vmax <= 127 and B >= STREAM_MIN_B else "pallas"
     if engine == "scan":
         return matrix_scores_scan(s1, s2, ms, ns, matrix, g, h, is_local)
-    if engine == "auto":
-        engine = "stream" if vmax <= 127 and B >= STREAM_MIN_B else "pallas"
     if engine == "stream":
         from genomics_rs_tpu_torch.ops.gotoh_matrix_stream import (
             gotoh_scores_matrix_stream,

@@ -42,6 +42,7 @@ from genomics_rs_tpu_torch.ops import gotoh_rowblock as rb
 from genomics_rs_tpu_torch.ops.gotoh_scan import INT_MIN, FillResult
 from genomics_rs_tpu_torch.ops import gotoh_stream as gs  # imports this module too
 from genomics_rs_tpu_torch.ops.subst import encode_chars, kimura_active, sentinel, sub_score
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: sublane count of the JAX flat layout (kept for the modules that import
 #: it there; the port's kernels have no panes).
@@ -370,15 +371,18 @@ def launch_groups(launch, ms_h, ns_h, Ln: int, rows: int, resident: int, dev, co
     i32 = dict(dtype=torch.int32, device=dev)
     errs = []
     for lo, hi in pipeline_groups(ms_h, Ln, rows):
-        plan_h, nlevels, total, blocks, nslots = pipeline_plan(
-            ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident,
-            inflight=strips_in_flight(np.asarray(ns_h[lo:hi]) + 1, 0))
-        plan = torch.from_numpy(plan_h)
-        if dev.type == "cuda":  # a pinned copy does not wait for the stream's earlier work
-            plan = plan.pin_memory().to(dev, non_blocking=True)
-        work = torch.zeros(WORK_HEAD + 5 * total + (hi - lo), **i32)
-        ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
-        _build.check(launch(lo, hi, plan, work, ring, nlevels, total, blocks), what)
+        with annotate("genomics/gotoh_pallas.plan"):
+            plan_h, nlevels, total, blocks, nslots = pipeline_plan(
+                ms_h[lo:hi], ns_h[lo:hi], Ln, rows, resident,
+                inflight=strips_in_flight(np.asarray(ns_h[lo:hi]) + 1, 0))
+            plan = torch.from_numpy(plan_h)
+            if dev.type == "cuda":  # a pinned copy does not wait for the stream's earlier work
+                plan = plan.pin_memory().to(dev, non_blocking=True)
+            work = torch.zeros(WORK_HEAD + 5 * total + (hi - lo), **i32)
+            ring = torch.empty(max(nslots, 1) * 2 * (Ln + 1), **i32)
+        with annotate("genomics/gotoh_pallas.launch"):
+            err = launch(lo, hi, plan, work, ring, nlevels, total, blocks)
+        _build.check(err, what)
         counts["kernel"] += 1
         errs.append(work[1])
     return errs[0] if len(errs) == 1 else torch.stack(errs).max()
@@ -387,7 +391,9 @@ def launch_groups(launch, ms_h, ns_h, Ln: int, rows: int, resident: int, dev, co
 def raise_on_err(err, what: str = "gotoh_pallas") -> None:
     """Raise if a warp-strip pipeline's error word (a tensor or an int;
     reading a card tensor synchronises) is set."""
-    if int(err) != 0:
+    with annotate("genomics/gotoh_pallas.wait"):
+        err = int(err)
+    if err != 0:
         raise RuntimeError(f"{what}: a strip pipeline wait passed its bound")
 
 

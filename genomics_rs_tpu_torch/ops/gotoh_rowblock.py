@@ -60,6 +60,7 @@ from genomics_rs_tpu_torch.ops.subst import (
     sub_score,
 )
 from genomics_rs_tpu_torch.sequence import round_up
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: diagonal padding quantum (``Kp``), kept from the JAX kernel so packed
 #: bitmaps have the same shape in both packages.
@@ -146,7 +147,9 @@ def block_plan(R: int, B: int, rows: int, resident: int) -> BlockPlan:
 
 def raise_on_err(err) -> None:
     """Raise if a pipeline's error word (read on the host) is set."""
-    if int(err) != 0:
+    with annotate("genomics/gotoh_rowblock.wait"):
+        err = int(err)
+    if err != 0:
         raise RuntimeError("gotoh_rowblock: a strip pipeline wait passed its bound")
 
 
@@ -242,22 +245,23 @@ def launch(s1_block, s2e, top, left, m, n, i0, j0, scores, is_local, emit_dirs,
     _build.require(top, "top", torch.int32, dev, (3, B + 1))
     if left is not None:
         _build.require(left, "left", torch.int32, dev, (3, R))
-    T = strip_rows(R, rows)
-    resident = _resident(lib, dev, T, is_local, tile)
-    if max_blocks is not None:
-        resident = min(resident, int(max_blocks))
-    plan = block_plan(R, B, T, resident)
-    i32 = dict(dtype=torch.int32, device=dev)
-    s1c = encode_chars(s1_block, scores).contiguous()
-    s2c = encode_chars(s2e, scores).contiguous()
-    dirs = torch.empty((Kp // PACK, V), **i32) if emit_dirs else None
-    bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
-    cols = torch.empty((NC, 3, V), **i32) if emit_cols else None
-    right = torch.empty((3, R), **i32) if emit_right else None
-    work = _workspace(plan, dev)
-    ring = torch.empty(max(plan.slots, 1) * 2 * (B + 1), **i32)
-    kim = kimura_active(scores)
-    with torch.cuda.device(dev):
+    with annotate("genomics/gotoh_rowblock.plan"):
+        T = strip_rows(R, rows)
+        resident = _resident(lib, dev, T, is_local, tile)
+        if max_blocks is not None:
+            resident = min(resident, int(max_blocks))
+        plan = block_plan(R, B, T, resident)
+        i32 = dict(dtype=torch.int32, device=dev)
+        s1c = encode_chars(s1_block, scores).contiguous()
+        s2c = encode_chars(s2e, scores).contiguous()
+        dirs = torch.empty((Kp // PACK, V), **i32) if emit_dirs else None
+        bottom = torch.empty((3, B + 1), **i32) if emit_bottom else None
+        cols = torch.empty((NC, 3, V), **i32) if emit_cols else None
+        right = torch.empty((3, R), **i32) if emit_right else None
+        work = _workspace(plan, dev)
+        ring = torch.empty(max(plan.slots, 1) * 2 * (B + 1), **i32)
+        kim = kimura_active(scores)
+    with torch.cuda.device(dev), annotate("genomics/gotoh_rowblock.launch"):
         err = lib.gotoh_rowblock_launch(
             _build.ptr(s1c), _build.ptr(s2c), _build.ptr(top),
             _build.ptr(left), _build.ptr(dirs), _build.ptr(bottom),

@@ -53,6 +53,7 @@ from genomics_rs_tpu_torch.ops.subst import (
     sentinel,
     sub_score,
 )
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: launches of the CUDA kernel / calls of the plain version.
 COUNTS = {"kernel": 0, "plain": 0}
@@ -186,17 +187,18 @@ def _stream_cuda(s1eb, s2eb, ms, ns, scores, is_local, emit_dirs=False, rows_per
         raise ValueError(f"the {what} kernel takes CUDA tensors, not {dev}")
     B, Lm = s1eb.shape
     Ln = s2eb.shape[1]
-    _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
-    _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
-    ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
-    rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
-            else int(rows_per_strip))
-    gp.check_rows(rows, what)
-    lib = _build.library()
     with torch.cuda.device(dev):
-        per_sm = gp.blocks_per_sm(lib.gotoh_stream_blocks_per_sm, rows // 32, int(is_local),
-                                  int(emit_dirs))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        with annotate("genomics/gotoh_stream.plan"):
+            _build.require(s1eb, "s1eb", torch.uint8, dev, (B, Lm))
+            _build.require(s2eb, "s2eb", torch.uint8, dev, (B, Ln))
+            ms_h, ns_h = _lengths(ms, ns, B, Lm, Ln)
+            rows = (stream_rows(ms_h, ns_h, Lm, emit_dirs) if rows_per_strip is None
+                    else int(rows_per_strip))
+            gp.check_rows(rows, what)
+            lib = _build.library()
+            per_sm = gp.blocks_per_sm(lib.gotoh_stream_blocks_per_sm, rows // 32, int(is_local),
+                                      int(emit_dirs))
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
         return run_stream(lib, s1eb, s2eb, ms_h, ns_h, scores, is_local, emit_dirs, rows,
                           gp.resident_blocks(per_sm, sms, max_blocks),
                           gp.SPIN_NS if spin_ns is None else spin_ns,

@@ -33,6 +33,7 @@ import numpy as np
 
 from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_STOP, DIR_SUB
 from genomics_rs_tpu_torch.sequence import Sequence
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -198,80 +199,81 @@ def classify_moves_batch(
     this body on a batch of one). Under DEBUG logging (the per-move
     trace) and for ``T == 0`` it classifies pair by pair.
     """
-    B, T = moves.shape
-    counts = np.asarray(counts, np.int64)
-    if log.isEnabledFor(logging.DEBUG) or T == 0:
-        return [classify_moves(moves[b, : int(counts[b])], int(start_is[b]),
-                               int(start_js[b]), int(scores[b]), a, s)
-                for b, (a, s) in enumerate(pairs)]
-    if not B:
-        return []
-    # Only the live prefix: a walk buffer is padded far past its paths.
-    T = min(T, max(int(counts.max()), 1))
-    mask = np.arange(T)[None, :] < counts[:, None]
-    codes = np.where(mask, moves[:, :T], 255).astype(np.uint8, copy=False)
-    is_sub = codes == DIR_SUB
-    is_ins = codes == DIR_INS
-    is_del = codes == DIR_DEL
-    valid = is_sub | is_ins | is_del
-    if (valid != mask).any():
-        raise ValueError(f"Unexpected move code {int(codes[mask & ~valid][0])}")
-    # Position each move is taken AT (pre-move). Saturation never
-    # disagrees with the cumsum in a valid table (a clamped axis only
-    # receives codes that no longer move it); clip at 0 anyway so corrupt
-    # inputs can't index negatively. Padding moves neither axis.
-    di = mask & ~is_ins
-    dj = mask & ~is_del
-    i_at = np.maximum(np.asarray(start_is, np.int64)[:, None] - np.cumsum(di, axis=1) + di, 0)
-    j_at = np.maximum(np.asarray(start_js, np.int64)[:, None] - np.cumsum(dj, axis=1) + dj, 0)
-    # Both sequences' bytes at (i, j), 0x100 past either end (the
-    # reference's None == None): each row ends in the sentinel, and an
-    # index past a sequence's end is clipped onto it.
-    l1 = np.array([len(a.sequence) for a, _ in pairs], np.int64)
-    l2 = np.array([len(b.sequence) for _, b in pairs], np.int64)
-    s1mat = np.full((B, int(l1.max()) + 1), 0x100, np.int16)
-    s2mat = np.full((B, int(l2.max()) + 1), 0x100, np.int16)
-    for b, (a, s) in enumerate(pairs):
-        s1mat[b, : l1[b]] = np.frombuffer(a.sequence.encode("ascii"), np.uint8)
-        s2mat[b, : l2[b]] = np.frombuffer(s.sequence.encode("ascii"), np.uint8)
-    rows = np.arange(B)[:, None]
-    c1 = s1mat[rows, np.minimum(i_at, l1[:, None])]
-    c2 = s2mat[rows, np.minimum(j_at, l2[:, None])]
-    match = is_sub & (c1 == c2)
-    mismatch = is_sub & ~match
-    prev = np.empty_like(codes)
-    prev[:, 0] = 255
-    prev[:, 1:] = codes[:, :-1]
-    ins_open = is_ins & (prev != DIR_INS)
-    del_open = is_del & (prev != DIR_DEL)
-    ins_ext = is_ins & ~ins_open
-    del_ext = is_del & ~del_open
-    choice_code = np.zeros((B, T), np.uint8)
-    choice_code[mismatch] = 1
-    choice_code[ins_ext] = 2
-    choice_code[ins_open] = 3
-    choice_code[del_ext] = 4
-    choice_code[del_open] = 5
-    n_match = np.count_nonzero(match, axis=1)
-    n_mis = np.count_nonzero(mismatch, axis=1)
-    n_open = np.count_nonzero(ins_open | del_open, axis=1)
-    n_ext = np.count_nonzero(ins_ext | del_ext, axis=1)
-    out: list[AlignedSequences] = []
-    for b, (a, s) in enumerate(pairs):
-        c = int(counts[b])
-        # Choice objects over the real path only, never the padding.
-        out.append(AlignedSequences(
-            s1=a,
-            s2=s,
-            alignment=list(zip(_CHOICE_ARR[choice_code[b, :c]].tolist(),
-                               i_at[b, :c].tolist(), j_at[b, :c].tolist())),
-            score=int(scores[b]),
-            matches=int(n_match[b]),
-            mismatches=int(n_mis[b]),
-            gap_extensions=int(n_ext[b]),
-            opening_gaps=int(n_open[b]),
-        ))
-    return out
+    with annotate("genomics/traceback.classify"):
+        B, T = moves.shape
+        counts = np.asarray(counts, np.int64)
+        if log.isEnabledFor(logging.DEBUG) or T == 0:
+            return [classify_moves(moves[b, : int(counts[b])], int(start_is[b]),
+                                   int(start_js[b]), int(scores[b]), a, s)
+                    for b, (a, s) in enumerate(pairs)]
+        if not B:
+            return []
+        # Only the live prefix: a walk buffer is padded far past its paths.
+        T = min(T, max(int(counts.max()), 1))
+        mask = np.arange(T)[None, :] < counts[:, None]
+        codes = np.where(mask, moves[:, :T], 255).astype(np.uint8, copy=False)
+        is_sub = codes == DIR_SUB
+        is_ins = codes == DIR_INS
+        is_del = codes == DIR_DEL
+        valid = is_sub | is_ins | is_del
+        if (valid != mask).any():
+            raise ValueError(f"Unexpected move code {int(codes[mask & ~valid][0])}")
+        # Position each move is taken AT (pre-move). Saturation never
+        # disagrees with the cumsum in a valid table (a clamped axis only
+        # receives codes that no longer move it); clip at 0 anyway so corrupt
+        # inputs can't index negatively. Padding moves neither axis.
+        di = mask & ~is_ins
+        dj = mask & ~is_del
+        i_at = np.maximum(np.asarray(start_is, np.int64)[:, None] - np.cumsum(di, axis=1) + di, 0)
+        j_at = np.maximum(np.asarray(start_js, np.int64)[:, None] - np.cumsum(dj, axis=1) + dj, 0)
+        # Both sequences' bytes at (i, j), 0x100 past either end (the
+        # reference's None == None): each row ends in the sentinel, and an
+        # index past a sequence's end is clipped onto it.
+        l1 = np.array([len(a.sequence) for a, _ in pairs], np.int64)
+        l2 = np.array([len(b.sequence) for _, b in pairs], np.int64)
+        s1mat = np.full((B, int(l1.max()) + 1), 0x100, np.int16)
+        s2mat = np.full((B, int(l2.max()) + 1), 0x100, np.int16)
+        for b, (a, s) in enumerate(pairs):
+            s1mat[b, : l1[b]] = np.frombuffer(a.sequence.encode("ascii"), np.uint8)
+            s2mat[b, : l2[b]] = np.frombuffer(s.sequence.encode("ascii"), np.uint8)
+        rows = np.arange(B)[:, None]
+        c1 = s1mat[rows, np.minimum(i_at, l1[:, None])]
+        c2 = s2mat[rows, np.minimum(j_at, l2[:, None])]
+        match = is_sub & (c1 == c2)
+        mismatch = is_sub & ~match
+        prev = np.empty_like(codes)
+        prev[:, 0] = 255
+        prev[:, 1:] = codes[:, :-1]
+        ins_open = is_ins & (prev != DIR_INS)
+        del_open = is_del & (prev != DIR_DEL)
+        ins_ext = is_ins & ~ins_open
+        del_ext = is_del & ~del_open
+        choice_code = np.zeros((B, T), np.uint8)
+        choice_code[mismatch] = 1
+        choice_code[ins_ext] = 2
+        choice_code[ins_open] = 3
+        choice_code[del_ext] = 4
+        choice_code[del_open] = 5
+        n_match = np.count_nonzero(match, axis=1)
+        n_mis = np.count_nonzero(mismatch, axis=1)
+        n_open = np.count_nonzero(ins_open | del_open, axis=1)
+        n_ext = np.count_nonzero(ins_ext | del_ext, axis=1)
+        out: list[AlignedSequences] = []
+        for b, (a, s) in enumerate(pairs):
+            c = int(counts[b])
+            # Choice objects over the real path only, never the padding.
+            out.append(AlignedSequences(
+                s1=a,
+                s2=s,
+                alignment=list(zip(_CHOICE_ARR[choice_code[b, :c]].tolist(),
+                                   i_at[b, :c].tolist(), j_at[b, :c].tolist())),
+                score=int(scores[b]),
+                matches=int(n_match[b]),
+                mismatches=int(n_mis[b]),
+                gap_extensions=int(n_ext[b]),
+                opening_gaps=int(n_open[b]),
+            ))
+        return out
 
 
 def traceback_host(

@@ -22,6 +22,7 @@ import torch
 
 from genomics_rs_tpu_torch.ops import _build
 from genomics_rs_tpu_torch.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_STOP
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: calls of the plain walker.
 COUNTS = {"plain": 0}
@@ -130,4 +131,5 @@ def device_walk(
         )
         return moves.numpy()[:count], i_f, j_f, done
 
-    return resume_walk(step, start_li, start_j, i0, windowed=int(j0) > 0)
+    with annotate("genomics/traceback_device.walk"):
+        return resume_walk(step, start_li, start_j, i0, windowed=int(j0) > 0)

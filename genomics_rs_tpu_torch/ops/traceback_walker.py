@@ -25,6 +25,7 @@ import torch
 
 from genomics_rs_tpu_torch.ops import _build
 from genomics_rs_tpu_torch.ops.traceback_device import resume_walk, walk_block
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: moves per packed output word.
 MPW = 16
@@ -120,7 +121,8 @@ def walk_full(
         )
         return unpack_moves(words, count), i_f, j_f, done
 
-    return resume_walk(step, start_li, start_j, int(i0), windowed=int(j0) > 0)
+    with annotate("genomics/traceback_walker.walk"):
+        return resume_walk(step, start_li, start_j, int(i0), windowed=int(j0) > 0)
 
 
 def pack_moves(codes: np.ndarray, nw: int) -> np.ndarray:

@@ -42,6 +42,7 @@ from genomics_rs_tpu_torch.parallel.batch import (
     score_pairs,
 )
 from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, SequenceContainer, round_up
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -93,15 +94,17 @@ def _score_pairs_bucketed(container, pairs, lens, scores, is_local: bool,
             enc_cache[key] = seqs[idx].encoded(pad_to=L, pad_value=pad_value)
         return enc_cache[key]
 
-    groups = bucketize_pairs(pairs, lens)
+    with annotate("genomics/allpairs.encode"):
+        groups = bucketize_pairs(pairs, lens)
     for key in sorted(groups):
-        idxs = groups[key]
-        Lm = max(round_up(max(int(lens[pairs[k][0]]) for k in idxs), 128), 128)
-        Ln = max(round_up(max(int(lens[pairs[k][1]]) for k in idxs), 128), 128)
-        s1b = np.stack([enc(pairs[k][0], Lm, PAD_S1) for k in idxs])
-        s2b = np.stack([enc(pairs[k][1], Ln, PAD_S2) for k in idxs])
-        ms = np.array([lens[pairs[k][0]] for k in idxs], dtype=np.int32)
-        ns = np.array([lens[pairs[k][1]] for k in idxs], dtype=np.int32)
+        with annotate("genomics/allpairs.encode"):
+            idxs = groups[key]
+            Lm = max(round_up(max(int(lens[pairs[k][0]]) for k in idxs), 128), 128)
+            Ln = max(round_up(max(int(lens[pairs[k][1]]) for k in idxs), 128), 128)
+            s1b = np.stack([enc(pairs[k][0], Lm, PAD_S1) for k in idxs])
+            s2b = np.stack([enc(pairs[k][1], Ln, PAD_S2) for k in idxs])
+            ms = np.array([lens[pairs[k][0]] for k in idxs], dtype=np.int32)
+            ns = np.array([lens[pairs[k][1]] for k in idxs], dtype=np.int32)
         if mesh is not None and mesh.size > 1:
             eng = mesh_bucket_engine(engine, Lm, Ln, is_local)
             if eng == "pallas":
@@ -116,8 +119,9 @@ def _score_pairs_bucketed(container, pairs, lens, scores, is_local: bool,
         else:
             sc, _, _ = score_pairs(s1b, s2b, ms, ns, scores, is_local, engine=engine,
                                    device=device)
-        for pos, k in enumerate(idxs):
-            out[k] = int(sc[pos])
+        with annotate("genomics/allpairs.readback"):
+            for pos, k in enumerate(idxs):
+                out[k] = int(sc[pos])
         padded_cells += float(len(idxs)) * (Lm + 1.0) * (Ln + 1.0)
         log.debug("[AllPairs] bucket %s: %d pairs at (%d, %d)", key, len(idxs), Lm, Ln)
     return out, padded_cells

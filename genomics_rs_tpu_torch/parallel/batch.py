@@ -37,6 +37,7 @@ from genomics_rs_tpu_torch.ops.gotoh_shortread import SHORTREAD_MAX_LEN, gotoh_s
 from genomics_rs_tpu_torch.ops.gotoh_stream import gotoh_scores_stream, gotoh_stream_fill
 from genomics_rs_tpu_torch.ops.gotoh_stream8 import gotoh_scores_stream8, gotoh_stream8_fill
 from genomics_rs_tpu_torch.parallel.mesh import DATA_AXIS, axis_devices
+from genomics_rs_tpu_torch.utils.profiling import annotate
 
 #: The JAX router's tier bounds (padded lengths): past the short-read
 #: tier (K6, up to ``SHORTREAD_MAX_LEN``), the segmented tier up to this
@@ -101,7 +102,8 @@ def _read(outs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     for o in outs:
         if o[3] is not None:
             raise_on_err(o[3], "batch fill")
-    return tuple(np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
+    with annotate("genomics/batch.readback"):
+        return tuple(np.concatenate([o[x].cpu().numpy() for o in outs]) for x in range(3))
 
 
 def score_pairs(s1b, s2b, ms, ns, scores, is_local: bool = False,

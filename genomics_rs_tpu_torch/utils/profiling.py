@@ -7,13 +7,21 @@
   not just its enqueue.
 * :func:`trace` — a ``torch.profiler`` capture gated by
   ``GENOMICS_TORCH_TRACE=<dir>`` (Chrome trace JSON).
-* :func:`annotate` — ``torch.profiler.record_function`` so phases show
-  up as named ranges inside a trace.
+* :func:`annotate` — a ``torch.profiler`` range (``record_function``'s
+  C++ form) while a profiler session records, a shared no-op context
+  otherwise. The program's phase spans go through it, named
+  ``genomics/<module>.<phase>`` with ``<phase>`` one of :data:`PHASES`;
+  they mark phases of a request, never a whole call, so an idle gap of
+  the device in a trace is named by what the host was doing.
+* A ``gc.callbacks`` hook, installed once when this module is first
+  imported: while a profiler session records, each collection of
+  Python's cyclic collector is a ``genomics/gc.gen<N>`` range.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import logging
 import os
 import time
@@ -104,11 +112,54 @@ def spinner(message: str, done: str):
             sys.stderr.flush()
 
 
-@contextlib.contextmanager
+#: the phases a program span may name: ``encode`` (host bytes to device
+#: batches), ``plan`` (a launch's host plan, workspace and buffers),
+#: ``launch`` (the launch call), ``wait`` (the host blocked on the device:
+#: an error-word read, ``.cpu()``, ``synchronize``), ``walk`` (the host
+#: side of a walk: staging, resumes, read-back), ``classify`` (moves to
+#: an alignment) and ``readback`` (results to the host).
+PHASES = ("encode", "plan", "launch", "wait", "walk", "classify", "readback")
+
+_OFF = contextlib.nullcontext()
+
+#: the range a span opens while a session records: ``record_function``'s
+#: C++ form (2.3 µs a span against ``record_function``'s 12.6 µs under a
+#: CPU and CUDA session, on an H100 machine's host).
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
 def annotate(name: str):
-    """Named range inside a ``torch.profiler`` trace (cheap off-trace)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named range in a ``torch.profiler`` trace while a session
+    records (on the profiler's clock, nested in the thread's open
+    ranges); otherwise one shared ``nullcontext``: no clock read and no
+    allocation, under 1 µs a span with the ``with`` statement."""
+    if torch.autograd._profiler_enabled():
+        return _RANGE(name)
+    return _OFF
+
+
+#: the range of the collection under way, if one was opened (collections
+#: do not nest).
+_GC_OPEN: list = []
+
+
+def _gc_span(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a collection is a ``genomics/gc.gen<N>``
+    range while the profiler records; returns at once otherwise."""
+    if phase == "start":
+        if torch.autograd._profiler_enabled():
+            rf = _RANGE(f"genomics/gc.gen{info['generation']}")
+            rf.__enter__()
+            _GC_OPEN.append(rf)
+    elif _GC_OPEN:
+        _GC_OPEN.pop().__exit__(None, None, None)
+
+
+_gc_span.genomics_gc_span = True
+# Once per process, whatever imports this module again (a reload, a
+# load by file path): a second hook would nest a second range.
+if not any(getattr(cb, "genomics_gc_span", False) for cb in gc.callbacks):
+    gc.callbacks.append(_gc_span)
 
 
 @contextlib.contextmanager
