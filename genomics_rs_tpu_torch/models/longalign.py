@@ -16,6 +16,12 @@ of ``genomics_rs_tpu/models/longalign.py``).
 
 Every refill injects exact boundary values, so the codes, path, ties
 and stats equal a monolithic fill's.
+
+**One fill** — a pair of one block (``NB == 1``) whose walk can open no
+window right of column 0 (``n < 2V``) would refill the whole table from
+the same boundary row: :func:`align_checkpointed` then runs that fill
+alone, with dirs, and takes the end cell (``(m, n)`` or the local best)
+and the error word from it; the forward pass is left out.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ from genomics_rs_tpu_torch.sequence import PAD_S1, PAD_S2, Sequence, round_up
 from genomics_rs_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
+
+#: calls of :func:`align_checkpointed` by route: one fill with dirs, or
+#: the forward pass and the windowed refills.
+ROUTE_COUNTS = {"one_fill": 0, "forward": 0}
 
 
 def _forward_blocks(
@@ -180,6 +190,30 @@ def _walk_span_windowed(
             raise RuntimeError(f"traceback stalled at ({i}, {j}) in block {blk}")
 
 
+def _walk_one_fill(s1e, s2e, m: int, n: int, R: int, scores: Scores, is_local: bool):
+    """One block, every walk window at column 0: a single fill with dirs
+    over the whole table, walked from ``(m, n)`` or the local best.
+    Returns (score, start_i, start_j, move codes in walk order as a
+    list of arrays, like :func:`_walk_span_windowed`)."""
+    top = global_boundary_top(0, s2e.shape[0], scores, device=s2e.device)
+    res = gotoh_rowblock(
+        s1e, s2e, top, m, n, 0, scores, is_local,
+        emit_dirs=True, emit_bottom=False,
+    )
+    with annotate("genomics/longalign.wait"):
+        r = torch.stack([res.score_at_mn, *res.best, res.err]).cpu().tolist()
+    raise_on_err(r[4])
+    score, i, j = r[1:4] if is_local else (r[0], m, n)
+    if i == 0 and j == 0:
+        return score, i, j, []
+    codes, i_f, j_f, done = device_walk(
+        res.dirs, i, j, 0, max_steps=R + 2 * lane_count(R) + 1
+    )
+    if not done:
+        raise RuntimeError(f"traceback stopped at ({i_f}, {j_f}) without terminating")
+    return score, i, j, [codes]
+
+
 def align_checkpointed(
     seq1: Sequence,
     seq2: Sequence,
@@ -196,18 +230,24 @@ def align_checkpointed(
     R = block_rows
     s1e, s2e, NB = _encode_blocks(seq1, seq2, R, device)
 
-    tops, cols, best, at_mn = _forward_blocks(
-        s1e, s2e, m, n, R, NB, scores, is_local,
-        keep_tops=True, keep_cols=True,
-    )
-    if is_local:
-        score, start_i, start_j = best
+    if NB == 1 and n < 2 * lane_count(R):
+        ROUTE_COUNTS["one_fill"] += 1
+        score, start_i, start_j, codes = _walk_one_fill(
+            s1e, s2e, m, n, R, scores, is_local
+        )
     else:
-        score, start_i, start_j = at_mn, m, n
-
-    codes = _walk_span_windowed(
-        s1e, s2e, tops, cols, R, m, scores, is_local, start_i, start_j
-    )
+        ROUTE_COUNTS["forward"] += 1
+        tops, cols, best, at_mn = _forward_blocks(
+            s1e, s2e, m, n, R, NB, scores, is_local,
+            keep_tops=True, keep_cols=True,
+        )
+        if is_local:
+            score, start_i, start_j = best
+        else:
+            score, start_i, start_j = at_mn, m, n
+        codes = _walk_span_windowed(
+            s1e, s2e, tops, cols, R, m, scores, is_local, start_i, start_j
+        )
     log.info("[LongAlign] %dx%d in %d blocks of %d rows", m, n, NB, R)
     all_codes = np.concatenate(codes) if codes else np.zeros(0, np.uint8)
     return classify_moves(all_codes, start_i, start_j, score, seq1, seq2)

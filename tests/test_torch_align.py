@@ -17,6 +17,7 @@ from genomics_rs_tpu.config import Scores as JaxScores
 from genomics_rs_tpu.models.aligner import PairwiseAligner as JaxAligner
 from genomics_rs_tpu.sequence import Sequence as JaxSequence
 from genomics_rs_tpu_torch.config import Scores
+from genomics_rs_tpu_torch.models import longalign
 from genomics_rs_tpu_torch.models.aligner import PairwiseAligner
 from genomics_rs_tpu_torch.models.longalign import align_checkpointed
 from genomics_rs_tpu_torch.ops import gotoh_rowblock, traceback_device, traceback_walker
@@ -202,6 +203,48 @@ def test_checkpointed_left_exit_matches_jax():
     assert _fields(got) == _fields(_jax_align(a, b, False, SCORES))
     # one forward fill plus more than one window refill
     assert gotoh_rowblock.COUNTS["plain"] - before >= 3
+
+
+def _interior_local_pair(rng):
+    """A shared core between unrelated flanks: the local best cell lies
+    above row m and left of column n."""
+    core = "".join(rng.choice(list("ACGT"), 80))
+    flank = lambda k: "".join(rng.choice(list("ACGT"), k))  # noqa: E731
+    return flank(50) + core + flank(70), flank(30) + core + flank(95)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("case", ["equal", "interior_best", "n_2v_minus_1", "n_2v"])
+def test_checkpointed_one_block_one_fill(is_local, case):
+    """block_rows=1023 (V=1024), one block: with n < 2V every walk window
+    starts at column 0, so one fill with dirs replaces the forward pass
+    and the refill; at n = 2V the forward pass and the windowed refills
+    stay."""
+    rng = np.random.default_rng(71)
+    if case == "equal":
+        a, b = _pair(rng, 200, 200)
+    elif case == "interior_best":
+        a, b = _interior_local_pair(rng)
+    else:
+        a, b = _pair(rng, 300, 2047 if case == "n_2v_minus_1" else 2048, edits=12)
+    fills, routes = gotoh_rowblock.COUNTS["plain"], dict(longalign.ROUTE_COUNTS)
+    got = align_checkpointed(
+        Sequence("s1", a), Sequence("s2", b), Scores.from_tuple(SCORES),
+        is_local=is_local, block_rows=1023, device="cpu",
+    )
+    assert _fields(got) == _fields(_jax_align(a, b, is_local, SCORES))
+    fills = gotoh_rowblock.COUNTS["plain"] - fills
+    if case == "n_2v":
+        assert fills >= 2
+        assert longalign.ROUTE_COUNTS["forward"] == routes["forward"] + 1
+        assert longalign.ROUTE_COUNTS["one_fill"] == routes["one_fill"]
+    else:
+        assert fills == 1
+        assert longalign.ROUTE_COUNTS["one_fill"] == routes["one_fill"] + 1
+        assert longalign.ROUTE_COUNTS["forward"] == routes["forward"]
+    if case == "interior_best" and is_local:
+        _, i_end, j_end = got.alignment[0]
+        assert 0 < i_end < len(a) and 0 < j_end < len(b)
 
 
 def test_budget_routes_to_checkpointed(monkeypatch):

@@ -255,8 +255,9 @@ def test_pipeline_error_word_raises_at_the_callers_read(cuda, monkeypatch):
     plain = rb.COUNTS["plain"], gp.TILE_COUNTS["plain"]
     with pytest.raises(RuntimeError, match="passed its bound"):
         PairwiseAligner(Scores(), device="cuda").align(a, b)
-    with pytest.raises(RuntimeError, match="passed its bound"):
-        align_checkpointed(a, b, Scores(), block_rows=255, device="cuda")
+    for block_rows in (255, 1023):  # forward pass and windowed refills; one fill
+        with pytest.raises(RuntimeError, match="passed its bound"):
+            align_checkpointed(a, b, Scores(), block_rows=block_rows, device="cuda")
     s1 = torch.from_numpy(a.encoded(pad_to=768, pad_value=0xFE).copy())
     s2 = torch.from_numpy(b.encoded(pad_to=768, pad_value=PAD_S2).copy())
     with pytest.raises(RuntimeError, match="passed its bound"):
@@ -406,6 +407,24 @@ def test_align_cuda_matches_cpu(cuda, is_local):
     want = PairwiseAligner(sc, is_local, device="cpu").align(Sequence("a", a), Sequence("b", b))
     got = PairwiseAligner(sc, is_local, device="cuda").align(Sequence("a", a), Sequence("b", b))
     assert (got.score, got.alignment) == (want.score, want.alignment)
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_checkpointed_one_block_cuda_matches_cpu(cuda, is_local):
+    """One block with n < 2V: one K1 launch with dirs, walked by K2, gives
+    the CPU route's alignment; no plain version runs."""
+    from genomics_rs_tpu_torch.models.longalign import align_checkpointed
+
+    rng = np.random.default_rng(8)
+    a = "".join(rng.choice(list("ACGT"), 900))
+    b = "".join(rng.choice(list("ACGT"), 60)) + a[100:500] + a[530:880]
+    pair = Sequence("a", a), Sequence("b", b)
+    want = align_checkpointed(*pair, Scores(), is_local, block_rows=1023, device="cpu")
+    before = rb.COUNTS["kernel"], rb.COUNTS["plain"], td.COUNTS["plain"]
+    got = align_checkpointed(*pair, Scores(), is_local, block_rows=1023, device="cuda")
+    assert got == want
+    assert (rb.COUNTS["kernel"], rb.COUNTS["plain"], td.COUNTS["plain"]) == (
+        before[0] + 1, before[1], before[2])
 
 
 def _short_batch(rng, B, L1, L2, ties=False):

@@ -180,14 +180,16 @@ def failing_fills(monkeypatch):
 
 def test_error_word_raises_in_align(failing_fills):
     """The monolithic fill's read (``_fill``), the checkpointed forward's
-    (``_forward_blocks``, also under ``score_long``) and the windowed
-    refill's walk raise instead of returning a result."""
+    (``_forward_blocks``, also under ``score_long``), the one-block fill's
+    (``_walk_one_fill``) and the windowed refill's walk raise instead of
+    returning a result."""
     a, b = _pair(np.random.default_rng(4), 90, 80)
     sc = Scores()
     with pytest.raises(RuntimeError, match="passed its bound"):
         PairwiseAligner(sc, device="cpu").align(a, b)
-    with pytest.raises(RuntimeError, match="passed its bound"):
-        align_checkpointed(a, b, sc, block_rows=63, device="cpu")
+    for block_rows in (63, 1023):
+        with pytest.raises(RuntimeError, match="passed its bound"):
+            align_checkpointed(a, b, sc, block_rows=block_rows, device="cpu")
     with pytest.raises(RuntimeError, match="passed its bound"):
         score_long(a, b, sc, block_rows=63, device="cpu")
 
