@@ -1,5 +1,7 @@
-"""K1 (the row-block fill, ``csrc/gotoh_rowblock.cu``), its forward and
-refill launches together: the bound time of the work the inputs need
+"""K1 (the row-block fill, ``csrc/gotoh_rowblock.cu``), every launch of
+the window summed (one fill with direction codes a request where the
+pair is one row block, as in ``cov-align-pair``; a forward pass and
+windowed refills otherwise): the bound time of the work the inputs need
 (one fill of the m x n table with direction codes) over K1's summed
 device time, in %. Silent when K1 did not launch."""
 
